@@ -1,0 +1,290 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``oceanbase_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py              # TPC-H SF1, as the port's users run it
+    OB_SMOKE_SF=0.1 python3 chip_smoke.py   # a quicker, smaller run
+
+Phases, each printing its own lines:
+
+1. environment: torch, CUDA, the card's name and power limit;
+2. build: the path's CUDA kernel, from the source in this checkout;
+3. kernels against their plain torch versions on the card, exact, at
+   small and ragged sizes and at the main path's shapes, with CUDA-event
+   timings beside each kernel's bound;
+4. the main path: TPC-H generated from its seed, the lineitem and part
+   columns put on the card, the Q6/Q1/Q14 plans run by ``execute_plan``,
+   read back and held against numpy oracles, each plan timed;
+5. kernel mode (the JAX package's ``BENCH_MODE=pallas``): the fused Q6
+   kernel on the device-resident lineitem columns against the Q6 oracle;
+6. one JSON line of the kernels with their launch counts on the main
+   path (phases 4-5; counts are reset just before phase 4);
+7. the card's name and power limit, then the result line.
+
+Any mismatch or error exits nonzero before the result line.  Without a
+CUDA device, or without the package beside this file, it exits nonzero
+and prints no result.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit peak rate
+PLAN_RUNS = 5
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _batched_ms(torch, fn, batch=50, reps=5) -> float:
+    """Time per call, in ms, with ``batch`` calls queued back to back
+    between two CUDA events (median over ``reps``, after one warm-up
+    call): the wrapper's host work overlaps the previous launch, so this
+    reads the device's time whenever the host enqueues faster than the
+    device drains."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(batch):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / batch)
+    return statistics.median(times)
+
+
+def _q6_columns(torch, n, seed, dev):
+    """Random int32 Q6 columns with dead lanes (the kernel-test cases)."""
+    from oceanbase_tpu_torch.datatypes import date_to_days
+
+    rng = np.random.default_rng(seed)
+    cols = [
+        rng.integers(date_to_days("1992-01-01"),
+                     date_to_days("1998-12-01"), n),
+        rng.integers(0, 11, n),
+        rng.integers(1, 51, n) * 100,
+        rng.integers(90_000, 10_000_000, n),
+        np.ones(n, dtype=np.int64),
+    ]
+    cols[4][::17] = 0
+    return [torch.from_numpy(c.astype(np.int32)).to(dev) for c in cols]
+
+
+def phase_kernels(torch, dev, sf_cols):
+    """Phase 3: each kernel against its plain version on the card."""
+    from oceanbase_tpu_torch.bench.oracle_np import Q6_BOUNDS
+    from oceanbase_tpu_torch.ops import scan_kernels as sk
+
+    b = Q6_BOUNDS
+    cases = [(f"random n={n}", _q6_columns(torch, n, 100 + n, dev), b)
+             for n in (1, 100, 8192, 8193, 100_000)]
+    const = [torch.full((8193,), v, dtype=torch.int32, device=dev)
+             for v in (b["ship_lo"] + 100, 6, 100, 1_000_000, 1)]
+    cases.append(("ragged constant n=8193", const, b))
+    cases.append(("all filtered n=8193", _q6_columns(torch, 8193, 5, dev),
+                  dict(b, ship_lo=0, ship_hi=1)))
+    # offset by one element: the pointers lose 16-byte alignment and the
+    # kernel takes its element-wise path
+    cases.append(("unaligned n=100000",
+                  [c[1:] for c in _q6_columns(torch, 100_001, 6, dev)], b))
+    cases.append((f"SF lineitem n={sf_cols[0].shape[0]}", sf_cols, b))
+
+    max_err = 0
+    for name, cols, bounds in cases:
+        got = sk.q6_filter_sum(*cols, **bounds)
+        want = sk.q6_filter_sum_reference(*cols, **bounds)
+        torch.cuda.synchronize()
+        err = abs(int(got) - int(want))
+        print(f"[kernels] q6_filter_sum {name}: kernel={int(got)} "
+              f"plain={int(want)} abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"q6_filter_sum disagrees on {name}")
+        max_err = max(max_err, err)
+
+    n = sf_cols[0].shape[0]
+
+    def kernel():
+        return sk.q6_filter_sum(*sf_cols, **b)
+
+    def plain():
+        return sk.q6_filter_sum_reference(*sf_cols, **b)
+
+    ms, plain_ms = _batched_ms(torch, kernel), _batched_ms(torch, plain)
+    nbytes = 5 * 4 * n + 8            # five int32 columns in, one int64 out
+    nops = 8 * n                      # six compares, a multiply, an add
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / INT_OPS_PER_S * 1e3
+    rec = {
+        "name": "q6_filter_sum",
+        "route": "cuda",
+        "source": "oceanbase_tpu_torch/ops/csrc/q6_filter_sum.cu",
+        "replaces": "oceanbase_tpu/ops/scan_kernels.py:111",
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,   # no single PyTorch call computes it
+    }
+    print(f"[kernels] q6_filter_sum n={n}: back to back: kernel {ms:.6f} "
+          f"ms, plain {plain_ms:.6f} ms; bound {rec['bound_ms']:.6f} ms "
+          f"({rec['bound_by']}, {nbytes} B)")
+    return [rec]
+
+
+def _check_q1(res, want):
+    for k, v in want.items():
+        got = np.asarray(res[k])
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(got, v, rtol=1e-12, err_msg=k)
+        elif got.tolist() != v.tolist():
+            raise AssertionError(f"Q1 {k}: {got.tolist()} != {v.tolist()}")
+
+
+def phase_main_path(torch, dev, tables, types, card):
+    """Phases 4-5: the executor's Q6/Q1/Q14 and kernel mode at scale."""
+    from oceanbase_tpu_torch.bench import oracle_np
+    from oceanbase_tpu_torch.bench.queries import (
+        q1_plan, q14_plan, q6_plan, slice_tables,
+    )
+    from oceanbase_tpu_torch.exec.plan import execute_plan
+    from oceanbase_tpu_torch.ops import q6_filter_sum
+    from oceanbase_tpu_torch.vector import to_numpy
+
+    li, part = tables["lineitem"], tables["part"]
+    n = len(li["l_orderkey"])
+    t0 = time.perf_counter()
+    dev_tables = slice_tables(tables, types, device=dev)
+    torch.cuda.synchronize()
+    on_card = sum(c.data.numel() * c.data.element_size()
+                  for r in dev_tables.values() for c in r.columns.values())
+    print(f"[main] from_numpy: {on_card} bytes on {dev} in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    plans = {"q6": q6_plan(), "q1": q1_plan(), "q14": q14_plan(n)}
+    results = {}
+    for qname, plan in plans.items():
+        res = to_numpy(execute_plan(plan, dev_tables))
+        results[qname] = res
+        if qname == "q6":
+            want = oracle_np.numpy_q6(li)
+            if int(res["revenue"][0]) != want:
+                raise AssertionError(f"Q6 {res['revenue']} != {want}")
+        elif qname == "q1":
+            _check_q1(res, oracle_np.numpy_q1(li))
+        else:
+            want = oracle_np.numpy_q14(li, part)
+            np.testing.assert_allclose(res["promo_revenue"][0], want,
+                                       rtol=1e-9)
+        for k, v in res.items():
+            if np.asarray(v).dtype.kind == "f" and \
+                    not np.isfinite(np.asarray(v)).all():
+                raise AssertionError(f"{qname} {k} is not finite: {v}")
+        shown = {k: np.asarray(v).tolist() for k, v in res.items()
+                 if not k.startswith("__")}
+        print(f"[main] {qname}: matches the numpy oracle {shown}")
+
+    timings = {}
+    for qname, plan in plans.items():
+        ms = _batched_ms(torch, lambda p=plan: execute_plan(p, dev_tables),
+                         batch=1, reps=PLAN_RUNS)
+        timings[qname] = ms
+        print(f"[main] {qname} SF lineitem rows={n}: {ms:.3f} ms/plan, "
+              f"{n / (ms / 1e3):.1f} rows/s on {card}")
+
+    # kernel mode: the fused Q6 kernel on the device-resident columns
+    ld = dev_tables["lineitem"].columns
+    kcols = [ld[c].data.to(torch.int32) for c in
+             ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")]
+    live = torch.ones(n, dtype=torch.int32, device=dev)
+    got = int(q6_filter_sum(*kcols, live, **oracle_np.Q6_BOUNDS))
+    want = oracle_np.numpy_q6(li)
+    if got != want:
+        raise AssertionError(f"kernel-mode Q6 {got} != oracle {want}")
+    print(f"[main] kernel mode q6_filter_sum: {got} matches the oracle")
+    return timings
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one",
+              file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from oceanbase_tpu_torch.bench.tpch import gen_tpch
+    from oceanbase_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    card = _card_line()
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device "
+          f"{torch.cuda.get_device_name(0)} count "
+          f"{torch.cuda.device_count()}")
+    print(f"[env] nvidia-smi: {card}")
+
+    t0 = time.perf_counter()
+    log = _build.build("q6_filter_sum")
+    print(f"[build] q6_filter_sum.cu built for sm_90a in "
+          f"{time.perf_counter() - t0:.3f} s")
+    for line in log.splitlines():
+        if "ptxas" in line:
+            print(f"[build] {line.strip()}")
+
+    sf = float(os.environ.get("OB_SMOKE_SF", "1"))
+    t0 = time.perf_counter()
+    tables, types = gen_tpch(sf=sf)
+    li = tables["lineitem"]
+    print(f"[setup] gen_tpch sf={sf}: {len(li['l_orderkey'])} lineitem "
+          f"rows in {time.perf_counter() - t0:.3f} s")
+
+    sf_cols = [torch.from_numpy(li[c].astype(np.int32)).to(dev) for c in
+               ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")]
+    sf_cols.append(torch.ones(len(li["l_orderkey"]), dtype=torch.int32,
+                              device=dev))
+    kernels = phase_kernels(torch, dev, sf_cols)
+    del sf_cols
+
+    _build.reset_launch_counts()
+    phase_main_path(torch, dev, tables, types, card)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    for rec in kernels:
+        rec["launches"] = counts.get(rec["name"], 0)
+        if rec["launches"] < 1:
+            raise AssertionError(
+                f"{rec['name']} was not launched on the main path")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in kernels]}))
+    print(f"[done] {time.perf_counter() - t_start:.3f} s in all")
+    print(_card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,597 @@
+"""Evaluate expression IR over device relations, eagerly, with torch.
+
+Port of ``oceanbase_tpu/expr/compile.py``.  ``eval_expr(expr, rel)``
+returns a Column computed over whole column tensors on the relation's
+device.  Every sub-expression yields (data, valid); three-valued logic is
+exact for AND/OR/NOT.  Decimals are scaled int64 and every promotion is
+explicit so result dtypes match the JAX package's (which runs with
+``jax_enable_x64``).  String predicates lower to host work over the
+dictionary plus a device gather.
+
+Scope: column, literal, comparison, AND/OR/NOT, BETWEEN, IN, IS NULL,
+LIKE, arithmetic, CASE and CAST.  Scalar functions (``_eval_func``) and
+UDFs are not ported yet.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from oceanbase_tpu_torch.datatypes import (
+    SqlType,
+    TypeKind,
+    add_result,
+    common_numeric,
+    date_to_days,
+    div_result,
+    mul_result,
+)
+from oceanbase_tpu_torch.expr import ir
+from oceanbase_tpu_torch.vector.column import (
+    Column,
+    Relation,
+    StringDict,
+    take,
+)
+
+_POW10 = [10**i for i in range(38)]
+
+_FUNC_TODO = ("scalar functions and UDFs wait for ROADMAP Queue 1 item 1 "
+              "(the rest of expr/compile.py: _eval_func and the UDF "
+              "registry)")
+
+
+def _full(n: int, value, dtype, device) -> torch.Tensor:
+    return torch.full((n,), value, dtype=dtype, device=device)
+
+
+def _host_lut(values: np.ndarray, dtype, device) -> torch.Tensor:
+    """Upload a host lookup table built over a dictionary."""
+    return torch.from_numpy(np.ascontiguousarray(values)).to(
+        device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# literal -> (host scalar, SqlType)
+# ---------------------------------------------------------------------------
+
+def literal_value(e: ir.Literal):
+    v, t = e.value, e.dtype
+    if t is None:
+        if v is None:
+            t = SqlType.null()
+        elif isinstance(v, bool):
+            t = SqlType.bool_()
+        elif isinstance(v, int):
+            t = SqlType.int_()
+        elif isinstance(v, float):
+            t = SqlType.double()
+        elif isinstance(v, str):
+            t = SqlType.string()
+        else:
+            raise TypeError(f"unsupported literal {v!r}")
+    if t.kind == TypeKind.DATE and isinstance(v, str):
+        v = date_to_days(v)
+    if t.kind == TypeKind.DECIMAL and isinstance(v, str):
+        # exact decimal parse; trailing zeros stripped so '0.0001000000'
+        # costs scale 4, not 10 (keeps products inside int64 range)
+        neg = v.startswith("-")
+        body = v.lstrip("+-")
+        if "." in body:
+            ip, fp = body.split(".")
+        else:
+            ip, fp = body, ""
+        fp = fp.rstrip("0")
+        scale = len(fp)
+        iv = int(ip or "0") * _POW10[scale] + int(fp or "0")
+        v = -iv if neg else iv
+        t = SqlType.decimal(t.precision or 15, scale)
+    return v, t
+
+
+def _lit_column(e: ir.Literal, n: int, device) -> Column:
+    v, t = literal_value(e)
+    if v is None:
+        return Column(data=_full(n, 0, torch.int64, device),
+                      valid=_full(n, False, torch.bool, device), dtype=t)
+    if t.kind == TypeKind.STRING:
+        # a bare string literal column: single-value dictionary
+        return Column(data=_full(n, 0, torch.int32, device), valid=None,
+                      dtype=t, sdict=StringDict(np.array([v])))
+    return Column(data=_full(n, v, t.torch_dtype, device), valid=None,
+                  dtype=t)
+
+
+# ---------------------------------------------------------------------------
+# numeric alignment helpers
+# ---------------------------------------------------------------------------
+
+def _to_float(c: Column, kind=TypeKind.DOUBLE) -> Column:
+    dt = torch.float64 if kind == TypeKind.DOUBLE else torch.float32
+    data = c.data.to(dt)
+    if c.dtype.kind == TypeKind.DECIMAL:
+        data = data / _POW10[c.dtype.scale]
+    return Column(data=data, valid=c.valid, dtype=SqlType(kind))
+
+
+def _align_pair(a: Column, b: Column) -> tuple:
+    """Align two numeric/date columns to a common physical representation.
+
+    Returns (a_data, b_data, common SqlType)."""
+    ta, tb = a.dtype, b.dtype
+    temporal = (TypeKind.DATE, TypeKind.DATETIME)
+    # date/datetime compare & arith against ints happens raw
+    if ta.kind in temporal or tb.kind in temporal:
+        ct = ta if ta.kind in temporal else tb
+        return a.data.to(torch.int64), b.data.to(torch.int64), ct
+    if ta.kind == TypeKind.BOOL and tb.kind == TypeKind.BOOL:
+        return a.data, b.data, ta
+    ct = common_numeric(ta, tb)
+    if ct.kind in (TypeKind.FLOAT, TypeKind.DOUBLE):
+        return _to_float(a, ct.kind).data, _to_float(b, ct.kind).data, ct
+    if ct.kind == TypeKind.DECIMAL:
+        s = max(ta.scale, tb.scale)
+        da = a.data.to(torch.int64) * _POW10[s - ta.scale]
+        db = b.data.to(torch.int64) * _POW10[s - tb.scale]
+        return da, db, SqlType(TypeKind.DECIMAL,
+                               max(ta.precision, tb.precision), s)
+    return a.data.to(torch.int64), b.data.to(torch.int64), ct
+
+
+def _merge_valid(a: Column, b: Column):
+    if a.valid is None:
+        return b.valid
+    if b.valid is None:
+        return a.valid
+    return a.valid & b.valid
+
+
+# ---------------------------------------------------------------------------
+# string predicate lowering
+# ---------------------------------------------------------------------------
+
+def _string_cmp(op: str, c: Column, s: str, n: int) -> Column:
+    """Compare a dict-encoded column against a string literal on codes."""
+    sd = c.sdict
+    assert sd is not None, "string compare on non-dict column"
+    if op in ("=", "!="):
+        code = sd.code_of(s)
+        if code < 0:
+            val = _full(n, op != "=", torch.bool, c.device)
+        else:
+            val = (c.data == code) if op == "=" else (c.data != code)
+        return Column(data=val, valid=c.valid, dtype=SqlType.bool_())
+    # order-preserving dict: translate to a code boundary
+    lb = sd.lower_bound(s)
+    exists = sd.code_of(s) >= 0
+    if op == "<":
+        val = c.data < lb
+    elif op == "<=":
+        val = c.data < (lb + 1 if exists else lb)
+    elif op == ">":
+        val = c.data >= (lb + 1 if exists else lb)
+    elif op == ">=":
+        val = c.data >= lb
+    else:  # pragma: no cover
+        raise ValueError(op)
+    return Column(data=val, valid=c.valid, dtype=SqlType.bool_())
+
+
+US_PER_DAY = 86_400_000_000
+
+
+def _temporal_literal(s: str, kind: TypeKind) -> int:
+    """'1994-01-01[ hh:mm:ss]' -> days (DATE) or microseconds (DATETIME)."""
+    days = date_to_days(s.split(" ")[0])
+    if kind == TypeKind.DATE:
+        return days
+    us = days * US_PER_DAY
+    if " " in s:
+        hms = s.split(" ", 1)[1].split(":")
+        parts = [float(x) for x in hms] + [0.0] * (3 - len(hms))
+        us += int((parts[0] * 3600 + parts[1] * 60 + parts[2]) * 1_000_000)
+    return us
+
+
+def like_to_regex(pattern: str) -> str:
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "^" + "".join(out) + "$"
+
+
+# ---------------------------------------------------------------------------
+# 3-valued logic lanes
+# ---------------------------------------------------------------------------
+
+def _tf(c: Column):
+    v = c.valid_or_true()
+    d = c.data
+    if d.dtype != torch.bool:
+        # SQL truthiness of a numeric predicate (0/1 ints)
+        d = d != 0
+    return d & v, (~d) & v
+
+
+# ---------------------------------------------------------------------------
+# main evaluator
+# ---------------------------------------------------------------------------
+
+def eval_expr(e: ir.Expr, rel: Relation) -> Column:
+    n = rel.capacity
+    dev = rel.device
+
+    if isinstance(e, ir.ColumnRef):
+        return rel.columns[e.name]
+
+    if isinstance(e, ir.Literal):
+        return _lit_column(e, n, dev)
+
+    if isinstance(e, ir.Cmp):
+        return _eval_cmp(e, rel, n)
+
+    if isinstance(e, ir.Arith):
+        return _eval_arith(e, rel, n)
+
+    if isinstance(e, ir.Logic):
+        cols = [eval_expr(a, rel) for a in e.args]
+        t, f = _tf(cols[0])
+        for c in cols[1:]:
+            t2, f2 = _tf(c)
+            if e.op == "and":
+                t, f = t & t2, f | f2
+            else:
+                t, f = t | t2, f & f2
+        return Column(data=t, valid=t | f, dtype=SqlType.bool_())
+
+    if isinstance(e, ir.Not):
+        c = eval_expr(e.arg, rel)
+        return Column(data=~c.data, valid=c.valid, dtype=SqlType.bool_())
+
+    if isinstance(e, ir.IsNull):
+        c = eval_expr(e.arg, rel)
+        isnull = (_full(n, False, torch.bool, dev) if c.valid is None
+                  else ~c.valid)
+        return Column(data=(~isnull if e.negated else isnull), valid=None,
+                      dtype=SqlType.bool_())
+
+    if isinstance(e, ir.InList):
+        return _eval_inlist(e, rel, n)
+
+    if isinstance(e, ir.Like):
+        c = eval_expr(e.arg, rel)
+        assert c.sdict is not None, "LIKE requires a dict-encoded column"
+        rx = re.compile(like_to_regex(e.pattern))
+        hits = np.asarray(c.sdict.lut(lambda s: rx.match(s) is not None),
+                          dtype=np.bool_)
+        val = take(_host_lut(hits, torch.bool, dev), c.data)
+        if e.negated:
+            val = ~val
+        return Column(data=val, valid=c.valid, dtype=SqlType.bool_())
+
+    if isinstance(e, ir.Case):
+        return _eval_case(e, rel, n)
+
+    if isinstance(e, ir.Cast):
+        return cast_column(eval_expr(e.arg, rel), e.dtype)
+
+    if isinstance(e, ir.FuncCall):
+        return _eval_func(e, rel, n)
+
+    raise NotImplementedError(f"eval of {type(e).__name__}")
+
+
+def _as_str(v):
+    return v.value if isinstance(v, ir.Literal) else v
+
+
+def _eval_inlist(e: ir.InList, rel: Relation, n: int) -> Column:
+    c = eval_expr(e.arg, rel)
+    if c.dtype.is_string and c.sdict is not None:
+        vals = [c.sdict.code_of(_as_str(v)) for v in e.values]
+        vals = [cd for cd in vals if cd >= 0]
+    else:
+        vals = []
+        for v in e.values:
+            lv, lt = literal_value(v if isinstance(v, ir.Literal)
+                                   else ir.Literal(v))
+            if c.dtype.kind == TypeKind.DECIMAL and lt.kind in (
+                    TypeKind.DECIMAL, TypeKind.INT):
+                ls = lt.scale if lt.kind == TypeKind.DECIMAL else 0
+                if ls <= c.dtype.scale:
+                    lv = lv * _POW10[c.dtype.scale - ls]
+                else:
+                    # literal more precise than the column: exact match
+                    # only possible when the extra digits are zero
+                    q, r = divmod(lv, _POW10[ls - c.dtype.scale])
+                    if r != 0:
+                        continue
+                    lv = q
+            elif c.dtype.kind in (TypeKind.DATE, TypeKind.DATETIME) and \
+                    isinstance(lv, str):
+                lv = _temporal_literal(lv, c.dtype.kind)
+            vals.append(lv)
+    if not vals:
+        val = _full(n, False, torch.bool, c.device)
+    else:
+        test = torch.tensor(vals, device=c.device)
+        ct = torch.promote_types(c.data.dtype, test.dtype)
+        val = torch.isin(c.data.to(ct), test.to(ct))
+    if e.negated:
+        val = ~val
+    return Column(data=val, valid=c.valid, dtype=SqlType.bool_())
+
+
+def _eval_cmp(e: ir.Cmp, rel: Relation, n: int) -> Column:
+    # string-vs-literal fast path on dictionary codes
+    lc_is_str_lit = isinstance(e.left, ir.Literal) and \
+        isinstance(e.left.value, str)
+    rc_is_str_lit = isinstance(e.right, ir.Literal) and \
+        isinstance(e.right.value, str)
+    if rc_is_str_lit:
+        lcol = eval_expr(e.left, rel)
+        if lcol.dtype.is_string:
+            return _string_cmp(e.op, lcol, e.right.value, n)
+        if lcol.dtype.kind in (TypeKind.DATE, TypeKind.DATETIME):
+            rv = _temporal_literal(e.right.value, lcol.dtype.kind)
+            return _cmp_data(e.op, lcol.data.to(torch.int64),
+                             _full(n, rv, torch.int64, lcol.device),
+                             lcol.valid)
+    if lc_is_str_lit:
+        flipped = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "=",
+                   "!=": "!="}
+        return _eval_cmp(ir.Cmp(flipped[e.op], e.right, e.left), rel, n)
+
+    a = eval_expr(e.left, rel)
+    b = eval_expr(e.right, rel)
+    if a.dtype.is_string and b.dtype.is_string:
+        return _string_col_cmp(e.op, a, b)
+    da, db, _ = _align_pair(a, b)
+    return _cmp_data(e.op, da, db, _merge_valid(a, b))
+
+
+_CMP_FNS = {
+    "=": torch.eq, "!=": torch.ne, "<": torch.lt,
+    "<=": torch.le, ">": torch.gt, ">=": torch.ge,
+}
+
+
+def _cmp_data(op, da, db, valid) -> Column:
+    return Column(data=_CMP_FNS[op](da, db), valid=valid,
+                  dtype=SqlType.bool_())
+
+
+def _string_col_cmp(op, a: Column, b: Column) -> Column:
+    if a.sdict is b.sdict:
+        return _cmp_data(op, a.data, b.data, _merge_valid(a, b))
+    if op not in ("=", "!="):
+        raise NotImplementedError("ordered compare across dictionaries")
+    # translate a's codes into b's dictionary space (host, O(|dict|))
+    assert a.sdict is not None and b.sdict is not None
+    pos = np.searchsorted(b.sdict.values, a.sdict.values).astype(np.int64)
+    exact = np.zeros(a.sdict.size, dtype=bool)
+    inb = pos < b.sdict.size
+    exact[inb] = b.sdict.values[pos[inb]] == a.sdict.values[inb]
+    posm = take(_host_lut(pos, torch.int64, a.device), a.data)
+    exm = take(_host_lut(exact, torch.bool, a.device), a.data)
+    eq = exm & (posm == b.data.to(torch.int64))
+    return Column(data=eq if op == "=" else ~eq, valid=_merge_valid(a, b),
+                  dtype=SqlType.bool_())
+
+
+def _eval_arith(e: ir.Arith, rel: Relation, n: int) -> Column:
+    a = eval_expr(e.left, rel)
+    b = eval_expr(e.right, rel)
+    valid = _merge_valid(a, b)
+    ta, tb = a.dtype, b.dtype
+
+    # temporal arithmetic: DATE ± days, DATETIME ± days, DATE - DATE;
+    # "INT + DATE" commutes, "INT - DATE" is a type error
+    temporal = (TypeKind.DATE, TypeKind.DATETIME)
+    if tb.kind in temporal and ta.kind == TypeKind.INT:
+        if e.op == "+":
+            a, b, ta, tb = b, a, tb, ta
+        else:
+            raise TypeError(f"cannot apply {e.op!r} to INT and {tb.kind.name}")
+    if ta.kind in temporal and tb.kind == TypeKind.INT and e.op in "+-":
+        d = a.data.to(torch.int64)
+        o = b.data.to(torch.int64)
+        if ta.kind == TypeKind.DATETIME:
+            o = o * US_PER_DAY
+        data = d + o if e.op == "+" else d - o
+        if ta.kind == TypeKind.DATE:
+            data = data.to(torch.int32)
+        return Column(data=data, valid=valid, dtype=ta)
+    if ta.kind in temporal and tb.kind in temporal and e.op == "-":
+        da = a.data.to(torch.int64)
+        db = b.data.to(torch.int64)
+        if TypeKind.DATETIME in (ta.kind, tb.kind):
+            if ta.kind == TypeKind.DATE:
+                da = da * US_PER_DAY
+            if tb.kind == TypeKind.DATE:
+                db = db * US_PER_DAY
+        return Column(data=da - db, valid=valid, dtype=SqlType.int_())
+    if ta.kind in temporal or tb.kind in temporal:
+        raise TypeError(
+            f"unsupported arithmetic {ta.kind.name} {e.op} {tb.kind.name}")
+
+    if e.op == "/":
+        ct = div_result(ta, tb)
+        fa, fb = _to_float(a, ct.kind), _to_float(b, ct.kind)
+        zero = fb.data == 0
+        quot = fa.data / torch.where(zero, torch.ones_like(fb.data), fb.data)
+        data = torch.where(zero, torch.full_like(quot, float("nan")), quot)
+        v = valid if valid is not None else _full(n, True, torch.bool,
+                                                  zero.device)
+        return Column(data=data, valid=v & ~zero, dtype=ct)
+
+    if e.op == "*":
+        ct = mul_result(ta, tb)
+        if ct.kind == TypeKind.DECIMAL and ct.scale > 10:
+            # combined fixed-point scale would overflow int64 on large
+            # aggregates: computed in double, as the JAX package does
+            fa, fb = _to_float(a), _to_float(b)
+            return Column(data=fa.data * fb.data, valid=valid,
+                          dtype=SqlType.double())
+        if ct.kind == TypeKind.DECIMAL:
+            data = a.data.to(torch.int64) * b.data.to(torch.int64)
+            return Column(data=data, valid=valid, dtype=ct)
+        da, db, c2 = _align_pair(a, b)
+        return Column(data=da * db, valid=valid, dtype=c2)
+
+    da, db, ct = _align_pair(a, b)
+    if e.op == "+":
+        data = da + db
+    elif e.op == "-":
+        data = da - db
+    elif e.op == "%":
+        # MySQL MOD: truncated division — result carries the dividend's sign
+        zero = db == 0
+        safe = torch.where(zero, torch.ones_like(db), db)
+        data = torch.sign(da) * torch.remainder(da.abs(), safe.abs())
+        data = torch.where(zero, torch.zeros_like(data), data)
+        v = valid if valid is not None else _full(n, True, torch.bool,
+                                                  zero.device)
+        return Column(data=data, valid=v & ~zero, dtype=ct)
+    else:  # pragma: no cover
+        raise ValueError(e.op)
+    return Column(data=data, valid=valid, dtype=add_result(ta, tb))
+
+
+def _unify_branches(branches: list) -> tuple[list, SqlType, "StringDict | None"]:
+    """Unify CASE branch columns to one physical representation.
+
+    Numerics go through common_numeric; strings are re-encoded into a
+    merged order-preserving dictionary; other kinds must match.  NULLTYPE
+    branches adopt the result type.
+    """
+    kinds = {b.dtype.kind for b in branches
+             if b.dtype.kind != TypeKind.NULLTYPE}
+    if not kinds:
+        return branches, SqlType.null(), None
+    if kinds <= {TypeKind.INT, TypeKind.DECIMAL, TypeKind.FLOAT,
+                 TypeKind.DOUBLE, TypeKind.BOOL}:
+        if kinds == {TypeKind.BOOL}:
+            rt = SqlType.bool_()
+        else:
+            rt = SqlType.int_()  # BOOL branches widen to INT when mixed
+            for b in branches:
+                if b.dtype.kind not in (TypeKind.NULLTYPE, TypeKind.BOOL):
+                    rt = common_numeric(rt, b.dtype)
+        return [cast_column(b, rt) for b in branches], rt, None
+    if kinds == {TypeKind.STRING}:
+        dicts = [b.sdict for b in branches if b.sdict is not None]
+        if all(d is dicts[0] for d in dicts):
+            return branches, SqlType.string(), dicts[0]
+        allvals = np.unique(np.concatenate([d.values for d in dicts]))
+        merged = StringDict(allvals)
+        out = []
+        for b in branches:
+            if b.sdict is None:
+                out.append(b)
+                continue
+            remap = np.searchsorted(allvals, b.sdict.values).astype(np.int32)
+            codes = take(_host_lut(remap, torch.int32, b.device), b.data)
+            out.append(Column(codes, b.valid, SqlType.string(), merged))
+        return out, SqlType.string(), merged
+    if len(kinds) == 1:
+        rt = next(b.dtype for b in branches
+                  if b.dtype.kind != TypeKind.NULLTYPE)
+        return branches, rt, None
+    raise TypeError(f"CASE branches mix incompatible types: {kinds}")
+
+
+def _eval_case(e: ir.Case, rel: Relation, n: int) -> Column:
+    conds = []
+    vals = []
+    for c, v in e.whens:
+        conds.append(eval_expr(c, rel))
+        vals.append(eval_expr(v, rel))
+    else_c = eval_expr(e.else_, rel) if e.else_ is not None else None
+
+    branches = vals + ([else_c] if else_c is not None else [])
+    branches, rt, sdict = _unify_branches(branches)
+
+    dev = rel.device
+    if else_c is not None:
+        data = branches[-1].data
+        valid = branches[-1].valid_or_true()
+    else:
+        data = torch.zeros(n, dtype=branches[0].data.dtype, device=dev)
+        valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    taken = torch.zeros(n, dtype=torch.bool, device=dev)
+    for cond, val in zip(conds, branches[: len(vals)]):
+        t, _ = _tf(cond)
+        sel = t & ~taken
+        data = torch.where(sel, val.data.to(data.dtype), data)
+        valid = torch.where(sel, val.valid_or_true(), valid)
+        taken = taken | t
+    return Column(data=data, valid=valid, dtype=rt, sdict=sdict)
+
+
+def cast_column(c: Column, t: SqlType) -> Column:
+    if c.dtype.kind == t.kind and c.dtype.scale == t.scale:
+        return c
+    if t.kind in (TypeKind.FLOAT, TypeKind.DOUBLE):
+        return _to_float(c, t.kind)
+    if t.kind == TypeKind.DECIMAL:
+        if c.dtype.kind == TypeKind.DECIMAL:
+            if t.scale >= c.dtype.scale:
+                data = c.data * _POW10[t.scale - c.dtype.scale]
+            else:
+                data = _div_round(c.data, _POW10[c.dtype.scale - t.scale])
+            return Column(data=data, valid=c.valid, dtype=t)
+        if c.dtype.kind in (TypeKind.INT, TypeKind.BOOL):
+            data = c.data.to(torch.int64) * _POW10[t.scale]
+            return Column(data=data, valid=c.valid, dtype=t)
+        if c.dtype.kind in (TypeKind.FLOAT, TypeKind.DOUBLE):
+            data = torch.round(c.data * _POW10[t.scale]).to(torch.int64)
+            return Column(data=data, valid=c.valid, dtype=t)
+    if t.kind == TypeKind.INT:
+        if c.dtype.kind == TypeKind.DECIMAL:
+            data = _div_round(c.data, _POW10[c.dtype.scale])
+        else:
+            data = c.data.to(torch.int64)
+        return Column(data=data, valid=c.valid, dtype=t)
+    if t.kind == TypeKind.NULLTYPE or c.dtype.kind == TypeKind.NULLTYPE:
+        return Column(data=c.data, valid=c.valid,
+                      dtype=t if t.kind != TypeKind.NULLTYPE else c.dtype)
+    if t.kind == TypeKind.BOOL:
+        return Column(data=c.data != 0, valid=c.valid, dtype=t)
+    raise NotImplementedError(f"cast {c.dtype} -> {t}")
+
+
+def _div_round(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Round-half-away-from-zero integer division (MySQL decimal
+    rounding); the divisions floor, as ``//`` does in the JAX package."""
+    half = d // 2
+    pos = torch.div(x + half, d, rounding_mode="floor")
+    neg = -torch.div(-x + half, d, rounding_mode="floor")
+    return torch.where(x >= 0, pos, neg)
+
+
+# ---------------------------------------------------------------------------
+# scalar functions / UDFs: not ported yet
+# ---------------------------------------------------------------------------
+
+def register_udf(name: str, fn, result_type: "SqlType | None" = None):
+    raise NotImplementedError(_FUNC_TODO)
+
+
+def _eval_func(e: ir.FuncCall, rel: Relation, n: int) -> Column:
+    raise NotImplementedError(f"function {e.name}: {_FUNC_TODO}")
+
+
+def eval_predicate(e: ir.Expr, rel: Relation) -> torch.Tensor:
+    """Evaluate a WHERE predicate to a live-row bool mask (NULL -> False),
+    combined with the relation's existing mask."""
+    t, _ = _tf(eval_expr(e, rel))
+    return t & rel.mask_or_true()

@@ -1,0 +1,272 @@
+"""Expression IR (the port's own copy of ``oceanbase_tpu/expr/ir.py``).
+
+A small algebraic IR shared by the manual plan builder and the executor.
+Nodes are untyped at construction; types are derived at evaluation time
+from the actual relation schema.
+
+Reference analog: ObRawExpr (src/sql/resolver/expr) on the frontend side and
+ObExpr (src/sql/engine/expr/ob_expr.h:516) on the engine side — collapsed
+into one IR evaluated eagerly over whole column tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+from oceanbase_tpu_torch.datatypes import SqlType
+
+
+class Expr:
+    """Base class; nodes are immutable and hashable by identity."""
+
+    def children(self) -> Sequence["Expr"]:
+        return ()
+
+    # sugar for building trees in tests / manual plans -------------------
+    def _wrap(self, other) -> "Expr":
+        return other if isinstance(other, Expr) else Literal(other)
+
+    def __add__(self, o):
+        return Arith("+", self, self._wrap(o))
+
+    def __radd__(self, o):
+        return Arith("+", self._wrap(o), self)
+
+    def __sub__(self, o):
+        return Arith("-", self, self._wrap(o))
+
+    def __rsub__(self, o):
+        return Arith("-", self._wrap(o), self)
+
+    def __mul__(self, o):
+        return Arith("*", self, self._wrap(o))
+
+    def __rmul__(self, o):
+        return Arith("*", self._wrap(o), self)
+
+    def __truediv__(self, o):
+        return Arith("/", self, self._wrap(o))
+
+    def __mod__(self, o):
+        return Arith("%", self, self._wrap(o))
+
+    def __lt__(self, o):
+        return Cmp("<", self, self._wrap(o))
+
+    def __le__(self, o):
+        return Cmp("<=", self, self._wrap(o))
+
+    def __gt__(self, o):
+        return Cmp(">", self, self._wrap(o))
+
+    def __ge__(self, o):
+        return Cmp(">=", self, self._wrap(o))
+
+    def eq(self, o):
+        return Cmp("=", self, self._wrap(o))
+
+    def ne(self, o):
+        return Cmp("!=", self, self._wrap(o))
+
+    def and_(self, o):
+        return Logic("and", [self, self._wrap(o)])
+
+    def or_(self, o):
+        return Logic("or", [self, self._wrap(o)])
+
+    def isin(self, values):
+        return InList(self, list(values))
+
+    def like(self, pattern: str):
+        return Like(self, pattern)
+
+    def between(self, lo, hi):
+        return Logic("and", [Cmp(">=", self, self._wrap(lo)),
+                             Cmp("<=", self, self._wrap(hi))])
+
+    def is_null(self):
+        return IsNull(self)
+
+    def is_not_null(self):
+        return IsNull(self, negated=True)
+
+
+@dataclass(eq=False)
+class ColumnRef(Expr):
+    name: str
+
+    def __repr__(self):
+        return f"col({self.name!r})"
+
+
+@dataclass(eq=False)
+class Literal(Expr):
+    value: Any
+    # explicit type for decimals ('0.06' -> DECIMAL scale 2), dates, etc.
+    dtype: Optional[SqlType] = None
+
+    def __repr__(self):
+        return f"lit({self.value!r})"
+
+
+@dataclass(eq=False)
+class Arith(Expr):
+    op: str  # + - * / %
+    left: Expr
+    right: Expr
+
+    def children(self):
+        return (self.left, self.right)
+
+
+@dataclass(eq=False)
+class Cmp(Expr):
+    op: str  # = != < <= > >=
+    left: Expr
+    right: Expr
+
+    def children(self):
+        return (self.left, self.right)
+
+
+@dataclass(eq=False)
+class Logic(Expr):
+    op: str  # and | or
+    args: list
+
+    def children(self):
+        return tuple(self.args)
+
+
+@dataclass(eq=False)
+class Not(Expr):
+    arg: Expr
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclass(eq=False)
+class InList(Expr):
+    arg: Expr
+    values: list
+    negated: bool = False
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclass(eq=False)
+class Like(Expr):
+    arg: Expr
+    pattern: str
+    negated: bool = False
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclass(eq=False)
+class IsNull(Expr):
+    arg: Expr
+    negated: bool = False
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclass(eq=False)
+class Case(Expr):
+    """CASE WHEN c1 THEN v1 [WHEN ...] ELSE e END."""
+
+    whens: list  # list[(Expr cond, Expr value)]
+    else_: Optional[Expr] = None
+
+    def children(self):
+        cs = []
+        for c, v in self.whens:
+            cs += [c, v]
+        if self.else_ is not None:
+            cs.append(self.else_)
+        return tuple(cs)
+
+
+@dataclass(eq=False)
+class Cast(Expr):
+    arg: Expr
+    dtype: SqlType
+
+    def children(self):
+        return (self.arg,)
+
+
+@dataclass(eq=False)
+class FuncCall(Expr):
+    """Scalar functions: extract_year/extract_month/extract_day, substring,
+    abs, coalesce, upper/lower, concat (dict-level for strings)."""
+
+    name: str
+    args: list
+
+    def children(self):
+        return tuple(self.args)
+
+
+@dataclass(eq=False)
+class WindowCall(Expr):
+    """fn() OVER (PARTITION BY ... ORDER BY ... [frame]).
+
+    Evaluated by the Window operator (≙ src/sql/engine/window_function).
+    Supported fns: row_number, rank, dense_rank, ntile, lead, lag,
+    first_value, last_value, sum, count, avg, min, max.  Without an
+    explicit frame, ordered window aggregates use the MySQL default:
+    RANGE UNBOUNDED PRECEDING .. CURRENT ROW (peers share values).
+
+    ``frame``: ("rows", start, end) — offsets relative to the current
+    row (negative = PRECEDING, None = UNBOUNDED on that side).
+    ``extra``: positional extras — lead/lag (offset, default expr),
+    ntile (bucket count)."""
+
+    fn: str
+    arg: "Expr | None" = None
+    partition_by: list = None
+    order_by: list = None       # list[(Expr, ascending)]
+    frame: tuple | None = None  # ("rows", start|None, end|None)
+    extra: list = None
+
+    def children(self):
+        cs = [self.arg] if self.arg is not None else []
+        cs += list(self.partition_by or [])
+        cs += [e for e, _ in (self.order_by or [])]
+        cs += [e for e in (self.extra or []) if isinstance(e, Expr)]
+        return tuple(cs)
+
+
+@dataclass(eq=False)
+class AggCall(Expr):
+    """Aggregate reference inside a group-by output (sum/count/min/max/avg).
+
+    Evaluated by the aggregate operator, not by eval_expr
+    (≙ src/share/aggregate IAggregate, agg_ctx.h:552)."""
+
+    fn: str  # sum | count | min | max | avg | count_star | count_distinct
+    arg: Optional[Expr] = None
+    distinct: bool = False
+
+    def children(self):
+        return (self.arg,) if self.arg is not None else ()
+
+
+def col(name: str) -> ColumnRef:
+    return ColumnRef(name)
+
+
+def lit(value, dtype: SqlType | None = None) -> Literal:
+    return Literal(value, dtype)
+
+
+def walk(e: Expr):
+    yield e
+    for c in e.children():
+        yield from walk(c)

@@ -1,0 +1,318 @@
+"""The port's operators against the JAX package's on identical inputs
+(dead lanes poisoned): group-by on both paths, scalar aggregates, sorts,
+exact-key joins of every kind with capacity padding and overflow, and
+the torch counterparts of lexsort / repeat."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import oceanbase_tpu.datatypes as jdt
+import oceanbase_tpu.exec.ops as jops
+import oceanbase_tpu.exec.plan as jplan
+import oceanbase_tpu.expr.ir as jir
+import oceanbase_tpu_torch.datatypes as tdt
+import oceanbase_tpu_torch.exec.ops as tops
+import oceanbase_tpu_torch.exec.plan as tplan
+import oceanbase_tpu_torch.expr.ir as tir
+from oceanbase_tpu.analysis.poison import poison_pad_lanes, results_identical
+from oceanbase_tpu.exec.diag import CapacityOverflow as JOverflow
+from oceanbase_tpu.vector import column as jcol
+from oceanbase_tpu_torch import bridge
+from oceanbase_tpu_torch.exec.diag import CapacityOverflow as TOverflow
+from oceanbase_tpu_torch.vector import column as tcol
+
+JAX = (jir, jdt, jops, jplan)
+TORCH = (tir, tdt, tops, tplan)
+
+
+def jax_parts(rel):
+    parts = {}
+    for name, c in rel.columns.items():
+        parts[name] = (
+            np.asarray(c.data),
+            None if c.valid is None else np.asarray(c.valid),
+            (c.dtype.kind.value, c.dtype.precision, c.dtype.scale),
+            None if c.sdict is None else c.sdict.values)
+    return parts, None if rel.mask is None else np.asarray(rel.mask)
+
+
+def _load(arrays, types, valids, seed, pad=True):
+    """(JAX relation, port relation) on the same lanes: padded to the
+    next bucket with poisoned dead lanes and a few masked-out live ones."""
+    n = len(next(iter(arrays.values())))
+    jrel = jcol.from_numpy(arrays, types=types, valids=valids)
+    if pad:
+        jrel = jrel.pad_to(jcol.bucket_capacity(n + 1))
+        rng = np.random.default_rng(seed)
+        mask = np.asarray(jrel.mask) & (rng.random(jrel.capacity) < 0.9)
+        jrel = poison_pad_lanes(jrel.with_mask(jnp.asarray(mask)))
+    parts, mask = jax_parts(jrel)
+    return jrel, bridge.relation_from_parts(parts, mask, device="cpu")
+
+
+def _facts(n=400, seed=1):
+    rng = np.random.default_rng(seed)
+    flags = np.array(["A", "N", "R"], dtype=object)
+    arrays = {
+        "g": flags[rng.integers(0, 3, n)],
+        "h": np.array(["F", "O"], dtype=object)[rng.integers(0, 2, n)],
+        "k": rng.integers(0, 12, n),
+        "v": rng.integers(-10_000, 10_000, n),
+        "x": rng.normal(size=n),
+        "b": rng.random(n) < 0.3,
+        "dt": rng.integers(9000, 9100, n).astype(np.int32),
+    }
+    types = {"v": jdt.SqlType.decimal(15, 2), "dt": jdt.SqlType.date()}
+    valids = {"k": rng.random(n) < 0.85, "v": rng.random(n) < 0.9,
+              "g": rng.random(n) < 0.95}
+    return _load(arrays, types, valids, seed)
+
+
+@pytest.fixture(scope="module")
+def facts():
+    return _facts()
+
+
+def _assert_same(trel, jrel, float_rtol=1e-12):
+    np.testing.assert_array_equal(trel.mask_or_true().numpy(),
+                                  np.asarray(jrel.mask_or_true()))
+    t, j = tcol.to_numpy(trel), jcol.to_numpy(jrel)
+    assert sorted(t) == sorted(j)
+    for k in j:
+        x, y = np.asarray(t[k]), np.asarray(j[k])
+        assert x.shape == y.shape, k
+        if y.dtype.kind == "f":
+            np.testing.assert_allclose(x, y, rtol=float_rtol, err_msg=k)
+        elif y.dtype == object:
+            assert list(map(repr, x)) == list(map(repr, y)), k
+        else:
+            assert x.dtype == y.dtype, k
+            np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+def _aggs(ir, ops, with_float=True):
+    c = ir.col
+    out = [ops.AggSpec("cnt", "count_star"),
+           ops.AggSpec("cnt_k", "count", c("k")),
+           ops.AggSpec("sum_v", "sum", c("v")),
+           ops.AggSpec("avg_v", "avg", c("v")),
+           ops.AggSpec("min_v", "min", c("v")),
+           ops.AggSpec("max_k", "max", c("k")),
+           ops.AggSpec("sum_b", "sum", c("b")),
+           ops.AggSpec("min_dt", "min", c("dt")),
+           ops.AggSpec("max_g", "max", c("g"))]
+    if with_float:
+        out += [ops.AggSpec("max_x", "max", c("x")),
+                ops.AggSpec("avg_k", "avg", c("k"))]
+    return out
+
+
+GROUPINGS = {
+    "lowcard_two_strings": (lambda ir: {"g": ir.col("g"), "h": ir.col("h")},
+                            None),
+    "lowcard_bool": (lambda ir: {"b": ir.col("b")}, 8),
+    "sort_int_nullable": (lambda ir: {"k": ir.col("k")}, None),
+    "sort_int_and_string": (lambda ir: {"k": ir.col("k"), "h": ir.col("h")},
+                            64),
+    "sort_expr_key": (lambda ir: {"kk": ir.col("k") % ir.lit(5)}, None),
+    "lowcard_capped_to_sort": (lambda ir: {"g": ir.col("g"),
+                                           "h": ir.col("h")}, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GROUPINGS))
+def test_hash_groupby_matches(facts, name):
+    jrel, trel = facts
+    keys, cap = GROUPINGS[name]
+    jout = jops.hash_groupby(jrel, keys(jir), _aggs(jir, jops),
+                             out_capacity=cap)
+    tout = tops.hash_groupby(trel, keys(tir), _aggs(tir, tops),
+                             out_capacity=cap)
+    assert tout.capacity == jout.capacity
+    _assert_same(tout, jout)
+
+
+def test_hash_groupby_sorted_sums_exact(facts):
+    # the float sums may reassociate; integer and decimal sums may not
+    jrel, trel = facts
+    keys = GROUPINGS["sort_int_nullable"][0]
+    jout = jops.hash_groupby(jrel, keys(jir), _aggs(jir, jops, False))
+    tout = tops.hash_groupby(trel, keys(tir), _aggs(tir, tops, False))
+    ok, why = results_identical(tcol.to_numpy(tout), jcol.to_numpy(jout))
+    assert ok, why
+
+
+@pytest.mark.parametrize("live", ["some", "none"])
+def test_scalar_agg_matches(facts, live):
+    jrel, trel = facts
+    if live == "none":
+        jrel = jrel.with_mask(jnp.zeros(jrel.capacity, dtype=bool))
+        trel = trel.with_mask(torch.zeros(trel.capacity, dtype=torch.bool))
+    aggs = _aggs(jir, jops) + [jops.AggSpec("nd", "count_distinct",
+                                            jir.col("k"))]
+    taggs = _aggs(tir, tops) + [tops.AggSpec("nd", "count_distinct",
+                                             tir.col("k"))]
+    _assert_same(tops.scalar_agg(trel, taggs), jops.scalar_agg(jrel, aggs))
+
+
+SORTS = {
+    "one_key": (lambda ir: [ir.col("k")], None),
+    "desc_nullable": (lambda ir: [ir.col("k"), ir.col("v")], [False, True]),
+    "string_then_float": (lambda ir: [ir.col("g"), ir.col("x")],
+                          [True, False]),
+    "bool_date": (lambda ir: [ir.col("b"), ir.col("dt")], [False, True]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SORTS))
+def test_sort_rows_matches(facts, name):
+    jrel, trel = facts
+    keys, asc = SORTS[name]
+    _assert_same(tops.sort_rows(trel, keys(tir), asc),
+                 jops.sort_rows(jrel, keys(jir), asc))
+
+
+@pytest.mark.parametrize("k,offset", [(5, 0), (10, 7), (1000, 3)])
+def test_limit_matches(facts, k, offset):
+    jrel, trel = facts
+    _assert_same(tops.limit(trel, k, offset), jops.limit(jrel, k, offset))
+
+
+@pytest.mark.parametrize("cap", [None, 50, 512])
+def test_compact_matches(facts, cap):
+    jrel, trel = facts
+    _assert_same(tops.compact(trel, cap), jops.compact(jrel, cap))
+
+
+def _join_sides(seed=9):
+    rng = np.random.default_rng(seed)
+    nl, nr = 150, 60
+    left = {"lk": rng.integers(0, 40, nl), "lv": rng.integers(0, 100, nl),
+            "ls": np.array(["x", "y", "z"], dtype=object)[
+                rng.integers(0, 3, nl)]}
+    right = {"rk": rng.integers(0, 40, nr), "rv": rng.integers(0, 1000, nr),
+             "rs": np.array(["y", "z", "w"], dtype=object)[
+                 rng.integers(0, 3, nr)]}
+    lvalid = {"lk": rng.random(nl) < 0.9}
+    rvalid = {"rk": rng.random(nr) < 0.9, "rv": rng.random(nr) < 0.8}
+    jl, tl = _load(left, None, lvalid, seed)
+    jr, tr = _load(right, None, rvalid, seed + 1)
+    return jl, tl, jr, tr
+
+
+@pytest.fixture(scope="module")
+def sides():
+    return _join_sides()
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti", "full"])
+@pytest.mark.parametrize("keys", ["int", "string"])
+def test_join_matches(sides, how, keys):
+    jl, tl, jr, tr = sides
+    k = ("lk", "rk") if keys == "int" else ("ls", "rs")
+    cap = 2048  # above every total: padding lanes stay dead
+    jout = jops.join(jl, jr, [jir.col(k[0])], [jir.col(k[1])], how=how,
+                     out_capacity=cap)
+    tout = tops.join(tl, tr, [tir.col(k[0])], [tir.col(k[1])], how=how,
+                     out_capacity=cap)
+    assert tout.capacity == jout.capacity
+    _assert_same(tout, jout)
+
+
+def test_cross_join_matches(sides):
+    jl, tl, jr, tr = sides
+    _assert_same(tops.join(tl, tr, [], [], out_capacity=20_000),
+                 jops.join(jl, jr, [], [], out_capacity=20_000))
+
+
+def test_join_multi_key_waits(sides):
+    _jl, tl, _jr, tr = sides
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.join(tl, tr, [tir.col("lk"), tir.col("lv")],
+                  [tir.col("rk"), tir.col("rv")])
+
+
+def _overflow_plans(m, lk, rk):
+    ir, _dt, ops, plan = m
+    scan_l = plan.TableScan("l")
+    scan_r = plan.TableScan("r")
+    return {
+        "join": plan.HashJoin(scan_l, scan_r, [ir.col(lk)], [ir.col(rk)],
+                              out_capacity=32),
+        "left_join": plan.HashJoin(scan_l, scan_r, [ir.col(lk)],
+                                   [ir.col(rk)], how="left",
+                                   out_capacity=100),
+        "groupby": plan.GroupBy(scan_l, {"lv": ir.col("lv")},
+                                [ops.AggSpec("c", "count_star")],
+                                out_capacity=10),
+        "compact": plan.ScalarAgg(
+            plan.Compact(scan_l, capacity=20, strict=True),
+            [ops.AggSpec("c", "count_star")]),
+        "fits": plan.HashJoin(scan_l, scan_r, [ir.col(lk)], [ir.col(rk)],
+                              out_capacity=4096),
+    }
+
+
+@pytest.mark.parametrize("name", ["join", "left_join", "groupby", "compact",
+                                  "fits"])
+def test_capacity_overflow_matches(sides, name):
+    jl, tl, jr, tr = sides
+    jp = _overflow_plans(JAX, "lk", "rk")[name]
+    tp = _overflow_plans(TORCH, "lk", "rk")[name]
+    if name == "fits":
+        _assert_same(tplan.execute_plan(tp, {"l": tl, "r": tr}),
+                     jplan.execute_plan(jp, {"l": jl, "r": jr}))
+        return
+    with pytest.raises(JOverflow) as jerr:
+        jplan.execute_plan(jp, {"l": jl, "r": jr})
+    with pytest.raises(TOverflow) as terr:
+        tplan.execute_plan(tp, {"l": tl, "r": tr})
+    assert terr.value.drops == jerr.value.drops
+    assert terr.value.drops
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lexsort_matches_jnp(seed):
+    rng = np.random.default_rng(seed)
+    keys = [rng.integers(0, 4, 300), rng.integers(-3, 3, 300),
+            (rng.random(300) < 0.5).astype(np.int8)]
+    want = np.asarray(jnp.lexsort(tuple(jnp.asarray(k) for k in keys)))
+    got = tops.lexsort([torch.from_numpy(k) for k in keys]).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("counts,cap", [
+    ([1, 0, 2, 0], 6), ([1, 0, 2, 0], 2), ([0, 0, 3], 5), ([2, 2], 4),
+    ([5], 3), ([0, 0, 0], 4), ([1, 2, 3, 4], 20),
+])
+def test_repeat_index_matches_jnp(counts, cap):
+    c = np.asarray(counts, dtype=np.int64)
+    want = np.asarray(jnp.repeat(jnp.arange(len(c)), jnp.asarray(c),
+                                 total_repeat_length=cap))
+    got = tops._repeat_index(torch.from_numpy(c), cap).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fn", ["min", "max"])
+def test_segment_minmax_empty_segments_match(fn):
+    data = np.array([5, -3, 7, 2], dtype=np.int64)
+    seg = np.array([0, 0, 2, 2])
+    jfn = {"min": __import__("jax").ops.segment_min,
+           "max": __import__("jax").ops.segment_max}[fn]
+    want = np.asarray(jfn(jnp.asarray(data), jnp.asarray(seg),
+                          num_segments=4))
+    got = tops._segment_minmax(fn, torch.from_numpy(data),
+                               torch.from_numpy(seg), 4).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ops_not_ported_yet_raise(facts):
+    _jrel, trel = facts
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.top_n(trel, tir.col("k"), True, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.hash_groupby(trel, {"k": tir.col("k")},
+                          [tops.AggSpec("d", "count_distinct",
+                                        tir.col("v"))])
