@@ -16,9 +16,16 @@ Phases, each printing its own lines:
    read back and held against numpy oracles, each plan timed;
 5. kernel mode (the JAX package's ``BENCH_MODE=pallas``): the fused Q6
    kernel on the device-resident lineitem columns against the Q6 oracle;
-6. one JSON line of the kernels with their launch counts on the main
-   path (phases 4-5; counts are reset just before phase 4);
-7. the card's name and power limit, then the result line.
+6. sql: all eight TPC-H tables in the port's ``Catalog`` on the card,
+   ANALYZEd, and the 22 TPC-H queries through ``Session.execute(sql).rows()``, each
+   held against the SQLite oracle (built and run meanwhile in a second
+   process from the same seed) and timed, with its capacity re-plans and
+   peak device memory;
+7. one JSON line of the kernels with their launch counts on the main
+   path (phases 4-5; counts are reset just before phase 4 and again
+   before phase 6, whose SQL path, like the JAX package's, reaches no
+   hand-written kernel);
+8. the card's name and power limit, then the result line.
 
 Any mismatch or error exits nonzero before the result line.  Without a
 CUDA device, or without the package beside this file, it exits nonzero
@@ -37,8 +44,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12            # H100 SXM non-tensor 32-bit peak rate
 PLAN_RUNS = 5
+SQL_RUNS = 3                     # timed runs per query, after a warm-up
 
 
 def _card_line() -> str:
@@ -126,10 +133,9 @@ def phase_kernels(torch, dev, sf_cols):
         return sk.q6_filter_sum_reference(*sf_cols, **b)
 
     ms, plain_ms = _batched_ms(torch, kernel), _batched_ms(torch, plain)
+    # a 20 B/row streaming scan: the bytes bound is the bound (its eight
+    # integer operations a row take 50x less time at the card's peak)
     nbytes = 5 * 4 * n + 8            # five int32 columns in, one int64 out
-    nops = 8 * n                      # six compares, a multiply, an add
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / INT_OPS_PER_S * 1e3
     rec = {
         "name": "q6_filter_sum",
         "route": "cuda",
@@ -138,8 +144,8 @@ def phase_kernels(torch, dev, sf_cols):
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
         "library_ms": None,   # no single PyTorch call computes it
     }
     print(f"[kernels] q6_filter_sum n={n}: back to back: kernel {ms:.6f} "
@@ -221,6 +227,101 @@ def phase_main_path(torch, dev, tables, types, card):
     return timings
 
 
+def _oracle_worker(repo, sf, queue):
+    """Second process: regenerate TPC-H from the same seed, load it into
+    SQLite and run the 22 queries there (SQLite is single-threaded; the
+    card's phases run meanwhile)."""
+    sys.path.insert(0, repo)
+    from oceanbase_tpu_torch.bench.oracle import load_sqlite, run_oracle
+    from oceanbase_tpu_torch.bench.tpch import gen_tpch
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+
+    tables, types = gen_tpch(sf=sf)
+    t0 = time.perf_counter()
+    conn = load_sqlite(tables, types)
+    load_s = time.perf_counter() - t0
+    del tables
+    t0 = time.perf_counter()
+    rows = {q: run_oracle(conn, sql) for q, sql in sorted(QUERIES.items())}
+    queue.put((load_s, time.perf_counter() - t0, rows))
+
+
+def start_oracle(repo, sf):
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_oracle_worker, args=(repo, sf, queue),
+                       daemon=True)
+    proc.start()
+    return proc, queue
+
+
+def phase_sql(torch, dev, tables, types, card, oracle):
+    """Phase 6: the 22 TPC-H queries through the port's SQL session."""
+    from oceanbase_tpu_torch.bench.oracle import rows_match
+    from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.sql import Session
+
+    t0 = time.perf_counter()
+    sess = Session(device=dev)
+    for name, arrays in tables.items():
+        sess.catalog.load_numpy(
+            name, arrays, primary_key=TPCH_PRIMARY_KEYS[name],
+            types={k: v for k, v in types.items() if k in arrays})
+    torch.cuda.synchronize()
+    print(f"[sql] catalog: {len(tables)} tables, "
+          f"{sess.catalog.device_bytes()} bytes on {dev} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    # exact optimizer statistics before the run, as the JAX package's
+    # SF1 parity run gathers them (scripts/sf_parity.py): the load-time
+    # sampled NDVs under-budget SF1 joins past the 4^3 re-plan ladder
+    t0 = time.perf_counter()
+    for name in tables:
+        sess.execute(f"analyze table {name}")
+    print(f"[sql] set-up: ANALYZE of {len(tables)} tables in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    got, stats = {}, {}
+    for q, sql in sorted(QUERIES.items()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got[q] = sess.execute(sql).rows()       # warm-up, checked below
+        retries = sess.last_retries
+        times = []
+        for _ in range(SQL_RUNS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sess.execute(sql)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        stats[q] = (statistics.median(times), len(got[q]), retries,
+                    torch.cuda.max_memory_allocated())
+        ms, nrows, retries, peak = stats[q]
+        print(f"[sql] q{q}: {ms:.3f} ms/query (median of {SQL_RUNS}, bind "
+              f"included), rows={nrows}, retries={retries}, "
+              f"peak_mem={peak} B; {card}", flush=True)
+
+    proc, queue = oracle
+    load_s, run_s, want = queue.get(timeout=900)
+    proc.join(timeout=60)
+    if proc.exitcode != 0:
+        raise RuntimeError(f"oracle process exited {proc.exitcode}")
+    print(f"[sql] set-up: SQLite oracle loaded in {load_s:.3f} s, 22 "
+          f"queries there in {run_s:.3f} s (second process)")
+    for q, sql in sorted(QUERIES.items()):
+        ordered = "order by" in sql.lower() and q not in (2, 18, 21)
+        ok, why = rows_match(got[q], want[q], ordered=ordered)
+        if not ok:
+            raise AssertionError(f"Q{q} differs from the SQLite oracle: "
+                                 f"{why}")
+    total_ms = sum(st[0] for st in stats.values())
+    print(f"[sql] all 22 queries match SQLite; {total_ms:.3f} ms in all "
+          f"(sum of medians) on {card}")
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -251,6 +352,7 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     sf = float(os.environ.get("OB_SMOKE_SF", "1"))
+    oracle = start_oracle(here, sf)
     t0 = time.perf_counter()
     tables, types = gen_tpch(sf=sf)
     li = tables["lineitem"]
@@ -273,6 +375,12 @@ def main() -> int:
         if rec["launches"] < 1:
             raise AssertionError(
                 f"{rec['name']} was not launched on the main path")
+
+    _build.reset_launch_counts()
+    phase_sql(torch, dev, tables, types, card, oracle)
+    torch.cuda.synchronize()
+    print(f"[sql] kernel launches on the SQL path: "
+          f"{_build.launch_counts()}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -19,9 +19,13 @@ How the JAX primitives map:
 - ``jnp.take(..., mode="clip")`` and clipped gathers -> ``take``, which
   clamps (an out-of-range CUDA gather is a device-side assert).
 
-Scope: ``_count_distinct``, ``top_n``, ``index_probe``,
-``semi_join_residual``, ``concat`` and the multi-key hashed join
-(``_mix64``) are not ported yet and raise ``NotImplementedError``.
+- ``lax.top_k``          -> a stable descending ``torch.sort`` cut to k:
+  ties keep the lower index first, as ``top_k`` does.
+- ``uint64`` hashing      -> int64 with wrap-around multiplies and masked
+  arithmetic shifts standing in for logical ones (``_mix64``).
+
+Scope: ``index_probe`` and ``concat`` (the IndexProbe and Union plan
+nodes) are not ported yet; no TPC-H query reaches them.
 """
 
 from __future__ import annotations
@@ -44,10 +48,6 @@ from oceanbase_tpu_torch.vector.column import Column, Relation, take
 
 _INT_MAX = int(np.iinfo(np.int64).max)
 
-_TODO_OPS = ("waits for ROADMAP Queue 1 item 3 (top_n, _count_distinct, "
-             "index_probe, semi_join_residual, concat)")
-_TODO_MIX64 = ("multi-key and non-integer join keys (the hashed _mix64 "
-               "path) wait for ROADMAP Queue 1 item 2")
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +88,8 @@ def lexsort(minor_to_major: Sequence[torch.Tensor]) -> torch.Tensor:
     order.  Chained stable sorts from the minor key to the major key."""
     order = None
     for k in minor_to_major:
+        if k.dtype == torch.bool:
+            k = k.to(torch.int8)
         kk = k if order is None else k.index_select(0, order)
         perm = _sort_stable(kk)
         order = perm if order is None else order.index_select(0, perm)
@@ -139,7 +141,30 @@ def project(rel: Relation, outputs: dict[str, ir.Expr]) -> Relation:
 
 
 def top_n(rel: Relation, key: ir.Expr, ascending: bool, k: int) -> Relation:
-    raise NotImplementedError(f"top_n {_TODO_OPS}")
+    """Fused ORDER BY <single key> LIMIT k: the rows of the k best scores
+    in score order, dead rows last; ties keep the lower row first, as
+    ``lax.top_k`` does in the JAX package."""
+    n = rel.capacity
+    m = rel.mask_or_true()
+    c = eval_expr(key, rel)
+    d = c.data
+    if d.is_floating_point():
+        score = torch.where(torch.isnan(d), _scalar(float("-inf"), d), d)
+        score = -score if ascending else score
+        big = float("inf")
+        null_last = torch.finfo(score.dtype).min
+    else:
+        score = -d.to(torch.int64) if ascending else d.to(torch.int64)
+        big = _INT_MAX
+        null_last = -big + 1
+    if c.valid is not None:
+        # NULL sorts smallest -> first under ASC, last under DESC; a live
+        # NULL still outranks dead rows
+        score = torch.where(c.valid, score,
+                            _scalar(big if ascending else null_last, score))
+    score = torch.where(m, score, _scalar(-big, score))  # dead rows lose
+    idx = torch.sort(score, descending=True, stable=True).indices[:min(k, n)]
+    return rel.gather(idx, mask=take(m, idx))
 
 
 def limit(rel: Relation, k: int, offset: int = 0) -> Relation:
@@ -295,9 +320,6 @@ def hash_groupby(
     if fast is not None:
         return fast
 
-    if any(a.fn == "count_distinct" for a in aggs):
-        raise NotImplementedError(f"count_distinct {_TODO_OPS}")
-
     key_cols = {name: eval_expr(e, rel) for name, e in group_by.items()}
     # canonicalize NULL payloads so all NULLs of a key share one group
     for name, c in list(key_cols.items()):
@@ -363,6 +385,11 @@ def hash_groupby(
         s_data = take(ac.data, order)
         s_valid = take(ac.valid, order) if ac.valid is not None else None
         weight = s_live if s_valid is None else (s_live & s_valid)
+        if spec.fn == "count_distinct":
+            res = _count_distinct(minor_to_major, key_cols, rel, spec,
+                                  n)[:cap]
+            out_cols[spec.name] = Column(res, None, SqlType.int_())
+            continue
         if spec.fn == "avg":
             ssum = _segment_agg("sum", s_data, weight, gid, n)[:cap]
             scnt = _segment_agg("count", None, weight, gid, n)[:cap]
@@ -472,6 +499,32 @@ def _lowcard_groupby(rel, group_by, aggs, out_capacity, n, m):
     return Relation(columns=out_cols, mask=occupied)
 
 
+def _count_distinct(minor_to_major, key_cols, rel, spec, n):
+    """COUNT(DISTINCT arg) per group: re-sort by (group keys, arg) and
+    count first-occurrence flags per group."""
+    ac = eval_expr(spec.arg, rel)
+    order2 = lexsort([ac.data] + list(minor_to_major))
+    m = rel.mask_or_true()
+    l2 = take(m, order2)
+    d2 = take(ac.data, order2)
+    w2 = l2 if ac.valid is None else (l2 & take(ac.valid, order2))
+    # group boundaries in the second order; validity lanes take part so
+    # a NULL-key group never merges with the canonicalized-payload group
+    diff = torch.zeros(n, dtype=torch.bool, device=m.device)
+    for c in key_cols.values():
+        diff = diff | _neq_prev(take(c.data, order2))
+        if c.valid is not None:
+            diff = diff | _neq_prev(take(c.valid, order2))
+    if not key_cols:
+        diff = _first_flag(n, m.device)
+    newgrp2 = diff & l2
+    gid2 = torch.where(
+        l2, torch.clamp(torch.cumsum(newgrp2.to(torch.int64), 0) - 1, min=0),
+        _scalar(n - 1, l2, torch.int64))
+    first = (newgrp2 | _neq_prev(d2)) & w2
+    return segment_sum(first.to(torch.int64), gid2, n)
+
+
 def scalar_agg(rel: Relation, aggs: Sequence[AggSpec]) -> Relation:
     """Aggregates without GROUP BY -> single-row relation (always 1 live
     row: COUNT over empty input is 0, SUM/MIN/MAX are NULL)."""
@@ -527,12 +580,46 @@ _EXACT_KEY_KINDS = (TypeKind.INT, TypeKind.DATE, TypeKind.DATETIME,
                     TypeKind.DECIMAL, TypeKind.BOOL, TypeKind.STRING)
 
 
+def _as_int64(u: int) -> int:
+    """A uint64 constant as the int64 with the same bits."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+_M1 = _as_int64(0xBF58476D1CE4E5B9)
+_M2 = _as_int64(0x94D049BB133111EB)
+
+
+def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes (the uint64 ``>>``): shift
+    arithmetically, then clear the k sign-filled high bits."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer on int64 lanes, bit-identical to the JAX
+    package's uint64 version: the multiplies wrap mod 2^64 in int64."""
+    x = (x ^ _shr(x, 30)) * _M1
+    x = (x ^ _shr(x, 27)) * _M2
+    return x ^ _shr(x, 31)
+
+
 def _combined_key(cols: Sequence[Column]):
-    """One sortable int64 join key.  A single int-like key is its own
-    exact key; anything else needs the hashed path, not ported yet."""
+    """Combine join key columns into one sortable int64 -> (key, exact).
+
+    A single int-like key is its own exact key.  Several keys, or a float
+    key, go through the 64-bit mix; the caller re-checks every candidate
+    pair on the real key columns (hash collisions)."""
     if len(cols) == 1 and cols[0].dtype.kind in _EXACT_KEY_KINDS:
-        return cols[0].data.to(torch.int64)
-    raise NotImplementedError(_TODO_MIX64)
+        return cols[0].data.to(torch.int64), True
+    h = torch.zeros(cols[0].capacity, dtype=torch.int64,
+                    device=cols[0].device)
+    for c in cols:
+        if c.data.is_floating_point():
+            k = c.data.to(torch.float64).view(torch.int64)
+        else:
+            k = c.data.to(torch.int64)
+        h = _mix64(h ^ _mix64(k))
+    return h, False
 
 
 def _keys_valid(cols: Sequence[Column], mask):
@@ -576,8 +663,9 @@ def join(
             lcols[i] = cast_column(lc, SqlType(TypeKind.DECIMAL, 38, s))
             rcols[i] = cast_column(rc, SqlType(TypeKind.DECIMAL, 38, s))
 
-    lkey = _combined_key(lcols)
-    rkey = _combined_key(rcols)
+    lkey, exact = _combined_key(lcols)
+    rkey, rexact = _combined_key(rcols)
+    exact = exact and rexact
     lvalid = _keys_valid(lcols, lm)
     rvalid = _keys_valid(rcols, rm)
 
@@ -590,11 +678,13 @@ def join(
     hi = torch.searchsorted(rkey_sorted, lkey_p, right=True)
     counts = torch.where(lvalid, hi - lo, _scalar(0, lo))
 
-    if how == "semi":
+    if exact and how == "semi":
         return left.with_mask(lm & (counts > 0))
-    if how == "anti":
+    if exact and how == "anti":
         # NOT EXISTS semantics: NULL keys never match, so they survive
         return left.with_mask(lm & (counts == 0))
+    # hashed semi/anti fall through: candidate counts include hash
+    # collisions, so matches are verified on the expanded lanes
 
     keep_unmatched = how in ("left", "full")
     if keep_unmatched:
@@ -626,12 +716,37 @@ def join(
         out_cols[name] = Column(g.data, v, c.dtype, c.sdict)
 
     live = out_live & (matched | keep_unmatched)
+    match_lane = out_live & matched  # lanes carrying a real build pairing
+    if not exact:
+        # verify candidate equality on the real key columns (collisions)
+        ok = torch.ones(cap, dtype=torch.bool, device=dev)
+        for lc, rc in zip(lcols, rcols):
+            ok = ok & (take(lc.data, probe_idx) == take(rc.data, build_idx))
+        true_lane = out_live & matched & ok
+        # true-match count per probe row: a collision neither emits a
+        # phantom NULL-extended row nor satisfies semi/anti membership
+        tc = segment_sum(true_lane.to(torch.int64), probe_idx, ln)
+        if how == "semi":
+            return left.with_mask(lm & (tc > 0))
+        if how == "anti":
+            return left.with_mask(lm & (tc == 0))
+        if keep_unmatched:
+            # a lane survives as a real match, or as the one
+            # NULL-extended row of a probe row with no true match
+            null_lane = (off == 0) & (take(tc, probe_idx) == 0)
+            live = out_live & (true_lane | null_lane)
+            match_lane = true_lane
+            for name in right.columns:
+                c = out_cols[name]
+                out_cols[name] = Column(c.data, c.valid_or_true() & true_lane,
+                                        c.dtype, c.sdict)
+        else:
+            live = live & ok
     if how != "full":
         return Relation(columns=out_cols, mask=live)
 
     # FULL OUTER: append one lane per build row, live when that row
     # matched no probe lane (NULL-extended left side)
-    match_lane = out_live & matched
     seg = torch.where(match_lane, build_idx, _scalar(rn, build_idx))
     # segment rn collects the dropped lanes (JAX drops out-of-range ids)
     bmatch = segment_sum(match_lane.to(torch.int64), seg,
@@ -654,6 +769,37 @@ def join(
     return Relation(columns=full_cols, mask=torch.cat([live, app_live]))
 
 
+def semi_join_residual(
+    left: Relation,
+    right: Relation,
+    left_keys: Sequence[ir.Expr],
+    right_keys: Sequence[ir.Expr],
+    residual: Sequence[ir.Expr],
+    anti: bool = False,
+    out_capacity: int | None = None,
+) -> Relation:
+    """Semi/anti join with non-equality correlated predicates: expand the
+    equality join, evaluate the residual on the combined rows, then count
+    the surviving matches per probe row.  EXISTS keeps rows with a match,
+    NOT EXISTS rows with none."""
+    ln = left.capacity
+    lm = left.mask_or_true()
+    # tag probe rows with their position so matches fold back per row
+    rid = Column(_arange(ln, lm.device), None, SqlType.int_())
+    left2 = Relation(columns={**left.columns, "__rid__": rid},
+                     mask=left.mask)
+    expanded = join(left2, right, left_keys, right_keys, how="inner",
+                    out_capacity=out_capacity)
+    ok = expanded.mask_or_true()
+    for pred in residual:
+        ok = ok & eval_predicate(pred, expanded)
+    ridx = torch.clamp(expanded.columns["__rid__"].data, 0, ln - 1)
+    matches = segment_sum(ok.to(torch.int64), ridx, ln)
+    if anti:
+        return left.with_mask(lm & (matches == 0))
+    return left.with_mask(lm & (matches > 0))
+
+
 def _translate_dict(lc: Column, rc: Column) -> Column:
     """Map left dict codes into right's dictionary space (-1 = no match)."""
     assert lc.sdict is not None and rc.sdict is not None
@@ -669,5 +815,5 @@ def _translate_dict(lc: Column, rc: Column) -> Column:
 __all__ = [
     "AggSpec", "compact", "filter_rows", "hash_groupby",
     "join", "lexsort", "limit", "project", "scalar_agg", "segment_sum",
-    "sort_rows",
+    "semi_join_residual", "sort_rows", "top_n",
 ]

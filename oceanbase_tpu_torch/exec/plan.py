@@ -8,13 +8,21 @@ operator pushes a device scalar, the executor sums them into ONE device
 scalar and reads it once at the result boundary — the only host sync of
 an execution — and reads the per-lane detail only on the error path.
 
+The plan-quality metadata the binder and optimizer use is copied as it
+is (``logical_hash``, ``propagate_estimates``, ``monitored_op``), so a
+plan bound by the port hashes like the JAX package's.
+
 There is no jit counterpart: torch runs eagerly.  The XLA executable
 cache, the metrics/trace/admission hooks and the plan-monitor lanes are
-not ported yet.
+not ported yet; neither are the IndexProbe, Union and Window lowerings
+(no TPC-H query reaches them).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import re
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -24,8 +32,8 @@ from oceanbase_tpu_torch.exec import diag, ops
 from oceanbase_tpu_torch.expr import ir
 from oceanbase_tpu_torch.vector.column import Relation
 
-_TODO_NODE = ("waits for ROADMAP Queue 1 (window: item 4; "
-              "index_probe/semi_join_residual/concat: item 3)")
+_TODO_NODE = ("waits for ROADMAP Queue 1 (IndexProbe and Union: "
+              "index_probe/concat; Window: window functions)")
 
 
 class PlanNode:
@@ -207,8 +215,142 @@ class Compact(PlanNode):
 
 
 # ---------------------------------------------------------------------------
+# plan-quality metadata: logical hash + estimate propagation
+# ---------------------------------------------------------------------------
+
+
+def _logical_repr(node: PlanNode) -> str:
+    """Capacity-insensitive rendering: two plans that differ only in
+    their static budgets (out_capacity scaling after CapacityOverflow)
+    or estimates render identically — the key the cardinality-feedback
+    store and the plan-regression watchdog aggregate on."""
+    parts = []
+    for k, v in vars(node).items():
+        if k in ("out_capacity", "capacity", "est_rows") or \
+                k.startswith("_"):
+            continue
+        if isinstance(v, PlanNode) or k in ("child", "left", "right",
+                                            "inputs"):
+            continue
+        if isinstance(v, str) and k in ("table", "index", "name"):
+            # hex-protect object identifiers: the colid normalization
+            # below strips ``_<digits>`` suffixes, which would conflate
+            # events_2024 and events_2025 into ONE feedback/history key
+            # (capacity corrections and regression baselines would leak
+            # across distinct tables); hex output contains no
+            # underscores, so the regex cannot touch it
+            parts.append(f"{k}={v.encode().hex()}")
+            continue
+        parts.append(f"{k}={v!r}")
+    kids = ",".join(_logical_repr(c) for c in node.children())
+    return f"{type(node).__name__}({','.join(parts)})[{kids}]"
+
+
+_COLID_SEQ = re.compile(r"_\d+\b")
+
+
+def logical_hash(node: PlanNode) -> str:
+    """Stable digest of the plan MINUS capacities/estimates: the
+    gv$plan_feedback / gv$plan_history key (a capacity retry or a stats
+    refresh must not open a fresh history).
+
+    Binder colids embed a session-global counter (``a_k_5``, ``o_9``),
+    so the raw repr would hash differently on every rebind of the same
+    statement — the counter suffixes are normalized away.  Table/index
+    identifiers are hex-protected in _logical_repr so distinct tables
+    never share a key; a string LITERAL ending in ``_<digits>`` still
+    normalizes (worst case: two same-shaped predicates share one
+    history, and apply_feedback's op-name check guards corrections).
+
+    Memoized on the node (plans are treated as immutable once built;
+    cached plans would otherwise pay the whole-tree render + digest on
+    every execution)."""
+    h = node.__dict__.get("_logical_hash")
+    if h is None:
+        text = _COLID_SEQ.sub("", _logical_repr(node))
+        h = hashlib.md5(text.encode()).hexdigest()[:16]
+        node.__dict__["_logical_hash"] = h
+    return h
+
+
+def propagate_estimates(node: PlanNode,
+                        row_counts: dict | None = None) -> PlanNode:
+    """Fill missing ``est_rows`` from the children (post-bind pass): the
+    binder annotates the nodes it has real estimates for; everything
+    else inherits a defensible bound so EVERY operator row in
+    gv$sql_plan_monitor carries an estimate to q-error against.
+    ``row_counts`` maps table -> live rows for un-annotated scans."""
+    kids: dict = {}
+    changed = False
+    for fname in ("child", "left", "right"):
+        if hasattr(node, fname):
+            old = getattr(node, fname)
+            nv = propagate_estimates(old, row_counts)
+            kids[fname] = nv
+            changed = changed or nv is not old
+    if hasattr(node, "inputs"):
+        nv_list = [propagate_estimates(c, row_counts)
+                   for c in node.inputs]
+        kids["inputs"] = nv_list
+        changed = changed or any(a is not b for a, b in
+                                 zip(nv_list, node.inputs))
+    est = node.est_rows
+    if est is None:
+        if isinstance(node, TableScan):
+            est = (row_counts or {}).get(node.table)
+        elif isinstance(node, ScalarAgg):
+            est = 1
+        elif isinstance(node, Limit):
+            ce = kids["child"].est_rows
+            k = node.k + (node.offset or 0)
+            est = k if ce is None else min(k, ce)
+        elif isinstance(node, Union):
+            subs = [c.est_rows for c in kids["inputs"]]
+            known = [s for s in subs if s is not None]
+            est = sum(known) if known else None
+        elif isinstance(node, (HashJoin, SemiJoinResidual)):
+            le = kids["left"].est_rows
+            re_ = kids["right"].est_rows
+            known = [v for v in (le, re_) if v is not None]
+            est = max(known) if known else None
+        elif "child" in kids:
+            # single-child pass-through (Filter/Project/Sort/Window/
+            # Compact/GroupBy without a binder estimate): the child's
+            # cardinality is an upper bound
+            est = kids["child"].est_rows
+    if est is not None:
+        est = max(int(est), 1)
+    if est == node.est_rows and not changed:
+        return node
+    updates = dict(kids)
+    if est != node.est_rows:
+        updates["est_rows"] = est
+    return dataclasses.replace(node, **updates)
+
+
+# ---------------------------------------------------------------------------
 # lowering
 # ---------------------------------------------------------------------------
+
+
+# pass-through operators preserve cardinality exactly (their output
+# rows ≡ the child's), so they get no ledger row; ``monitored_op``
+# defines the positions ``sql/optimizer.py::apply_feedback`` reads (the
+# plan-monitor lanes themselves wait for ROADMAP Queue 1 item 9)
+PASSTHROUGH_OPS = ("Project", "Sort", "Compact", "Window")
+
+
+def monitored_op(node: PlanNode, parent: "PlanNode | None" = None) -> bool:
+    """Does this operator get its own estimate-vs-actual ledger row?
+
+    Pass-through operators never do.  An inner Filter of a conjunct
+    chain doesn't either: only the TOPMOST filter's output cardinality
+    reaches the rest of the plan, and the binder splits one WHERE into
+    a Filter per conjunct — monitoring each would pay one mask
+    reduction per conjunct for rows that duplicate the chain head's."""
+    if type(node).__name__ in PASSTHROUGH_OPS:
+        return False
+    return not (isinstance(node, Filter) and isinstance(parent, Filter))
 
 
 def _lower(node: PlanNode, tables: dict[str, Relation]) -> Relation:
@@ -237,6 +379,12 @@ def _lower(node: PlanNode, tables: dict[str, Relation]) -> Relation:
             _lower(node.left, tables), _lower(node.right, tables),
             node.left_keys, node.right_keys, how=node.how,
             out_capacity=node.out_capacity,
+        )
+    if isinstance(node, SemiJoinResidual):
+        return ops.semi_join_residual(
+            _lower(node.left, tables), _lower(node.right, tables),
+            node.left_keys, node.right_keys, node.residual,
+            anti=node.anti, out_capacity=node.out_capacity,
         )
     if isinstance(node, Sort):
         return ops.sort_rows(_lower(node.child, tables), node.keys,

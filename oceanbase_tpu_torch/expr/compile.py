@@ -8,13 +8,15 @@ explicit so result dtypes match the JAX package's (which runs with
 ``jax_enable_x64``).  String predicates lower to host work over the
 dictionary plus a device gather.
 
-Scope: column, literal, comparison, AND/OR/NOT, BETWEEN, IN, IS NULL,
-LIKE, arithmetic, CASE and CAST.  Scalar functions (``_eval_func``) and
-UDFs are not ported yet.
+Scope: every node kind, the scalar functions (dates through Hinnant's
+civil-date arithmetic with floor division, math, string functions as
+dictionary transforms) and the UDF registry.  The VECTOR distance
+functions wait for ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
 
+import hashlib
 import re
 
 import numpy as np
@@ -38,11 +40,6 @@ from oceanbase_tpu_torch.vector.column import (
 )
 
 _POW10 = [10**i for i in range(38)]
-
-_FUNC_TODO = ("scalar functions and UDFs wait for ROADMAP Queue 1 item 1 "
-              "(the rest of expr/compile.py: _eval_func and the UDF "
-              "registry)")
-
 
 def _full(n: int, value, dtype, device) -> torch.Tensor:
     return torch.full((n,), value, dtype=dtype, device=device)
@@ -579,15 +576,482 @@ def _div_round(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# scalar functions / UDFs: not ported yet
+# date decomposition (Hinnant civil-from-days, branch-free, floor division)
 # ---------------------------------------------------------------------------
 
+def _fdiv(x, d):
+    """Floor division, as ``//`` on integer arrays in the JAX package."""
+    return torch.div(x, d, rounding_mode="floor")
+
+
+def civil_from_days(z: torch.Tensor):
+    """Days since 1970-01-01 -> (year, month, day) as int64 lanes."""
+    z = z.to(torch.int64) + 719468
+    era = _fdiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524)
+                - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
+
+
+def days_from_civil(y, m, d):
+    """Inverse of civil_from_days (Hinnant, floor-division form)."""
+    y = y - (m <= 2).to(torch.int64)
+    era = _fdiv(y, 400)
+    yoe = y - era * 400
+    mp = m + torch.where(m > 2, -3, 9)
+    doy = _fdiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+_MONTH_DAYS = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
+
+
+def _days_in_month(y, m):
+    leap = (((torch.remainder(y, 4) == 0) & (torch.remainder(y, 100) != 0))
+            | (torch.remainder(y, 400) == 0))
+    lengths = torch.tensor(_MONTH_DAYS, dtype=torch.int64, device=m.device)
+    base = take(lengths, torch.clamp(m - 1, 0, 11))
+    return torch.where((m == 2) & leap, 29, base)
+
+
+# ---------------------------------------------------------------------------
+# UDF registry: user functions over torch tensors run inside the plan
+# ---------------------------------------------------------------------------
+
+_UDFS: dict[str, tuple] = {}
+
+
 def register_udf(name: str, fn, result_type: "SqlType | None" = None):
-    raise NotImplementedError(_FUNC_TODO)
+    """Register fn(*tensors) -> tensor as a SQL scalar function.
+
+    The function takes the argument columns' data tensors (on the
+    relation's device) and returns one tensor of the same length; it must
+    not read them on the host.  NULL handling is strict: the result is
+    NULL where any input is NULL."""
+    _UDFS[name.lower()] = (fn, result_type)
+
+
+def unregister_udf(name: str):
+    _UDFS.pop(name.lower(), None)
+
+
+def _lut_gather(c: Column, values: np.ndarray, dtype) -> torch.Tensor:
+    """Map a dictionary column's codes through a host table built over
+    its dictionary (one value per code)."""
+    return take(_host_lut(values, dtype, c.device), c.data)
 
 
 def _eval_func(e: ir.FuncCall, rel: Relation, n: int) -> Column:
-    raise NotImplementedError(f"function {e.name}: {_FUNC_TODO}")
+    name = e.name.lower()
+    dev = rel.device
+    if name in _UDFS:
+        fn, rt = _UDFS[name]
+        cols = [eval_expr(a, rel) for a in e.args]
+        data = torch.as_tensor(fn(*[c.data for c in cols]), device=dev)
+        valid = None
+        for c in cols:
+            valid = c.valid if valid is None else (
+                valid if c.valid is None else (valid & c.valid))
+        if rt is None:
+            if data.is_floating_point():
+                rt = SqlType.double()
+            elif data.dtype == torch.bool:
+                rt = SqlType.bool_()
+            else:
+                rt = SqlType.int_()
+        return Column(data, valid, rt)
+    if name == "match_against":
+        # MATCH(col) AGAINST('terms'): token containment scored over the
+        # dictionary on the host, then a gather maps codes to scores
+        c = eval_expr(e.args[0], rel)
+        terms = e.args[1].value if isinstance(e.args[1], ir.Literal) \
+            else ""
+        qtoks = [t for t in re.split(r"\W+", str(terms).lower()) if t]
+        if c.sdict is None or not qtoks:
+            return Column(_full(n, 0.0, torch.float64, dev), c.valid,
+                          SqlType.double())
+
+        def score(text):
+            toks = set(re.split(r"\W+", str(text).lower()))
+            return float(sum(1.0 for t in qtoks if t in toks))
+
+        data = _lut_gather(c, c.sdict.lut(score).astype(np.float64),
+                           torch.float64)
+        if c.valid is not None:
+            data = torch.where(c.valid, data, torch.zeros_like(data))
+        return Column(data, c.valid, SqlType.double())
+    if name in _VECTOR_FUNCS:
+        raise NotImplementedError(f"function {name}: {_VECTOR_TODO}")
+    if name in ("extract_year", "year", "extract_month", "month",
+                "extract_day", "day", "quarter", "dayofyear", "dayofweek",
+                "weekday"):
+        c = eval_expr(e.args[0], rel)
+        y, m, d = civil_from_days(c.data)
+        days = c.data.to(torch.int64)
+        if name in ("extract_year", "year"):
+            out = y
+        elif name in ("extract_month", "month"):
+            out = m
+        elif name in ("extract_day", "day"):
+            out = d
+        elif name == "quarter":
+            out = _fdiv(m + 2, 3)
+        elif name == "dayofyear":
+            out = days - days_from_civil(y, torch.ones_like(m),
+                                         torch.ones_like(d)) + 1
+        elif name == "dayofweek":   # MySQL: 1 = Sunday
+            out = torch.remainder(days + 4, 7) + 1
+        else:                       # weekday: 0 = Monday
+            out = torch.remainder(days + 3, 7)
+        return Column(data=out, valid=c.valid, dtype=SqlType.int_())
+    if name == "add_months":
+        c = eval_expr(e.args[0], rel)
+        k = eval_expr(e.args[1], rel)
+        y, m, d = civil_from_days(c.data)
+        total = y * 12 + (m - 1) + k.data.to(torch.int64)
+        y2 = _fdiv(total, 12)
+        m2 = total - y2 * 12 + 1
+        d2 = torch.minimum(d, _days_in_month(y2, m2))
+        out = days_from_civil(y2, m2, d2).to(torch.int32)
+        return Column(data=out, valid=_merge_valid(c, k), dtype=c.dtype)
+    if name == "datediff":
+        a = eval_expr(e.args[0], rel)
+        b = eval_expr(e.args[1], rel)
+        data = a.data.to(torch.int64) - b.data.to(torch.int64)
+        return Column(data=data, valid=_merge_valid(a, b),
+                      dtype=SqlType.int_())
+    if name == "abs":
+        c = eval_expr(e.args[0], rel)
+        return c.with_data(torch.abs(c.data))
+    if name == "sign":
+        c = eval_expr(e.args[0], rel)
+        return Column(torch.sign(c.data).to(torch.int64), c.valid,
+                      SqlType.int_())
+    if name in ("ceil", "ceiling", "floor"):
+        c = eval_expr(e.args[0], rel)
+        if c.dtype.kind == TypeKind.DECIMAL:
+            s = _POW10[c.dtype.scale]
+            if name == "floor":
+                data = _fdiv(c.data, s)
+            else:
+                data = -_fdiv(-c.data, s)
+            return Column(data, c.valid, SqlType.int_())
+        if c.dtype.kind == TypeKind.INT:
+            return c
+        f = torch.floor if name == "floor" else torch.ceil
+        return Column(f(c.data).to(torch.int64), c.valid, SqlType.int_())
+    if name in ("round", "truncate"):
+        c = eval_expr(e.args[0], rel)
+        nd = 0
+        if len(e.args) > 1:
+            nd = e.args[1].value if isinstance(e.args[1], ir.Literal) else 0
+        if c.dtype.kind == TypeKind.DECIMAL:
+            target = SqlType(TypeKind.DECIMAL, c.dtype.precision,
+                             max(nd, 0))
+            if name == "round":
+                return cast_column(c, target)
+            if nd >= c.dtype.scale:
+                return c
+            d = _POW10[c.dtype.scale - max(nd, 0)]
+            data = torch.where(c.data >= 0, _fdiv(c.data, d),
+                               -_fdiv(-c.data, d))
+            return Column(data, c.valid, target)
+        if c.dtype.kind == TypeKind.INT:
+            return c
+        scale = 10.0 ** nd
+        if name == "round":
+            data = torch.round(c.data * scale) / scale
+        else:
+            data = torch.trunc(c.data * scale) / scale
+        return Column(data, c.valid, c.dtype)
+    if name in _UNARY_DOUBLE:
+        c = _to_float(eval_expr(e.args[0], rel), TypeKind.DOUBLE)
+        data = _UNARY_DOUBLE[name](c.data)
+        bad = torch.isnan(data) | torch.isinf(data)
+        return Column(data, c.valid_or_true() & ~bad, SqlType.double())
+    if name in ("power", "pow"):
+        a = _to_float(eval_expr(e.args[0], rel), TypeKind.DOUBLE)
+        b = _to_float(eval_expr(e.args[1], rel), TypeKind.DOUBLE)
+        return Column(torch.pow(a.data, b.data), _merge_valid(a, b),
+                      SqlType.double())
+    if name == "mod":
+        return _eval_arith(ir.Arith("%", e.args[0], e.args[1]), rel, n)
+    if name in ("greatest", "least"):
+        cols = [eval_expr(a, rel) for a in e.args]
+        cols, rt, sdict = _unify_branches(cols)
+        opf = torch.maximum if name == "greatest" else torch.minimum
+        data = cols[0].data
+        valid = cols[0].valid
+        for c in cols[1:]:
+            data = opf(data, c.data)
+            valid = _merge_valid(Column(data, valid, rt), c)
+        return Column(data, valid, rt, sdict=sdict)
+    if name == "ifnull":
+        return _eval_func(ir.FuncCall("coalesce", e.args), rel, n)
+    if name == "nullif":
+        a = eval_expr(e.args[0], rel)
+        t, _f = _tf(_eval_cmp(ir.Cmp("=", e.args[0], e.args[1]), rel, n))
+        return Column(a.data, a.valid_or_true() & ~t, a.dtype, a.sdict)
+    if name in ("length", "char_length", "character_length"):
+        c = eval_expr(e.args[0], rel)
+        assert c.sdict is not None, f"{name} requires a string column"
+        return Column(_lut_gather(c, c.sdict.lut(len).astype("int64"),
+                                  torch.int64), c.valid, SqlType.int_())
+    if name in ("trim", "ltrim", "rtrim", "reverse"):
+        fns = {"trim": str.strip, "ltrim": str.lstrip,
+               "rtrim": str.rstrip, "reverse": lambda s: s[::-1]}
+        return _dict_transform(e.args[0], rel, fns[name])
+    if name == "replace":
+        old = e.args[1].value
+        new = e.args[2].value
+        return _dict_transform(e.args[0], rel,
+                               lambda s: s.replace(old, new))
+    if name in ("left", "right"):
+        k = e.args[1].value
+        if name == "left":
+            return _dict_transform(e.args[0], rel, lambda s: s[:k])
+        return _dict_transform(e.args[0], rel,
+                               lambda s: s[-k:] if k else "")
+    if name == "concat":
+        return _eval_concat(e, rel, n)
+    if name == "coalesce":
+        cols = [eval_expr(a, rel) for a in e.args]
+        cols, rt, sdict = _unify_branches(cols)
+        data = cols[-1].data
+        valid = cols[-1].valid_or_true()
+        for c in reversed(cols[:-1]):
+            v = c.valid_or_true()
+            data = torch.where(v, c.data, data)
+            valid = v | valid
+        return Column(data=data, valid=valid, dtype=rt, sdict=sdict)
+    if name in ("substring", "substr", "upper", "lower"):
+        return _dict_string_func(name, e, rel)
+    if name in ("lcase", "ucase"):
+        return _dict_transform(e.args[0], rel,
+                               str.lower if name == "lcase" else str.upper)
+    if name == "if":
+        t = eval_predicate(e.args[0], rel)
+        a = eval_expr(e.args[1], rel)
+        b = eval_expr(e.args[2], rel)
+        (a, b), rt, sdict = _unify_branches([a, b])
+        data = torch.where(t, a.data, b.data)
+        valid = torch.where(t, a.valid_or_true(), b.valid_or_true())
+        return Column(data, valid, rt, sdict)
+    if name == "isnull":
+        c = eval_expr(e.args[0], rel)
+        data = _full(n, False, torch.bool, dev) if c.valid is None \
+            else ~c.valid
+        return Column(data, None, SqlType.bool_())
+    if name in _UNARY_RAW:
+        # on the raw lanes (a decimal is not descaled), as in the JAX package
+        c = eval_expr(e.args[0], rel)
+        out = _UNARY_RAW[name](c.data.to(torch.float64))
+        return Column(out, c.valid, SqlType.double())
+    if name == "atan2":
+        a = eval_expr(e.args[0], rel)
+        b = eval_expr(e.args[1], rel)
+        out = torch.atan2(a.data.to(torch.float64), b.data.to(torch.float64))
+        return Column(out, _merge_valid(a, b), SqlType.double())
+    if name == "pi":
+        return Column(_full(n, np.pi, torch.float64, dev), None,
+                      SqlType.double())
+    if name == "log":
+        # log(x) = ln; log(base, x) = ln(x)/ln(base) (MySQL)
+        if len(e.args) == 1:
+            c = eval_expr(e.args[0], rel)
+            return Column(torch.log(c.data.to(torch.float64)), c.valid,
+                          SqlType.double())
+        b = eval_expr(e.args[0], rel)
+        c = eval_expr(e.args[1], rel)
+        out = torch.log(c.data.to(torch.float64)) / \
+            torch.log(b.data.to(torch.float64))
+        return Column(out, _merge_valid(b, c), SqlType.double())
+    if name == "repeat" and len(e.args) == 2 and \
+            isinstance(e.args[1], ir.Literal):
+        k = int(e.args[1].value)
+        return _dict_transform(e.args[0], rel, lambda s: s * max(k, 0))
+    if name in ("lpad", "rpad"):
+        k = int(e.args[1].value)
+        pad = str(e.args[2].value) if len(e.args) > 2 else " "
+
+        def _pad(s, k=k, pad=pad, left=(name == "lpad")):
+            if len(s) >= k:
+                return s[:k]
+            fill = (pad * k)[: k - len(s)]
+            return fill + s if left else s + fill
+
+        return _dict_transform(e.args[0], rel, _pad)
+    if name in ("instr", "locate", "position"):
+        # instr(str, sub) / locate(sub, str): 1-based, 0 = not found
+        if len(e.args) > 2:
+            raise NotImplementedError(
+                f"{name} with a start position is not supported")
+        if name == "instr":
+            col_a, sub_a = e.args[0], e.args[1]
+        else:
+            col_a, sub_a = e.args[1], e.args[0]
+        sub = str(sub_a.value) if isinstance(sub_a, ir.Literal) else None
+        if sub is None:
+            raise NotImplementedError(f"{name} needs a literal needle")
+        c = eval_expr(col_a, rel)
+        assert c.sdict is not None, f"{name} requires a string column"
+        lut = c.sdict.lut(lambda s: s.find(sub) + 1).astype("int64")
+        return Column(_lut_gather(c, lut, torch.int64), c.valid,
+                      SqlType.int_())
+    if name == "ascii":
+        c = eval_expr(e.args[0], rel)
+        assert c.sdict is not None, "ascii requires a string column"
+        lut = c.sdict.lut(lambda s: ord(s[0]) if s else 0).astype("int64")
+        return Column(_lut_gather(c, lut, torch.int64), c.valid,
+                      SqlType.int_())
+    if name == "substring_index" and isinstance(e.args[1], ir.Literal) \
+            and isinstance(e.args[2], ir.Literal):
+        delim = str(e.args[1].value)
+        cnt = int(e.args[2].value)
+
+        def _si(s, d=delim, k=cnt):
+            parts = s.split(d)
+            return d.join(parts[:k]) if k >= 0 else d.join(parts[k:])
+
+        return _dict_transform(e.args[0], rel, _si)
+    if name == "concat_ws":
+        sep = str(e.args[0].value) if isinstance(e.args[0], ir.Literal) \
+            else None
+        if sep is None:
+            raise NotImplementedError("concat_ws needs a literal sep")
+        if len(e.args) < 2:
+            raise NotImplementedError("concat_ws needs value arguments")
+        # NULL values are SKIPPED with their separator, unlike CONCAT's
+        # null propagation: fold with CASE
+        out = e.args[1]
+        for a in e.args[2:]:
+            out = ir.Case(whens=[
+                (ir.FuncCall("isnull", [out]), a),
+                (ir.FuncCall("isnull", [a]), out),
+            ], else_=ir.FuncCall("concat", [out, ir.Literal(sep), a]))
+        out = ir.FuncCall("coalesce", [out, ir.Literal("")])
+        return eval_expr(out, rel)
+    if name in ("md5", "sha1", "hex"):
+        fns = {"md5": lambda s: hashlib.md5(s.encode()).hexdigest(),
+               "sha1": lambda s: hashlib.sha1(s.encode()).hexdigest(),
+               "hex": lambda s: s.encode().hex().upper()}
+        return _dict_transform(e.args[0], rel, fns[name])
+    if name in ("dayname", "monthname"):
+        c = eval_expr(e.args[0], rel)
+        if name == "dayname":
+            names = np.array(["Monday", "Tuesday", "Wednesday",
+                              "Thursday", "Friday", "Saturday",
+                              "Sunday"], dtype=object)
+            codes = torch.remainder(c.data.to(torch.int64) + 3, 7)
+        else:
+            names = np.array(["January", "February", "March", "April",
+                              "May", "June", "July", "August",
+                              "September", "October", "November",
+                              "December"], dtype=object)
+            _y, m, _d = civil_from_days(c.data)
+            codes = m - 1
+        # StringDict values must be sorted (searchsorted code lookups)
+        order = np.argsort(names.astype(str))
+        remap = _host_lut(np.argsort(order).astype(np.int32), torch.int32,
+                          dev)
+        return Column(take(remap, codes), c.valid, SqlType.string(),
+                      StringDict(names[order]))
+    if name == "last_day":
+        c = eval_expr(e.args[0], rel)
+        y, m, _d = civil_from_days(c.data)
+        out = days_from_civil(y, m, _days_in_month(y, m)).to(torch.int32)
+        return Column(out, c.valid, c.dtype)
+    raise NotImplementedError(f"function {name}")
+
+
+_VECTOR_FUNCS = ("l2_distance", "inner_product", "negative_inner_product",
+                 "cosine_distance")
+_VECTOR_TODO = ("VECTOR columns and their distance functions wait for "
+                "ROADMAP Queue 1 item 8 (side device modules)")
+
+_UNARY_DOUBLE = {"sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log,
+                 "log2": torch.log2, "log10": torch.log10, "sin": torch.sin,
+                 "cos": torch.cos, "tan": torch.tan}
+
+_UNARY_RAW = {"atan": torch.atan, "asin": torch.asin, "acos": torch.acos,
+              "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+              "cot": lambda v: 1.0 / torch.tan(v),
+              "degrees": torch.rad2deg, "radians": torch.deg2rad}
+
+
+def _remap_dict(c: Column, mapped: np.ndarray) -> Column:
+    """Re-encode a dictionary column whose values map to ``mapped`` (one
+    per code): the new sorted dictionary plus a device gather of codes."""
+    new_values, inv = np.unique(mapped, return_inverse=True)
+    codes = _lut_gather(c, inv.astype(np.int32), torch.int32)
+    return Column(codes, c.valid, SqlType.string(), StringDict(new_values))
+
+
+def _dict_transform(arg: ir.Expr, rel: Relation, fn) -> Column:
+    """Apply a host string function through the dictionary (LUT + remap)."""
+    c = eval_expr(arg, rel)
+    assert c.sdict is not None, "string function requires dict column"
+    return _remap_dict(c, c.sdict.lut(fn).astype(object))
+
+
+_CONCAT_DICT_LIMIT = 1 << 20
+
+
+def _eval_concat(e: ir.FuncCall, rel: Relation, n: int) -> Column:
+    """CONCAT over dict columns/literals.  Column x column concatenation
+    materializes the code-pair product dictionary, guarded by a size cap."""
+    cols = [eval_expr(a, rel) for a in e.args]
+    out = cols[0]
+    for c in cols[1:]:
+        if out.sdict is None or c.sdict is None:
+            raise NotImplementedError("concat requires string operands")
+        if out.sdict.size * c.sdict.size > _CONCAT_DICT_LIMIT:
+            raise NotImplementedError(
+                "concat dictionary product too large (round-1 limit)")
+        pairs = np.char.add(
+            np.repeat(out.sdict.values.astype(str), c.sdict.size),
+            np.tile(c.sdict.values.astype(str), out.sdict.size),
+        ).astype(object)
+        new_values, inv = np.unique(pairs, return_inverse=True)
+        remap = _host_lut(inv.astype(np.int32), torch.int32, out.device)
+        a = torch.clamp(out.data.to(torch.int64), 0, out.sdict.size - 1)
+        b = torch.clamp(c.data.to(torch.int64), 0, c.sdict.size - 1)
+        codes = take(remap, a * c.sdict.size + b)
+        out = Column(codes, _merge_valid(out, c), SqlType.string(),
+                     StringDict(new_values))
+    return out
+
+
+def _dict_string_func(name: str, e: ir.FuncCall, rel: Relation) -> Column:
+    """String functions as dictionary transforms (host) + device remap."""
+    c = eval_expr(e.args[0], rel)
+    assert c.sdict is not None, f"{name} requires dict-encoded column"
+    if name in ("substring", "substr"):
+        start = e.args[1].value if isinstance(e.args[1], ir.Literal) \
+            else e.args[1]
+        length = None
+        if len(e.args) > 2:
+            length = e.args[2].value if isinstance(e.args[2], ir.Literal) \
+                else e.args[2]
+        s0 = start - 1
+
+        def f(s):
+            return s[s0: s0 + length] if length is not None else s[s0:]
+    elif name == "upper":
+        def f(s):
+            return s.upper()
+    else:
+        def f(s):
+            return s.lower()
+    return _remap_dict(c, c.sdict.lut(f))
 
 
 def eval_predicate(e: ir.Expr, rel: Relation) -> torch.Tensor:

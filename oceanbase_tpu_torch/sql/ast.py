@@ -1,0 +1,414 @@
+"""Statement AST produced by the parser.
+
+The port's own copy of ``oceanbase_tpu/sql/ast.py``, kept line for line so
+both packages parse and plan a statement alike.
+
+Reference analog: ParseNode trees + the resolver's ObDMLStmt
+(src/sql/resolver/dml/ob_dml_stmt.h) — collapsed: the parser directly
+produces typed statement dataclasses; expressions use the shared IR
+(oceanbase_tpu_torch.expr.ir) extended with frontend-only nodes (Subquery, Star,
+Param) that the resolver/rewriter eliminate before codegen.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+from oceanbase_tpu_torch.datatypes import SqlType
+from oceanbase_tpu_torch.expr import ir
+
+
+# ---- frontend-only expression nodes ---------------------------------------
+
+@dataclass(eq=False)
+class Star(ir.Expr):
+    """SELECT * or t.*"""
+
+    table: Optional[str] = None
+
+
+@dataclass(eq=False)
+class Param(ir.Expr):
+    """? placeholder (prepared statements / parameterized plan cache)."""
+
+    index: int = 0
+
+
+@dataclass(eq=False)
+class SysVar(ir.Expr):
+    """@@name / @@session.name / @name — session/system variable reference
+    (≙ src/share/system_variable)."""
+
+    name: str = ""
+
+
+@dataclass(eq=False)
+class Subquery(ir.Expr):
+    """(SELECT ...) appearing inside an expression.
+
+    kind: 'scalar' | 'exists' | 'in' | 'quant'
+    """
+
+    select: "SelectStmt" = None
+    kind: str = "scalar"
+    negated: bool = False
+    # for IN / quantified compare:
+    lhs: Optional[ir.Expr] = None
+    op: Optional[str] = None       # =, <, ... for ANY/ALL
+    quant: Optional[str] = None    # any | all
+
+    def children(self):
+        return (self.lhs,) if self.lhs is not None else ()
+
+
+# ---- FROM clause -----------------------------------------------------------
+
+@dataclass
+class TableRef:
+    name: str
+    alias: Optional[str] = None
+
+
+@dataclass
+class SubqueryRef:
+    select: "SelectStmt"
+    alias: str
+
+
+@dataclass
+class JoinRef:
+    left: object
+    right: object
+    kind: str  # inner | left | right | cross
+    on: Optional[ir.Expr] = None
+
+
+# ---- statements ------------------------------------------------------------
+
+@dataclass
+class OrderItem:
+    expr: ir.Expr
+    ascending: bool = True
+
+
+@dataclass
+class SelectStmt:
+    items: list = field(default_factory=list)      # list[(Expr, alias|None)]
+    from_: list = field(default_factory=list)      # list[TableRef|SubqueryRef|JoinRef]
+    where: Optional[ir.Expr] = None
+    group_by: list = field(default_factory=list)   # list[Expr]
+    having: Optional[ir.Expr] = None
+    order_by: list = field(default_factory=list)   # list[OrderItem]
+    limit: Optional[int] = None
+    offset: int = 0
+    distinct: bool = False
+    ctes: list = field(default_factory=list)       # list[(name, SelectStmt)]
+    setops: list = field(default_factory=list)     # list[(op, all, SelectStmt)]
+    # ORDER BY / LIMIT written after a set operation apply to the combined
+    # result, not the last branch:
+    post_order_by: list = field(default_factory=list)
+    post_limit: Optional[int] = None
+    post_offset: int = 0
+    # when this SelectStmt is a CTE body: explicit column aliases from
+    # `WITH name (a, b) AS (...)`.  WITH RECURSIVE is rejected at parse
+    # time (no fixpoint materializer exists).
+    cte_cols: list = field(default_factory=list)
+
+
+@dataclass
+class ColumnSpec:
+    name: str
+    dtype: SqlType
+    nullable: bool = True
+    primary_key: bool = False
+    auto_increment: bool = False
+
+
+@dataclass
+class CreateTableStmt:
+    name: str
+    columns: list  # list[ColumnSpec]
+    primary_key: list = field(default_factory=list)
+    if_not_exists: bool = False
+    # PARTITION BY RANGE(col): (col, [upper-exclusive bounds]) or None
+    partition: tuple | None = None
+    as_select: object = None  # CREATE TABLE ... AS SELECT
+    # inline secondary indexes: list[(name|None, [cols], unique)]
+    indexes: list = field(default_factory=list)
+
+
+@dataclass
+class DropTableStmt:
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class CreateViewStmt:
+    """CREATE [OR REPLACE] VIEW name [(cols)] AS select
+    (≙ src/sql/resolver/ddl/ob_create_view_resolver.cpp — stored as SQL
+    text in the catalog, expanded at bind time like a derived table)."""
+
+    name: str
+    columns: list            # explicit output column names, or []
+    select: "SelectStmt"     # parsed body (validation; binding re-parses)
+    sql_text: str            # the AS ... text, persisted
+    or_replace: bool = False
+
+
+@dataclass
+class DropViewStmt:
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class CreateIndexStmt:
+    name: str
+    table: str
+    columns: list            # list[str]
+    unique: bool = False
+    if_not_exists: bool = False
+    # "normal" | "vector" | "fulltext" (≙ INDEX_TYPE_* in ob_table_schema)
+    kind: str = "normal"
+    options: dict = field(default_factory=dict)  # e.g. {"metric": "l2"}
+
+
+@dataclass
+class DropIndexStmt:
+    name: str
+    table: str
+    if_exists: bool = False
+
+
+@dataclass
+class InsertStmt:
+    table: str
+    columns: list            # list[str] or [] for all
+    rows: list = None        # list[list[Expr]] for VALUES
+    select: SelectStmt = None
+    replace: bool = False    # REPLACE INTO: delete-then-insert semantics
+
+
+@dataclass
+class TruncateStmt:
+    table: str
+
+
+@dataclass
+class ShowCreateStmt:
+    table: str
+
+
+@dataclass
+class UpdateStmt:
+    table: str
+    assignments: list        # list[(col, Expr)]
+    where: Optional[ir.Expr] = None
+
+
+@dataclass
+class DeleteStmt:
+    table: str
+    where: Optional[ir.Expr] = None
+
+
+@dataclass
+class ExplainStmt:
+    stmt: object
+    analyze: bool = False  # EXPLAIN ANALYZE: execute + per-op row counts
+
+
+@dataclass
+class ShowTablesStmt:
+    pass
+
+
+@dataclass
+class DescribeStmt:
+    table: str
+
+
+@dataclass
+class TxStmt:
+    op: str  # begin | commit | rollback
+
+
+@dataclass
+class AnalyzeStmt:
+    table: str
+
+
+@dataclass
+class AnalyzeWorkloadStmt:
+    """ANALYZE WORKLOAD REPORT [FROM <id> TO <id>] — build the delta
+    report between two persisted workload snapshots (default: the two
+    most recent); rows land in gv$workload_report and the text tree is
+    readable via SHOW WORKLOAD REPORT."""
+
+    from_id: int = -1   # -1: pick automatically (second-newest)
+    to_id: int = -1     # -1: newest
+
+
+@dataclass
+class KillStmt:
+    """KILL [QUERY] <session_id> — cancel the target session's running
+    (or queued) statement; plain KILL also flags the whole session."""
+
+    kind: str        # "query" | "session"
+    session_id: int
+
+
+@dataclass
+class SetVarStmt:
+    scope: str   # session | global
+    name: str
+    value: object
+
+
+@dataclass
+class AlterTableStmt:
+    table: str
+    action: str                  # add_column | drop_column
+    column: object = None        # ColumnSpec for add, name str for drop
+
+
+@dataclass
+class AlterSystemStmt:
+    action: str    # set | major_freeze | minor_freeze | checkpoint
+    #              # | calibrate (re-run the roofline probe suite)
+    name: Optional[str] = None
+    value: object = None
+
+
+@dataclass
+class ProfileStmt:
+    """PROFILE <statement>: execute the wrapped statement under a
+    jax.profiler device trace; the parsed per-kernel rows land in
+    gv$device_profile keyed by this statement's trace_id (SHOW PROFILE
+    renders the most recent one)."""
+
+    stmt: object
+
+
+@dataclass
+class TenantStmt:
+    op: str      # create | drop
+    name: str = ""
+
+
+@dataclass
+class UserStmt:
+    """CREATE USER / DROP USER / SET PASSWORD (≙ DCL over __all_user)."""
+
+    op: str      # create | drop | set_password
+    name: str = ""
+    password: str = ""
+
+
+@dataclass
+class ShowStmt:
+    what: str    # variables | parameters | index | processlist | trace
+    table: str = ""
+
+
+@dataclass
+class LockTableStmt:
+    table: str = ""
+    mode: str = "X"    # S | X; "" + unlock=True releases all
+    unlock: bool = False
+
+
+@dataclass
+class LoadDataStmt:
+    """LOAD DATA INFILE 'path' INTO TABLE t [FIELDS TERMINATED BY c]
+    [IGNORE n LINES] — the direct-load SQL surface."""
+
+    path: str = ""
+    table: str = ""
+    delimiter: str = ","
+    skip_lines: int = 0
+
+
+@dataclass
+class SequenceStmt:
+    op: str            # create | drop
+    name: str = ""
+    start: int = 1
+    increment: int = 1
+    cache: int = 1000
+
+@dataclass
+class SavepointStmt:
+    """SAVEPOINT / ROLLBACK TO SAVEPOINT / RELEASE SAVEPOINT
+    (≙ savepoint handling in the tx service, ob_trans_service savepoints)."""
+
+    op: str      # create | rollback | release
+    name: str = ""
+
+@dataclass
+class CreateExternalTableStmt:
+    """CREATE EXTERNAL TABLE name (cols) LOCATION 'path' [FORMAT csv|
+    parquet] [FIELDS TERMINATED BY c] [IGNORE n LINES]
+    (≙ src/share/external_table + the lake connectors)."""
+
+    name: str
+    columns: list                 # list[ColumnSpec]
+    location: str = ""
+    format: str = "csv"
+    delimiter: str = ","
+    skip_lines: int = 0
+    if_not_exists: bool = False
+
+# ---- PL (stored procedures) -------------------------------------------------
+
+@dataclass
+class PlDeclare:
+    name: str
+    dtype: SqlType = None
+    default: object = None   # ir.Expr | None
+
+
+@dataclass
+class PlSet:
+    name: str
+    expr: object             # ir.Expr
+
+
+@dataclass
+class PlIf:
+    branches: list           # list[(cond ir.Expr, [body])]
+    else_: list = field(default_factory=list)
+
+
+@dataclass
+class PlWhile:
+    cond: object             # ir.Expr
+    body: list = field(default_factory=list)
+
+
+@dataclass
+class ProcedureStmt:
+    """CREATE/DROP PROCEDURE (≙ src/pl compilation units; here an
+    interpreted statement list over the same expression engine)."""
+
+    op: str                  # create | drop
+    name: str = ""
+    params: list = field(default_factory=list)  # [(name, SqlType)]
+    body: list = field(default_factory=list)    # PL nodes / statements
+    source: str = ""         # original text (persistence + SHOW)
+
+
+@dataclass
+class CallStmt:
+    name: str
+    args: list = field(default_factory=list)    # list[ir.Expr]
+
+@dataclass
+class XaStmt:
+    """XA START/END/PREPARE/COMMIT/ROLLBACK/RECOVER 'xid'
+    (≙ ObXAService SQL surface)."""
+
+    op: str
+    xid: str = ""

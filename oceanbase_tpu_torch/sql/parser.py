@@ -1,0 +1,1539 @@
+"""Recursive-descent SQL parser (MySQL dialect subset).
+
+The port's own copy of ``oceanbase_tpu/sql/parser.py``, kept line for line so
+both packages parse and plan a statement alike.
+
+Reference analog: the bison grammar (src/sql/parser/sql_parser_mysql_mode.y)
+— re-implemented as a hand-written Pratt/recursive-descent parser over the
+statement surface the engine supports: SELECT (joins, subqueries, CTEs,
+set ops, aggregates, CASE/CAST/EXTRACT/SUBSTRING/INTERVAL), CREATE/DROP
+TABLE, INSERT/UPDATE/DELETE, EXPLAIN/ANALYZE/SHOW/DESCRIBE, BEGIN/COMMIT/
+ROLLBACK.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+from oceanbase_tpu_torch.datatypes import SqlType
+from oceanbase_tpu_torch.expr import ir
+from oceanbase_tpu_torch.sql import ast
+from oceanbase_tpu_torch.sql.lexer import Token, tokenize
+
+
+class ParseError(ValueError):
+    pass
+
+
+# keywords that may still appear as identifiers in expression position
+_SOFT_KEYWORDS = {
+    "tenant", "system", "global", "session", "freeze", "major", "minor",
+    "variables", "parameters", "tables", "values", "key", "index", "if",
+    "any", "some", "begin", "commit", "rollback", "show", "analyze",
+}
+
+
+@dataclass(eq=False)
+class Interval(ir.Expr):
+    """INTERVAL 'n' unit — folded by the resolver into date arithmetic."""
+
+    n: int = 0
+    unit: str = "day"
+
+
+class Parser:
+    def __init__(self, sql: str):
+        self.sql = sql
+        self.toks = tokenize(sql)
+        self.i = 0
+        self.n_params = 0
+
+    # ---- token helpers --------------------------------------------------
+    def peek(self, k=0) -> Token:
+        return self.toks[min(self.i + k, len(self.toks) - 1)]
+
+    def next(self) -> Token:
+        t = self.toks[self.i]
+        if t.kind != "eof":
+            self.i += 1
+        return t
+
+    def at_kw(self, *kws) -> bool:
+        t = self.peek()
+        return t.kind == "kw" and t.value in kws
+
+    def at_op(self, *ops) -> bool:
+        t = self.peek()
+        return t.kind == "op" and t.value in ops
+
+    def accept_kw(self, *kws) -> Optional[str]:
+        if self.at_kw(*kws):
+            return self.next().value
+        return None
+
+    def accept_op(self, *ops) -> Optional[str]:
+        if self.at_op(*ops):
+            return self.next().value
+        return None
+
+    def expect_kw(self, kw: str):
+        t = self.next()
+        if t.kind != "kw" or t.value != kw:
+            raise ParseError(f"expected {kw.upper()} at {t.pos}, got {t.value!r}")
+
+    def expect_op(self, op: str):
+        t = self.next()
+        if t.kind != "op" or t.value != op:
+            raise ParseError(f"expected {op!r} at {t.pos}, got {t.value!r}")
+
+    def expect_ident(self) -> str:
+        t = self.next()
+        if t.kind == "ident":
+            return t.value
+        # non-reserved keywords usable as identifiers
+        if t.kind == "kw" and t.value in ("year", "month", "day", "date",
+                                          "key", "index", "any", "some",
+                                          "values", "if", "tables"):
+            return t.value
+        raise ParseError(f"expected identifier at {t.pos}, got {t.value!r}")
+
+    # ---- entry -----------------------------------------------------------
+    def parse_statement(self):
+        if self.at_kw("explain"):
+            self.next()
+            analyze = bool(self.accept_kw("analyze"))
+            stmt = ast.ExplainStmt(self.parse_statement())
+            stmt.analyze = analyze
+            return stmt
+        if self.at_kw("with", "select"):
+            return self.parse_select()
+        if self.at_op("("):
+            return self.parse_select()
+        if self.at_kw("create"):
+            if self.peek(1).kind == "kw" and self.peek(1).value == "tenant":
+                self.next()
+                self.next()
+                return ast.TenantStmt("create", self.expect_ident())
+            if self.peek(1).kind == "ident" and \
+                    self.peek(1).value == "user":
+                self.next()
+                self.next()
+                name = self._user_name()
+                pw = ""
+                if self._accept_word("identified"):
+                    self.expect_kw("by")
+                    pw = self._string_lit()
+                return ast.UserStmt("create", name, pw)
+            if self.peek(1).kind == "ident" and \
+                    self.peek(1).value == "sequence":
+                return self.parse_sequence("create")
+            return self.parse_create()
+        if self.peek().kind == "ident" and self.peek().value == "xa":
+            self.next()
+            t = self.next()
+            op = t.value if t.kind in ("kw", "ident") else ""
+            if op not in ("start", "begin", "end", "prepare", "commit",
+                          "rollback", "recover"):
+                raise ParseError(f"unknown XA operation {op!r}")
+            if op == "begin":
+                op = "start"
+            xid = "" if op == "recover" else self._string_lit()
+            if op == "commit" and self._accept_word("one"):
+                if not self._accept_word("phase"):
+                    raise ParseError("expected PHASE after ONE")
+            return ast.XaStmt(op, xid)
+        if self.peek().kind == "ident" and self.peek().value == "call":
+            self.next()
+            name = self.expect_ident()
+            args = []
+            if self.accept_op("("):
+                if not self.at_op(")"):
+                    args.append(self.parse_expr())
+                    while self.accept_op(","):
+                        args.append(self.parse_expr())
+                self.expect_op(")")
+            return ast.CallStmt(name, args)
+        if self.at_kw("drop") and self.peek(1).kind == "ident" and \
+                self.peek(1).value == "procedure":
+            self.next()
+            self.next()
+            return ast.ProcedureStmt("drop", self.expect_ident())
+        if self.at_kw("drop"):
+            if self.peek(1).kind == "kw" and self.peek(1).value == "tenant":
+                self.next()
+                self.next()
+                return ast.TenantStmt("drop", self.expect_ident())
+            if self.peek(1).kind == "ident" and \
+                    self.peek(1).value == "user":
+                self.next()
+                self.next()
+                return ast.UserStmt("drop", self._user_name())
+            if self.peek(1).kind == "ident" and \
+                    self.peek(1).value == "sequence":
+                self.next()
+                self.next()
+                return ast.SequenceStmt("drop", self.expect_ident())
+            return self.parse_drop()
+        if self.peek().kind == "ident" and self.peek().value == "load":
+            return self.parse_load_data()
+        if self.peek().kind == "ident" and self.peek().value == "truncate":
+            self.next()
+            self.accept_kw("table")
+            return ast.TruncateStmt(self.expect_ident())
+        if self.peek().kind == "ident" and self.peek().value == "replace":
+            self.next()
+            self.expect_kw("into")
+            stmt = self._parse_insert_body()
+            stmt.replace = True
+            return stmt
+        if self.peek().kind == "ident" and self.peek().value == "lock":
+            self.next()
+            self.expect_kw("tables")
+            name = self.expect_ident()
+            mode_tok = self.next()
+            mode = {"read": "S", "write": "X"}.get(mode_tok.value)
+            if mode is None:
+                raise ParseError(f"expected READ or WRITE at {mode_tok.pos}")
+            return ast.LockTableStmt(name, mode)
+        if self.peek().kind == "ident" and self.peek().value == "unlock":
+            self.next()
+            self.expect_kw("tables")
+            return ast.LockTableStmt(unlock=True)
+        if self.peek().kind == "ident" and self.peek().value == "kill":
+            # KILL [QUERY] <session_id> (MySQL-flavored: both forms
+            # take a session id; QUERY cancels only the running
+            # statement, plain KILL flags the session too)
+            self.next()
+            kind = "query" if self._accept_word("query") else "session"
+            t = self.next()
+            if t.kind != "number":
+                raise ParseError(
+                    f"expected a session id after KILL at {t.pos}")
+            return ast.KillStmt(kind, int(t.value))
+        if self.peek().kind == "ident" and self.peek().value == "profile":
+            # PROFILE <statement>: run it under a device trace
+            # (gv$device_profile rows keyed by the statement's trace_id)
+            self.next()
+            return ast.ProfileStmt(self.parse_statement())
+        if self.at_kw("set"):
+            return self.parse_set()
+        if self.at_kw("alter"):
+            return self.parse_alter_system()
+        if self.at_kw("insert"):
+            return self.parse_insert()
+        if self.at_kw("update"):
+            return self.parse_update()
+        if self.at_kw("delete"):
+            return self.parse_delete()
+        if self.at_kw("show"):
+            self.next()
+            if self.accept_kw("variables"):
+                return ast.ShowStmt("variables")
+            if self.accept_kw("parameters"):
+                return ast.ShowStmt("parameters")
+            if self.accept_kw("create"):
+                self.expect_kw("table")
+                return ast.ShowCreateStmt(self.expect_ident())
+            if self.accept_kw("index") or self._accept_word("indexes"):
+                if not (self._accept_word("from")
+                        or self.accept_kw("on")):
+                    raise ParseError("expected FROM after SHOW INDEX")
+                return ast.ShowStmt("index", self.expect_ident())
+            if self._accept_word("processlist"):
+                return ast.ShowStmt("processlist")
+            if self._accept_word("trace"):
+                return ast.ShowStmt("trace")
+            if self._accept_word("metrics"):
+                return ast.ShowStmt("metrics")
+            if self._accept_word("profile"):
+                return ast.ShowStmt("profile")
+            if self._accept_word("workload"):
+                if not self._accept_word("report"):
+                    raise ParseError("expected REPORT after SHOW WORKLOAD")
+                return ast.ShowStmt("workload_report")
+            self.expect_kw("tables")
+            return ast.ShowTablesStmt()
+        if self.at_kw("describe"):
+            self.next()
+            name = self.expect_ident()
+            # schema-qualified virtual tables (information_schema.*)
+            while self.accept_op("."):
+                name += "." + self.expect_ident()
+            return ast.DescribeStmt(name)
+        if self.at_kw("analyze"):
+            self.next()
+            if self._accept_word("workload"):
+                if not self._accept_word("report"):
+                    raise ParseError(
+                        "expected REPORT after ANALYZE WORKLOAD")
+                from_id = to_id = -1
+                if self._accept_word("from"):
+                    from_id = self._expect_snapshot_id()
+                    if not self._accept_word("to"):
+                        raise ParseError("expected TO after FROM <id>")
+                    to_id = self._expect_snapshot_id()
+                return ast.AnalyzeWorkloadStmt(from_id, to_id)
+            self.accept_kw("table")
+            return ast.AnalyzeStmt(self.expect_ident())
+        if self.peek().kind == "ident" and self.peek().value == "savepoint":
+            self.next()
+            return ast.SavepointStmt("create", self.expect_ident())
+        if self.peek().kind == "ident" and self.peek().value == "release":
+            self.next()
+            if not self._accept_word("savepoint"):
+                raise ParseError("expected SAVEPOINT after RELEASE")
+            return ast.SavepointStmt("release", self.expect_ident())
+        if self.at_kw("rollback") and self.peek(1).value == "to":
+            self.next()
+            self.next()
+            self._accept_word("savepoint")
+            return ast.SavepointStmt("rollback", self.expect_ident())
+        if self.at_kw("begin", "commit", "rollback"):
+            return ast.TxStmt(self.next().value)
+        t = self.peek()
+        raise ParseError(f"unexpected token {t.value!r} at {t.pos}")
+
+    def parse(self):
+        stmt = self.parse_statement()
+        self.accept_op(";")
+        t = self.peek()
+        if t.kind != "eof":
+            raise ParseError(f"trailing input at {t.pos}: {t.value!r}")
+        return stmt
+
+    # ---- SELECT ----------------------------------------------------------
+    def parse_select(self) -> ast.SelectStmt:
+        ctes = []
+        if self.accept_kw("with"):
+            if self.accept_kw("recursive"):
+                # no fixpoint materializer exists — reject loudly rather
+                # than silently treating the CTE as non-recursive
+                raise ParseError("WITH RECURSIVE is not supported")
+            while True:
+                name = self.expect_ident()
+                cols = []
+                if self.accept_op("("):
+                    cols.append(self.expect_ident())
+                    while self.accept_op(","):
+                        cols.append(self.expect_ident())
+                    self.expect_op(")")
+                self.expect_kw("as")
+                self.expect_op("(")
+                sub = self.parse_select()
+                self.expect_op(")")
+                sub.cte_cols = cols
+                ctes.append((name, sub))
+                if not self.accept_op(","):
+                    break
+        stmt = self.parse_select_core()
+        # set operations
+        first = True
+        while self.at_kw("union", "intersect", "except"):
+            if first and (stmt.limit is not None or stmt.order_by):
+                # '(select ... limit k) union ...': the branch's LIMIT must
+                # stay inside the branch — wrap it as a derived table
+                stmt = _wrap_branch(stmt)
+            first = False
+            op = self.next().value
+            all_ = bool(self.accept_kw("all"))
+            self.accept_kw("distinct")
+            # a naked rhs must not swallow the union-level ORDER BY/LIMIT;
+            # a parenthesized rhs keeps its own (handled inside the parens)
+            rhs = self.parse_select_core(parse_order=False)
+            stmt.setops.append((op, all_, rhs))
+        stmt.ctes = ctes
+        # trailing ORDER BY / LIMIT bind to the set-op result
+        if stmt.setops and (self.at_kw("order") or self.at_kw("limit")):
+            tmp = ast.SelectStmt()
+            self._parse_order_limit(tmp)
+            stmt.post_order_by = tmp.order_by
+            stmt.post_limit = tmp.limit
+            stmt.post_offset = tmp.offset
+        return stmt
+
+    def parse_select_core(self, parse_order: bool = True) -> ast.SelectStmt:
+        if self.accept_op("("):
+            inner = self.parse_select()
+            self.expect_op(")")
+            return inner
+        self.expect_kw("select")
+        stmt = ast.SelectStmt()
+        stmt.distinct = bool(self.accept_kw("distinct"))
+        self.accept_kw("all")
+        # select list
+        while True:
+            if self.at_op("*"):
+                self.next()
+                stmt.items.append((ast.Star(), None))
+            else:
+                e = self.parse_expr()
+                alias = None
+                if self.accept_kw("as"):
+                    alias = self.expect_ident()
+                elif self.peek().kind == "ident":
+                    alias = self.next().value
+                stmt.items.append((e, alias))
+            if not self.accept_op(","):
+                break
+        if self.accept_kw("from"):
+            stmt.from_.append(self.parse_table_expr())
+            while self.accept_op(","):
+                stmt.from_.append(self.parse_table_expr())
+        if self.accept_kw("where"):
+            stmt.where = self.parse_expr()
+        if self.accept_kw("group"):
+            self.expect_kw("by")
+            while True:
+                stmt.group_by.append(self.parse_expr())
+                if not self.accept_op(","):
+                    break
+        if self.accept_kw("having"):
+            stmt.having = self.parse_expr()
+        if parse_order:
+            self._parse_order_limit(stmt)
+        return stmt
+
+    def _parse_order_limit(self, stmt: ast.SelectStmt):
+        if self.accept_kw("order"):
+            self.expect_kw("by")
+            stmt.order_by = []
+            while True:
+                e = self.parse_expr()
+                asc = True
+                if self.accept_kw("desc"):
+                    asc = False
+                else:
+                    self.accept_kw("asc")
+                stmt.order_by.append(ast.OrderItem(e, asc))
+                if not self.accept_op(","):
+                    break
+        if self.accept_kw("limit"):
+            a = self._int_token()
+            if self.accept_op(","):
+                stmt.offset = a
+                stmt.limit = self._int_token()
+            else:
+                stmt.limit = a
+                if self.accept_kw("offset"):
+                    stmt.offset = self._int_token()
+
+    def _int_token(self) -> int:
+        t = self.next()
+        if t.kind != "number":
+            raise ParseError(f"expected number at {t.pos}")
+        return int(t.value)
+
+    # ---- FROM ------------------------------------------------------------
+    def parse_table_expr(self):
+        left = self.parse_table_primary()
+        while True:
+            if self.accept_kw("cross"):
+                self.expect_kw("join")
+                right = self.parse_table_primary()
+                left = ast.JoinRef(left, right, "cross", None)
+                continue
+            kind = None
+            if self.at_kw("join", "inner"):
+                self.accept_kw("inner")
+                self.expect_kw("join")
+                kind = "inner"
+            elif self.at_kw("left"):
+                self.next()
+                self.accept_kw("outer")
+                self.expect_kw("join")
+                kind = "left"
+            elif self.at_kw("right"):
+                self.next()
+                self.accept_kw("outer")
+                self.expect_kw("join")
+                kind = "right"
+            elif self.at_kw("full"):
+                self.next()
+                self.accept_kw("outer")
+                self.expect_kw("join")
+                kind = "full"
+            else:
+                break
+            right = self.parse_table_primary()
+            on = None
+            if self.accept_kw("on"):
+                on = self.parse_expr()
+            elif self.accept_kw("using"):
+                self.expect_op("(")
+                cols = [self.expect_ident()]
+                while self.accept_op(","):
+                    cols.append(self.expect_ident())
+                self.expect_op(")")
+                on = ("using", cols)
+            left = ast.JoinRef(left, right, kind, on)
+        return left
+
+    def parse_table_primary(self):
+        if self.accept_op("("):
+            if self.at_kw("select", "with"):
+                sub = self.parse_select()
+                self.expect_op(")")
+                self.accept_kw("as")
+                alias = self.expect_ident()
+                return ast.SubqueryRef(sub, alias)
+            inner = self.parse_table_expr()
+            self.expect_op(")")
+            return inner
+        name = self.expect_ident()
+        if self.accept_op("."):
+            # schema-qualified table (information_schema.tables, …)
+            name = f"{name}.{self.expect_ident()}"
+        alias = None
+        if self.accept_kw("as"):
+            alias = self.expect_ident()
+        elif self.peek().kind == "ident":
+            alias = self.next().value
+        return ast.TableRef(name, alias)
+
+    # ---- expressions (Pratt) ----------------------------------------------
+    def parse_expr(self) -> ir.Expr:
+        return self.parse_or()
+
+    def parse_or(self) -> ir.Expr:
+        left = self.parse_and()
+        while self.accept_kw("or"):
+            right = self.parse_and()
+            left = ir.Logic("or", [left, right])
+        return left
+
+    def parse_and(self) -> ir.Expr:
+        left = self.parse_not()
+        while self.accept_kw("and"):
+            right = self.parse_not()
+            left = ir.Logic("and", [left, right])
+        return left
+
+    def parse_not(self) -> ir.Expr:
+        if self.accept_kw("not"):
+            return ir.Not(self.parse_not())
+        return self.parse_predicate()
+
+    def parse_predicate(self) -> ir.Expr:
+        if self.at_kw("exists"):
+            self.next()
+            self.expect_op("(")
+            sub = self.parse_select()
+            self.expect_op(")")
+            return ast.Subquery(select=sub, kind="exists")
+        left = self.parse_additive()
+        while True:
+            negated = False
+            save = self.i
+            if self.accept_kw("not"):
+                negated = True
+            if self.accept_kw("in"):
+                self.expect_op("(")
+                if self.at_kw("select", "with"):
+                    sub = self.parse_select()
+                    self.expect_op(")")
+                    left = ast.Subquery(select=sub, kind="in", lhs=left,
+                                        negated=negated)
+                else:
+                    vals = [self.parse_additive()]
+                    while self.accept_op(","):
+                        vals.append(self.parse_additive())
+                    self.expect_op(")")
+                    left = ir.InList(left, vals, negated=negated)
+                continue
+            if self.accept_kw("between"):
+                lo = self.parse_additive()
+                self.expect_kw("and")
+                hi = self.parse_additive()
+                rng = ir.Logic("and", [ir.Cmp(">=", left, lo),
+                                       ir.Cmp("<=", left, hi)])
+                left = ir.Not(rng) if negated else rng
+                continue
+            if self.accept_kw("like"):
+                pat = self.next()
+                if pat.kind != "string":
+                    raise ParseError(f"LIKE requires string literal at {pat.pos}")
+                left = ir.Like(left, pat.value, negated=negated)
+                continue
+            if negated:
+                self.i = save  # lone NOT belongs to parse_not
+                break
+            if self.accept_kw("is"):
+                neg = bool(self.accept_kw("not"))
+                self.expect_kw("null")
+                left = ir.IsNull(left, negated=neg)
+                continue
+            op = None
+            if self.peek().kind == "op" and self.peek().value in (
+                "=", "!=", "<>", "<", "<=", ">", ">=",
+            ):
+                op = self.next().value
+                op = {"<>": "!="}.get(op, op)
+            if op is None:
+                break
+            if self.at_kw("any", "some", "all"):
+                quant = self.next().value
+                quant = "any" if quant == "some" else quant
+                self.expect_op("(")
+                sub = self.parse_select()
+                self.expect_op(")")
+                left = ast.Subquery(select=sub, kind="quant", lhs=left,
+                                    op=op, quant=quant)
+                continue
+            right = self.parse_additive()
+            left = ir.Cmp(op, left, right)
+        return left
+
+    def parse_additive(self) -> ir.Expr:
+        left = self.parse_multiplicative()
+        while True:
+            if self.at_op("+", "-"):
+                op = self.next().value
+                right = self.parse_multiplicative()
+                left = self._fold_interval(op, left, right)
+            elif self.at_op("||"):
+                self.next()
+                right = self.parse_multiplicative()
+                left = ir.FuncCall("concat", [left, right])
+            else:
+                return left
+
+    @staticmethod
+    def _fold_interval(op, left, right):
+        if isinstance(right, Interval):
+            return ir.FuncCall("date_add" if op == "+" else "date_sub",
+                               [left, ir.lit(right.n), ir.lit(right.unit)])
+        return ir.Arith(op, left, right)
+
+    def parse_multiplicative(self) -> ir.Expr:
+        left = self.parse_unary()
+        while self.at_op("*", "/", "%"):
+            op = self.next().value
+            right = self.parse_unary()
+            left = ir.Arith(op, left, right)
+        return left
+
+    def parse_unary(self) -> ir.Expr:
+        if self.accept_op("-"):
+            e = self.parse_unary()
+            if isinstance(e, ir.Literal) and e.dtype is None and \
+                    isinstance(e.value, (int, float)):
+                return ir.Literal(-e.value)
+            if isinstance(e, ir.Literal) and e.dtype is not None and \
+                    e.dtype.kind.name == "DECIMAL" and isinstance(e.value, str):
+                return ir.Literal("-" + e.value, e.dtype)
+            return ir.Arith("-", ir.lit(0), e)
+        if self.accept_op("+"):
+            return self.parse_unary()
+        return self.parse_primary()
+
+    def parse_primary(self) -> ir.Expr:
+        t = self.peek()
+        if t.kind == "number":
+            self.next()
+            if "." in t.value and "e" not in t.value.lower():
+                return ir.Literal(t.value, SqlType.decimal())
+            if "e" in t.value.lower() or "." in t.value:
+                return ir.Literal(float(t.value))
+            return ir.Literal(int(t.value))
+        if t.kind == "string":
+            self.next()
+            return ir.Literal(t.value)
+        if t.kind == "param":
+            self.next()
+            p = ast.Param(index=self.n_params)
+            self.n_params += 1
+            return p
+        if t.kind == "sysvar":
+            self.next()
+            name = t.value.lstrip("@")
+            if name.startswith(("session.", "global.")):
+                name = name.split(".", 1)[1]
+            return ast.SysVar(name)
+        if t.kind == "kw":
+            return self.parse_kw_primary()
+        if t.kind == "ident":
+            name = self.next().value
+            if self.at_op("("):
+                return self.parse_func_call(name)
+            if self.accept_op("."):
+                if self.at_op("*"):
+                    self.next()
+                    return ast.Star(table=name)
+                col = self.expect_ident()
+                return ir.ColumnRef(f"{name}.{col}")
+            return ir.ColumnRef(name)
+        if self.accept_op("("):
+            if self.at_kw("select", "with"):
+                sub = self.parse_select()
+                self.expect_op(")")
+                return ast.Subquery(select=sub, kind="scalar")
+            e = self.parse_expr()
+            self.expect_op(")")
+            return e
+        raise ParseError(f"unexpected token {t.value!r} at {t.pos}")
+
+    def parse_kw_primary(self) -> ir.Expr:
+        if self.accept_kw("null"):
+            return ir.Literal(None)
+        if self.accept_kw("true"):
+            return ir.Literal(True)
+        if self.accept_kw("false"):
+            return ir.Literal(False)
+        if self.accept_kw("date"):
+            t = self.next()
+            if t.kind != "string":
+                raise ParseError(f"DATE requires string literal at {t.pos}")
+            return ir.Literal(t.value, SqlType.date())
+        if self.accept_kw("interval"):
+            t = self.next()
+            if t.kind == "string":
+                n = int(t.value)
+            elif t.kind == "number":
+                n = int(t.value)
+            else:
+                raise ParseError(f"INTERVAL requires quantity at {t.pos}")
+            unit = self.next().value  # year | month | day
+            return Interval(n=n, unit=unit)
+        if self.accept_kw("case"):
+            return self.parse_case()
+        if self.accept_kw("cast"):
+            self.expect_op("(")
+            e = self.parse_expr()
+            self.expect_kw("as")
+            dtype = self.parse_type()
+            self.expect_op(")")
+            return ir.Cast(e, dtype)
+        if self.accept_kw("extract"):
+            self.expect_op("(")
+            unit = self.next().value
+            self.expect_kw("from")
+            e = self.parse_expr()
+            self.expect_op(")")
+            return ir.FuncCall(f"extract_{unit}", [e])
+        if self.at_kw("substring", "substr"):
+            self.next()
+            self.expect_op("(")
+            e = self.parse_expr()
+            if self.accept_kw("from"):
+                a = self.parse_expr()
+                b = None
+                if self.accept_kw("for"):
+                    b = self.parse_expr()
+            else:
+                self.expect_op(",")
+                a = self.parse_expr()
+                b = None
+                if self.accept_op(","):
+                    b = self.parse_expr()
+            self.expect_op(")")
+            args = [e, a] + ([b] if b is not None else [])
+            return ir.FuncCall("substring", args)
+        if self.accept_kw("if"):
+            self.expect_op("(")
+            c = self.parse_expr()
+            self.expect_op(",")
+            a = self.parse_expr()
+            self.expect_op(",")
+            b = self.parse_expr()
+            self.expect_op(")")
+            return ir.Case(whens=[(c, a)], else_=b)
+        if self.at_kw("year", "month", "day"):
+            unit = self.next().value
+            if self.at_op("("):
+                self.expect_op("(")
+                e = self.parse_expr()
+                self.expect_op(")")
+                return ir.FuncCall(f"extract_{unit}", [e])
+            return ir.ColumnRef(unit)
+        if self.at_kw("exists"):
+            return self.parse_predicate()
+        if self.at_kw("left", "right") and self.peek(1).kind == "op" and \
+                self.peek(1).value == "(":
+            # LEFT(s, n) / RIGHT(s, n) string functions
+            return self.parse_func_call(self.next().value)
+        # non-reserved ("soft") keywords usable as identifiers in
+        # expression position (≙ MySQL non-reserved words)
+        t = self.peek()
+        if t.value in _SOFT_KEYWORDS:
+            name = self.next().value
+            if self.at_op("("):
+                return self.parse_func_call(name)
+            if self.accept_op("."):
+                col = self.expect_ident()
+                return ir.ColumnRef(f"{name}.{col}")
+            return ir.ColumnRef(name)
+        raise ParseError(f"unexpected keyword {t.value!r} at {t.pos}")
+
+    def parse_case(self) -> ir.Expr:
+        operand = None
+        if not self.at_kw("when"):
+            operand = self.parse_expr()
+        whens = []
+        while self.accept_kw("when"):
+            c = self.parse_expr()
+            if operand is not None:
+                c = ir.Cmp("=", operand, c)
+            self.expect_kw("then")
+            v = self.parse_expr()
+            whens.append((c, v))
+        else_ = None
+        if self.accept_kw("else"):
+            else_ = self.parse_expr()
+        self.expect_kw("end")
+        return ir.Case(whens=whens, else_=else_)
+
+    def parse_func_call(self, name: str) -> ir.Expr:
+        self.expect_op("(")
+        if name == "count" and self.at_op("*"):
+            self.next()
+            self.expect_op(")")
+            if self.at_kw("over"):
+                return self.parse_over("count_star", [])
+            return ir.AggCall("count_star")
+        distinct = bool(self.accept_kw("distinct"))
+        args = []
+        if not self.at_op(")"):
+            args.append(self.parse_expr())
+            while self.accept_op(","):
+                args.append(self.parse_expr())
+        self.expect_op(")")
+        if name == "match" and self._accept_word("against"):
+            # MATCH(col) AGAINST('terms' [IN NATURAL LANGUAGE MODE |
+            # IN BOOLEAN MODE]) — modes parse and collapse to the same
+            # term-containment scoring
+            self.expect_op("(")
+            terms = self._string_lit()
+            if self.accept_kw("in"):
+                while not self.at_op(")"):
+                    if self.peek().kind == "eof":
+                        raise ParseError(
+                            "unterminated MATCH ... AGAINST mode")
+                    self.next()
+            self.expect_op(")")
+            return ir.FuncCall("match_against",
+                               [args[0], ir.Literal(terms)])
+        if self.at_kw("over"):
+            return self.parse_over(name, args)
+        if name in ("count", "sum", "avg", "min", "max"):
+            fn = name
+            if distinct and name == "count":
+                fn = "count_distinct"
+            return ir.AggCall(fn, args[0] if args else None, distinct=distinct)
+        return ir.FuncCall(name, args)
+
+    def parse_over(self, name: str, args: list) -> ir.Expr:
+        self.expect_kw("over")
+        self.expect_op("(")
+        partition_by = []
+        order_by = []
+        if self.accept_kw("partition"):
+            self.expect_kw("by")
+            partition_by.append(self.parse_expr())
+            while self.accept_op(","):
+                partition_by.append(self.parse_expr())
+        if self.accept_kw("order"):
+            self.expect_kw("by")
+            while True:
+                e = self.parse_expr()
+                asc = True
+                if self.accept_kw("desc"):
+                    asc = False
+                else:
+                    self.accept_kw("asc")
+                order_by.append((e, asc))
+                if not self.accept_op(","):
+                    break
+        frame = None
+        w = self._accept_word("rows", "range")
+        if w:
+            frame = self.parse_frame(w)
+        self.expect_op(")")
+        if name == "count" and not args:
+            name = "count_star"
+        extra = None
+        arg = args[0] if args else None
+        if name in ("lead", "lag"):
+            extra = args[1:3]  # (offset, default)
+        elif name == "ntile":
+            arg, extra = None, args[:1]
+        return ir.WindowCall(name, arg, partition_by, order_by,
+                             frame=frame, extra=extra)
+
+    def _user_name(self) -> str:
+        """username as identifier or 'quoted' string ('u'@'host'
+        accepted, host ignored — single-host deployment)."""
+        t = self.next()
+        if t.kind not in ("ident", "string"):
+            raise ParseError(f"expected user name at {t.pos}")
+        name = t.value
+        if self.accept_op("@"):
+            self.next()  # host part, ignored
+        return name
+
+    def _string_lit(self) -> str:
+        t = self.next()
+        if t.kind != "string":
+            raise ParseError(f"expected string literal at {t.pos}")
+        return t.value
+
+    def _expect_snapshot_id(self) -> int:
+        """Integer workload-snapshot id (ANALYZE WORKLOAD REPORT)."""
+        t = self.next()
+        if t.kind == "number" and "." not in t.value:
+            return int(t.value)
+        raise ParseError(f"expected snapshot id at {t.pos}, "
+                         f"got {t.value!r}")
+
+    def _accept_word(self, *words) -> Optional[str]:
+        """Accept a keyword-or-identifier token by its text (frame-clause
+        words aren't reserved in the lexer)."""
+        t = self.peek()
+        if t.kind in ("kw", "ident") and t.value in words:
+            return self.next().value
+        return None
+
+    def parse_frame(self, unit: str) -> tuple:
+        """ROWS/RANGE frame clause -> (unit, start, end); offsets are
+        row-relative ints, None = UNBOUNDED on that side."""
+
+        def bound():
+            if self._accept_word("unbounded"):
+                if not self._accept_word("preceding", "following"):
+                    raise ParseError("expected PRECEDING/FOLLOWING")
+                return None
+            if self._accept_word("current"):
+                if not self._accept_word("row"):
+                    raise ParseError("expected ROW")
+                return 0
+            e = self.parse_expr()
+            if not isinstance(e, ir.Literal) or \
+                    not isinstance(e.value, int):
+                raise ParseError("frame offset must be an integer")
+            k = int(e.value)
+            w = self._accept_word("preceding", "following")
+            if w == "preceding":
+                return -k
+            if w == "following":
+                return k
+            raise ParseError("expected PRECEDING/FOLLOWING")
+
+        if self._accept_word("between"):
+            s = bound()
+            self.expect_kw("and")
+            e = bound()
+        else:
+            s = bound()
+            e = 0
+        if unit == "range" and s in (None, 0) and e == 0:
+            return None  # the default frame — not a restriction
+        if unit == "range":
+            raise ParseError(
+                "only ROWS frames (or the default RANGE frame) "
+                "are supported")
+        return (unit, s, e)
+
+    # ---- types / DDL / DML -------------------------------------------------
+    def parse_type(self) -> SqlType:
+        t = self.next()
+        name = t.value
+        if name in ("int", "integer", "bigint", "smallint", "tinyint", "signed"):
+            return SqlType.int_()
+        if name in ("decimal", "numeric"):
+            p, s = 15, 2
+            if self.accept_op("("):
+                p = self._int_token()
+                if self.accept_op(","):
+                    s = self._int_token()
+                else:
+                    s = 0
+                self.expect_op(")")
+            return SqlType.decimal(p, s)
+        if name in ("float", "real"):
+            return SqlType.float_()
+        if name == "double":
+            return SqlType.double()
+        if name in ("varchar", "char", "text", "string"):
+            if self.accept_op("("):
+                self._int_token()
+                self.expect_op(")")
+            return SqlType.string()
+        if name == "date":
+            return SqlType.date()
+        if name in ("datetime", "timestamp"):
+            return SqlType.datetime()
+        if name in ("boolean", "bool"):
+            return SqlType.bool_()
+        if name == "vector":
+            self.expect_op("(")
+            d = self._int_token()
+            self.expect_op(")")
+            return SqlType.vector(d)
+        raise ParseError(f"unknown type {name!r} at {t.pos}")
+
+    def _literal_value(self):
+        t = self.next()
+        if t.kind == "number":
+            return float(t.value) if "." in t.value else int(t.value)
+        if t.kind == "string":
+            return t.value
+        if t.kind == "kw" and t.value in ("true", "false"):
+            return t.value == "true"
+        if t.kind == "ident":
+            return t.value
+        raise ParseError(f"expected literal at {t.pos}")
+
+    def parse_set(self):
+        self.expect_kw("set")
+        if self._accept_word("password"):
+            # SET PASSWORD FOR user = 'pw'
+            if not self._accept_word("for"):
+                raise ParseError("SET PASSWORD requires FOR <user>")
+            name = self._user_name()
+            self.expect_op("=")
+            return ast.UserStmt("set_password", name, self._string_lit())
+        scope = "session"
+        if self.accept_kw("global"):
+            scope = "global"
+        else:
+            self.accept_kw("session")
+        if self.peek().kind == "sysvar":
+            t = self.next()
+            name = t.value.lstrip("@")
+            if name.startswith("global."):
+                scope = "global"
+                name = name.split(".", 1)[1]
+            elif name.startswith("session."):
+                name = name.split(".", 1)[1]
+        else:
+            name = self.expect_ident()
+        self.expect_op("=")
+        return ast.SetVarStmt(scope, name, self._literal_value())
+
+    def parse_alter_system(self):
+        self.expect_kw("alter")
+        if self.at_kw("table"):
+            self.next()
+            name = self.expect_ident()
+            t = self.next()  # 'add' lexes as ident, 'drop' as keyword
+            word = t.value
+            if word == "add":
+                if self.peek().kind == "ident" and \
+                        self.peek().value == "column":
+                    self.next()
+                cname = self.expect_ident()
+                dtype = self.parse_type()
+                nullable = True
+                if self.accept_kw("not"):
+                    self.expect_kw("null")
+                    nullable = False
+                return ast.AlterTableStmt(
+                    name, "add_column",
+                    ast.ColumnSpec(cname, dtype, nullable))
+            if word == "drop":
+                if self.peek().kind == "ident" and \
+                        self.peek().value == "column":
+                    self.next()
+                return ast.AlterTableStmt(name, "drop_column",
+                                          self.expect_ident())
+            raise ParseError(f"unsupported ALTER TABLE action {word!r}")
+        self.expect_kw("system")
+        if self.accept_kw("set"):
+            name = self.expect_ident()
+            self.expect_op("=")
+            return ast.AlterSystemStmt("set", name, self._literal_value())
+        if self.accept_kw("major"):
+            self.expect_kw("freeze")
+            return ast.AlterSystemStmt("major_freeze")
+        if self.accept_kw("minor"):
+            self.expect_kw("freeze")
+            return ast.AlterSystemStmt("minor_freeze")
+        if self.accept_kw("freeze"):
+            return ast.AlterSystemStmt("minor_freeze")
+        if self._accept_word("calibrate"):
+            # re-run the roofline probe suite on the live backend
+            # (server/calibrate.py; refreshes gv$cost_units)
+            return ast.AlterSystemStmt("calibrate")
+        t = self.peek()
+        raise ParseError(f"unsupported ALTER SYSTEM at {t.pos}")
+
+    def parse_load_data(self):
+        self.next()  # load
+        if self.next().value != "data":
+            raise ParseError("expected LOAD DATA")
+        if self.next().value != "infile":
+            raise ParseError("expected INFILE")
+        t = self.next()
+        if t.kind != "string":
+            raise ParseError(f"INFILE requires a path string at {t.pos}")
+        stmt = ast.LoadDataStmt(path=t.value)
+        self.expect_kw("into")
+        self.expect_kw("table")
+        stmt.table = self.expect_ident()
+        while self.peek().kind == "ident":
+            word = self.peek().value
+            if word == "fields":
+                self.next()
+                if self.next().value != "terminated":
+                    raise ParseError("expected TERMINATED")
+                self.expect_kw("by")
+                d = self.next()
+                stmt.delimiter = d.value
+            elif word == "ignore":
+                self.next()
+                stmt.skip_lines = self._int_token()
+                if self.peek().kind == "ident" and \
+                        self.peek().value == "lines":
+                    self.next()
+            else:
+                break
+        return stmt
+
+    def parse_sequence(self, op: str):
+        self.next()  # create
+        self.next()  # sequence
+        name = self.expect_ident()
+        stmt = ast.SequenceStmt(op, name)
+        while self.peek().kind == "ident":
+            word = self.next().value
+            if word == "start":
+                self.accept_kw("with")
+                stmt.start = self._signed_int()
+            elif word == "increment":
+                if self.peek().kind == "kw" and self.peek().value == "by":
+                    self.next()
+                stmt.increment = self._signed_int()
+            elif word == "cache":
+                stmt.cache = self._signed_int()
+            else:
+                raise ParseError(f"unknown sequence option {word!r}")
+        return stmt
+
+    def _signed_int(self) -> int:
+        neg = bool(self.accept_op("-"))
+        v = self._int_token()
+        return -v if neg else v
+
+    def _parse_paren_idents(self) -> list[str]:
+        self.expect_op("(")
+        out = [self.expect_ident()]
+        while self.accept_op(","):
+            out.append(self.expect_ident())
+        self.expect_op(")")
+        return out
+
+    def parse_create_index(self, unique: bool, kind: str = "normal"):
+        """CREATE [UNIQUE|VECTOR|FULLTEXT] INDEX [IF NOT EXISTS] name
+        ON table (cols) [WITH (k = v, ...)]."""
+        self.expect_kw("index")
+        if_not_exists = False
+        if self.accept_kw("if"):
+            self.expect_kw("not")
+            self.expect_kw("exists")
+            if_not_exists = True
+        name = self.expect_ident()
+        self.expect_kw("on")
+        table = self.expect_ident()
+        cols = self._parse_paren_idents()
+        options = {}
+        if self._accept_word("with"):
+            self.expect_op("(")
+            while True:
+                k = self.expect_ident()
+                self.expect_op("=")
+                options[k] = self._literal_value()
+                if not self.accept_op(","):
+                    break
+            self.expect_op(")")
+        return ast.CreateIndexStmt(name, table, cols, unique,
+                                   if_not_exists, kind=kind,
+                                   options=options)
+
+    def parse_create_external(self):
+        """CREATE EXTERNAL TABLE name (cols) LOCATION 'p' [FORMAT f]
+        [FIELDS TERMINATED BY c] [IGNORE n LINES]."""
+        self.expect_kw("table")
+        if_not_exists = False
+        if self.accept_kw("if"):
+            self.expect_kw("not")
+            self.expect_kw("exists")
+            if_not_exists = True
+        name = self.expect_ident()
+        self.expect_op("(")
+        cols = []
+        while True:
+            cname = self.expect_ident()
+            dtype = self.parse_type()
+            cols.append(ast.ColumnSpec(cname, dtype))
+            if not self.accept_op(","):
+                break
+        self.expect_op(")")
+        if not self._accept_word("location"):
+            raise ParseError("external table requires LOCATION 'path'")
+        location = self._string_lit()
+        fmt = "parquet" if location.endswith(".parquet") else "csv"
+        delimiter, skip = ",", 0
+        while True:
+            if self._accept_word("format"):
+                t = self.next()
+                fmt = t.value.lower()
+            elif self._accept_word("fields"):
+                if not self._accept_word("terminated"):
+                    raise ParseError("expected TERMINATED BY")
+                self.expect_kw("by")
+                delimiter = self._string_lit()
+            elif self._accept_word("ignore"):
+                t = self.next()
+                skip = int(t.value)
+                if not self._accept_word("lines"):
+                    raise ParseError("expected LINES")
+            else:
+                break
+        return ast.CreateExternalTableStmt(
+            name, cols, location=location, format=fmt,
+            delimiter=delimiter, skip_lines=skip,
+            if_not_exists=if_not_exists)
+
+    # ---- PL: stored procedures ----------------------------------------
+    def parse_create_procedure(self):
+        """CREATE PROCEDURE name([IN] p TYPE, ...) BEGIN stmts END."""
+        name = self.expect_ident()
+        params = []
+        self.expect_op("(")
+        if not self.at_op(")"):
+            while True:
+                self._accept_word("in")  # IN is the only supported mode
+                pname = self.expect_ident()
+                ptype = self.parse_type()
+                params.append((pname, ptype))
+                if not self.accept_op(","):
+                    break
+        self.expect_op(")")
+        self.expect_kw("begin")
+        body = self.parse_pl_block(("end",))
+        self.expect_kw("end")
+        # the statement's own text is the persisted definition (reparsed
+        # at boot) — never infer it from session state
+        return ast.ProcedureStmt("create", name, params, body,
+                                 source=self.sql)
+
+    def parse_pl_block(self, stops: tuple) -> list:
+        """Statements until one of ``stops`` keywords (not consumed)."""
+        body = []
+        while True:
+            t = self.peek()
+            if t.kind == "eof" or (t.kind in ("kw", "ident")
+                                   and t.value in stops):
+                return body
+            body.append(self.parse_pl_statement())
+            self.accept_op(";")
+
+    def parse_pl_statement(self):
+        t = self.peek()
+        if t.kind == "ident" and t.value == "declare":
+            self.next()
+            name = self.expect_ident()
+            dtype = self.parse_type()
+            default = None
+            if self._accept_word("default"):
+                default = self.parse_expr()
+            return ast.PlDeclare(name, dtype, default)
+        if self.at_kw("if"):
+            self.next()
+            branches = []
+            cond = self.parse_expr()
+            if not self._accept_word("then"):
+                raise ParseError("expected THEN")
+            branches.append((cond, self.parse_pl_block(
+                ("elseif", "else", "end"))))
+            else_ = []
+            while True:
+                if self._accept_word("elseif"):
+                    c = self.parse_expr()
+                    if not self._accept_word("then"):
+                        raise ParseError("expected THEN")
+                    branches.append((c, self.parse_pl_block(
+                        ("elseif", "else", "end"))))
+                    continue
+                if self.accept_kw("else"):
+                    else_ = self.parse_pl_block(("end",))
+                break
+            self.expect_kw("end")
+            self.expect_kw("if")
+            return ast.PlIf(branches, else_)
+        if self.peek().kind in ("kw", "ident") and \
+                self.peek().value == "while":
+            self.next()
+            cond = self.parse_expr()
+            if not self._accept_word("do"):
+                raise ParseError("expected DO")
+            body = self.parse_pl_block(("end",))
+            self.expect_kw("end")
+            if not self._accept_word("while"):
+                raise ParseError("expected WHILE after END")
+            return ast.PlWhile(cond, body)
+        if self.at_kw("set") and self.peek(1).kind == "ident" and \
+                self.peek(2).kind == "op" and self.peek(2).value == "=":
+            # SET var = expr (PL variable assignment)
+            self.next()
+            name = self.expect_ident()
+            self.expect_op("=")
+            return ast.PlSet(name, self.parse_expr())
+        return self.parse_statement()
+
+    def parse_create(self):
+        self.expect_kw("create")
+        unique = False
+        kind = "normal"
+        if self.peek().kind == "ident" and self.peek().value == "unique":
+            self.next()
+            unique = True
+        elif self.peek().kind == "ident" and \
+                self.peek().value in ("vector", "fulltext"):
+            kind = self.next().value
+        if self.at_kw("index"):
+            return self.parse_create_index(unique, kind)
+        if unique or kind != "normal":
+            raise ParseError("expected INDEX")
+        if self.peek().kind == "ident" and \
+                self.peek().value == "external":
+            self.next()
+            return self.parse_create_external()
+        if self.peek().kind == "ident" and \
+                self.peek().value == "procedure":
+            self.next()
+            return self.parse_create_procedure()
+        or_replace = False
+        if self.at_kw("or"):
+            self.next()
+            if not (self.peek().kind == "ident" and
+                    self.peek().value == "replace"):
+                raise ParseError("expected REPLACE after CREATE OR")
+            self.next()
+            or_replace = True
+        if self.peek().kind == "ident" and self.peek().value == "view":
+            self.next()
+            return self.parse_create_view(or_replace)
+        if or_replace:
+            raise ParseError("expected VIEW after CREATE OR REPLACE")
+        self.expect_kw("table")
+        if_not_exists = False
+        if self.accept_kw("if"):
+            self.expect_kw("not")
+            self.expect_kw("exists")
+            if_not_exists = True
+        name = self.expect_ident()
+        if self.accept_kw("as"):
+            sel = self.parse_select()
+            stmt = ast.CreateTableStmt(name, [], [], if_not_exists)
+            stmt.as_select = sel
+            return stmt
+        self.expect_op("(")
+        cols = []
+        pk: list[str] = []
+        inline_indexes: list = []
+        while True:
+            if self.accept_kw("primary"):
+                self.expect_kw("key")
+                self.expect_op("(")
+                pk.append(self.expect_ident())
+                while self.accept_op(","):
+                    pk.append(self.expect_ident())
+                self.expect_op(")")
+            elif self.peek().kind == "ident" and \
+                    self.peek().value == "unique" and \
+                    self.peek(1).kind == "kw" and \
+                    self.peek(1).value in ("key", "index"):
+                # UNIQUE KEY [name] (cols) / UNIQUE INDEX [name] (cols)
+                self.next()
+                self.next()
+                iname = (self.expect_ident()
+                         if self.peek().kind == "ident" else None)
+                inline_indexes.append((iname, self._parse_paren_idents(),
+                                       True))
+            elif self.at_kw("index") or self.at_kw("key"):
+                self.next()
+                iname = (self.expect_ident()
+                         if self.peek().kind == "ident" else None)
+                inline_indexes.append((iname, self._parse_paren_idents(),
+                                       False))
+            else:
+                cname = self.expect_ident()
+                dtype = self.parse_type()
+                nullable = True
+                is_pk = False
+                auto_inc = False
+                while True:
+                    if self.accept_kw("not"):
+                        self.expect_kw("null")
+                        nullable = False
+                    elif self.accept_kw("null"):
+                        pass
+                    elif self.accept_kw("primary"):
+                        self.expect_kw("key")
+                        is_pk = True
+                    elif self.peek().kind == "ident" and \
+                            self.peek().value == "auto_increment":
+                        self.next()
+                        auto_inc = True
+                    else:
+                        break
+                cols.append(ast.ColumnSpec(cname, dtype, nullable, is_pk,
+                                           auto_inc))
+                if is_pk:
+                    pk.append(cname)
+            if not self.accept_op(","):
+                break
+        self.expect_op(")")
+        partition = None
+        if self.accept_kw("partition"):
+            self.expect_kw("by")
+            if self.expect_ident() != "range":
+                raise ParseError("only PARTITION BY RANGE is supported")
+            self.expect_op("(")
+            pcol = self.expect_ident()
+            self.expect_op(")")
+            self.expect_op("(")
+            bounds = []
+            saw_maxvalue = False
+            while True:
+                if saw_maxvalue:
+                    raise ParseError(
+                        "MAXVALUE partition must be last")
+                self.expect_kw("partition")
+                self.expect_ident()  # partition name (unused)
+                self.expect_kw("values")
+                if self.expect_ident() != "less":
+                    raise ParseError("expected VALUES LESS THAN")
+                if self.expect_ident() != "than":
+                    raise ParseError("expected VALUES LESS THAN")
+                if self.peek().kind == "ident" and \
+                        self.peek().value == "maxvalue":
+                    self.next()
+                    saw_maxvalue = True
+                else:
+                    self.expect_op("(")
+                    b = self._signed_int()
+                    if bounds and b <= bounds[-1]:
+                        raise ParseError(
+                            "partition bounds must be increasing")
+                    bounds.append(b)
+                    self.expect_op(")")
+                if not self.accept_op(","):
+                    break
+            self.expect_op(")")
+            partition = (pcol, bounds)
+        stmt = ast.CreateTableStmt(name, cols, pk, if_not_exists,
+                                   partition)
+        stmt.indexes = inline_indexes
+        return stmt
+
+    def parse_create_view(self, or_replace: bool):
+        """CREATE [OR REPLACE] VIEW name [(cols)] AS select — the body is
+        kept as SQL text (≙ __all_view storing view_definition) so the
+        binder re-parses it under the schema version current at use."""
+        name = self.expect_ident()
+        cols = []
+        if self.accept_op("("):
+            cols.append(self.expect_ident())
+            while self.accept_op(","):
+                cols.append(self.expect_ident())
+            self.expect_op(")")
+        self.expect_kw("as")
+        body_start = self.peek().pos
+        sel = self.parse_select()
+        text = self.sql[body_start:].strip().rstrip(";").strip()
+        return ast.CreateViewStmt(name, cols, sel, text,
+                                  or_replace=or_replace)
+
+    def parse_drop(self):
+        self.expect_kw("drop")
+        if self.peek().kind == "ident" and self.peek().value == "view":
+            self.next()
+            if_exists = False
+            if self.accept_kw("if"):
+                self.expect_kw("exists")
+                if_exists = True
+            return ast.DropViewStmt(self.expect_ident(), if_exists)
+        if self.accept_kw("index"):
+            # DROP INDEX [IF EXISTS] name ON table
+            if_exists = False
+            if self.accept_kw("if"):
+                self.expect_kw("exists")
+                if_exists = True
+            name = self.expect_ident()
+            self.expect_kw("on")
+            table = self.expect_ident()
+            return ast.DropIndexStmt(name, table, if_exists)
+        self.expect_kw("table")
+        if_exists = False
+        if self.accept_kw("if"):
+            self.expect_kw("exists")
+            if_exists = True
+        return ast.DropTableStmt(self.expect_ident(), if_exists)
+
+    def parse_insert(self):
+        self.expect_kw("insert")
+        self.expect_kw("into")
+        return self._parse_insert_body()
+
+    def _parse_insert_body(self):
+        name = self.expect_ident()
+        cols = []
+        if self.accept_op("("):
+            cols.append(self.expect_ident())
+            while self.accept_op(","):
+                cols.append(self.expect_ident())
+            self.expect_op(")")
+        if self.accept_kw("values"):
+            rows = []
+            while True:
+                self.expect_op("(")
+                row = [self.parse_expr()]
+                while self.accept_op(","):
+                    row.append(self.parse_expr())
+                self.expect_op(")")
+                rows.append(row)
+                if not self.accept_op(","):
+                    break
+            return ast.InsertStmt(name, cols, rows=rows)
+        sel = self.parse_select()
+        return ast.InsertStmt(name, cols, select=sel)
+
+    def parse_update(self):
+        self.expect_kw("update")
+        name = self.expect_ident()
+        self.expect_kw("set")
+        assigns = []
+        while True:
+            col = self.expect_ident()
+            self.expect_op("=")
+            assigns.append((col, self.parse_expr()))
+            if not self.accept_op(","):
+                break
+        where = None
+        if self.accept_kw("where"):
+            where = self.parse_expr()
+        return ast.UpdateStmt(name, assigns, where)
+
+    def parse_delete(self):
+        self.expect_kw("delete")
+        self.expect_kw("from")
+        name = self.expect_ident()
+        where = None
+        if self.accept_kw("where"):
+            where = self.parse_expr()
+        return ast.DeleteStmt(name, where)
+
+
+def _wrap_branch(stmt: ast.SelectStmt) -> ast.SelectStmt:
+    """Wrap a set-operation branch carrying its own ORDER/LIMIT as a
+    derived table so those clauses stay scoped to the branch."""
+    return ast.SelectStmt(
+        items=[(ast.Star(), None)],
+        from_=[ast.SubqueryRef(stmt, f"__branch_{id(stmt)}")],
+    )
+
+
+def parse_sql(sql: str):
+    return Parser(sql).parse()

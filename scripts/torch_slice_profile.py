@@ -35,17 +35,24 @@ def _device_us(evt) -> float:
 
 
 def profile_plan(torch, plan, tables, runs):
-    from torch.profiler import ProfilerActivity, profile
-
     from oceanbase_tpu_torch.exec.plan import execute_plan
 
-    execute_plan(plan, tables)
+    return profile_calls(torch, lambda: execute_plan(plan, tables), runs)
+
+
+def profile_calls(torch, fn, runs):
+    """Warm ``fn`` up once, then profile ``runs`` calls of it: host wall
+    time per call (ending in a synchronise), device-busy time per call,
+    idle share and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
-            execute_plan(plan, tables)
+            fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     # the device's own events (kernels, copies, fills): the aten ops that

@@ -228,10 +228,12 @@ def test_cross_join_matches(sides):
 
 
 def test_join_multi_key_waits(sides):
-    _jl, tl, _jr, tr = sides
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.join(tl, tr, [tir.col("lk"), tir.col("lv")],
-                  [tir.col("rk"), tir.col("rv")])
+    # the hashed multi-key path no longer waits: it matches the reference
+    jl, tl, jr, tr = sides
+    _assert_same(tops.join(tl, tr, [tir.col("lk"), tir.col("ls")],
+                           [tir.col("rk"), tir.col("rs")]),
+                 jops.join(jl, jr, [jir.col("lk"), jir.col("ls")],
+                           [jir.col("rk"), jir.col("rs")]))
 
 
 def _overflow_plans(m, lk, rk):
@@ -309,10 +311,262 @@ def test_segment_minmax_empty_segments_match(fn):
 
 
 def test_ops_not_ported_yet_raise(facts):
+    # the IndexProbe and Union lowerings (index_probe, concat) and Window
+    # are the ones still queued
     _jrel, trel = facts
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.top_n(trel, tir.col("k"), True, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.hash_groupby(trel, {"k": tir.col("k")},
-                          [tops.AggSpec("d", "count_distinct",
-                                        tir.col("v"))])
+    scan = tplan.TableScan("t")
+    for node in (tplan.Union([scan, scan]),
+                 tplan.IndexProbe(scan, "t", "ix", tir.col("k")),
+                 tplan.Window(scan, [])):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tplan.execute_plan(node, {"t": trel})
+
+
+# ---------------------------------------------------------------------------
+# the hashed multi-key join (_mix64), top_n, COUNT(DISTINCT), residual
+# semi/anti joins
+# ---------------------------------------------------------------------------
+
+_EDGE_INT64 = np.array([0, 1, -1, 2**63 - 1, -2**63, -2**63 + 1, 2**62,
+                        -2**62, 0x5AD5AD5AD5AD5AD, 2**31, -2**31],
+                       dtype=np.int64)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_mix64_bit_identical(seed):
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([_EDGE_INT64,
+                        rng.integers(-2**63, 2**63 - 1, 4000,
+                                     dtype=np.int64, endpoint=True)])
+    want = np.asarray(jops._mix64(jnp.asarray(x).astype(jnp.uint64)))
+    got = tops._mix64(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint64), want)
+
+
+def _typed_cols(rng, n):
+    """(arrays, types, valids) with int, float (NaN, -0.0), date, decimal,
+    bool and string keys."""
+    f = rng.normal(size=n)
+    f[::13] = np.nan
+    f[::17] = -0.0
+    f[::19] = 0.0
+    arrays = {"i": np.concatenate([_EDGE_INT64,
+                                   rng.integers(-5, 5, n - 11)]),
+              "f": f, "dt": rng.integers(-3, 3, n).astype(np.int32),
+              "dc": rng.integers(-3, 3, n), "b": rng.random(n) < 0.5,
+              "s": np.array(["p", "q", "r"], dtype=object)[
+                  rng.integers(0, 3, n)]}
+    types = {"dt": jdt.SqlType.date(), "dc": jdt.SqlType.decimal(15, 2)}
+    return arrays, types
+
+
+def test_combined_key_bit_identical():
+    rng = np.random.default_rng(3)
+    arrays, types = _typed_cols(rng, 300)
+    valids = {"i": rng.random(300) < 0.9}
+    jrel, trel = _load(arrays, types, valids, 3)
+    for names in (["i", "f"], ["f"], ["dt", "dc", "b", "s"], ["s", "i"]):
+        jk, jex = jops._combined_key([jrel.columns[c] for c in names])
+        tk, tex = tops._combined_key([trel.columns[c] for c in names])
+        assert tex == jex
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+
+
+def _multi_sides(seed=11):
+    rng = np.random.default_rng(seed)
+    nl, nr = 160, 70
+    left = {"la": rng.integers(0, 6, nl), "lb": rng.integers(0, 4, nl),
+            "lf": rng.integers(0, 3, nl) / 2.0,
+            "ls": np.array(["x", "y", "z"], dtype=object)[
+                rng.integers(0, 3, nl)],
+            "lv": rng.integers(0, 100, nl)}
+    right = {"ra": rng.integers(0, 6, nr), "rb": rng.integers(0, 4, nr),
+             "rf": rng.integers(0, 3, nr) / 2.0,
+             "rs": np.array(["y", "z", "w"], dtype=object)[
+                 rng.integers(0, 3, nr)],
+             "rv": rng.integers(0, 1000, nr)}
+    lvalid = {"la": rng.random(nl) < 0.9, "lf": rng.random(nl) < 0.9}
+    rvalid = {"rb": rng.random(nr) < 0.9, "rv": rng.random(nr) < 0.8}
+    jl, tl = _load(left, None, lvalid, seed)
+    jr, tr = _load(right, None, rvalid, seed + 1)
+    return jl, tl, jr, tr
+
+
+@pytest.fixture(scope="module")
+def multi_sides():
+    return _multi_sides()
+
+
+MULTI_KEYS = {
+    "int_int": (["la", "lb"], ["ra", "rb"]),
+    "int_string": (["la", "ls"], ["ra", "rs"]),
+    "float": (["lf"], ["rf"]),
+}
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti", "full"])
+@pytest.mark.parametrize("keys", sorted(MULTI_KEYS))
+def test_join_multi_key_matches(multi_sides, how, keys):
+    jl, tl, jr, tr = multi_sides
+    lk, rk = MULTI_KEYS[keys]
+    cap = 4096
+    jout = jops.join(jl, jr, [jir.col(c) for c in lk],
+                     [jir.col(c) for c in rk], how=how, out_capacity=cap)
+    tout = tops.join(tl, tr, [tir.col(c) for c in lk],
+                     [tir.col(c) for c in rk], how=how, out_capacity=cap)
+    assert tout.capacity == jout.capacity
+    _assert_same(tout, jout)
+
+
+def _live_rows(rel, to_numpy):
+    """The live rows as a sorted list of tuples, NULL for invalid lanes
+    (whose payload is unspecified)."""
+    res = to_numpy(rel)
+    names = sorted(k for k in res if not k.startswith("__"))
+    cols = []
+    for k in names:
+        data = np.asarray(res[k]).tolist()
+        valid = res.get("__valid__" + k)
+        valid = [True] * len(data) if valid is None else list(valid)
+        cols.append([repr(x) if v else "NULL" for x, v in zip(data, valid)])
+    return sorted(zip(*cols))
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti", "full"])
+def test_join_forced_hash_collisions(multi_sides, monkeypatch, how):
+    """Both packages' mixes cut to 2 bits: nearly every candidate pair is
+    a collision the exact-key re-check must throw out.  The port matches
+    the reference lane for lane, and both return the rows of the join
+    with a collision-free hash."""
+    jl, tl, jr, tr = multi_sides
+    lk, rk = MULTI_KEYS["int_int"]
+    args_j = (jl, jr, [jir.col(c) for c in lk], [jir.col(c) for c in rk])
+    args_t = (tl, tr, [tir.col(c) for c in lk], [tir.col(c) for c in rk])
+    clean = tops.join(*args_t, how=how, out_capacity=8192)
+    jmix, tmix = jops._mix64, tops._mix64
+    monkeypatch.setattr(jops, "_mix64",
+                        lambda x: jmix(x) & jnp.asarray(3, jnp.uint64))
+    monkeypatch.setattr(tops, "_mix64", lambda x: tmix(x) & 3)
+    jout = jops.join(*args_j, how=how, out_capacity=8192)
+    tout = tops.join(*args_t, how=how, out_capacity=8192)
+    _assert_same(tout, jout)
+    assert _live_rows(tout, tcol.to_numpy) == \
+        _live_rows(clean, tcol.to_numpy)
+
+
+def test_join_multi_key_overflow_drops_match(multi_sides):
+    jl, tl, jr, tr = multi_sides
+    lk, rk = MULTI_KEYS["int_string"]
+    jp = jplan.HashJoin(jplan.TableScan("l"), jplan.TableScan("r"),
+                        [jir.col(c) for c in lk], [jir.col(c) for c in rk],
+                        how="left", out_capacity=64)
+    tp = tplan.HashJoin(tplan.TableScan("l"), tplan.TableScan("r"),
+                        [tir.col(c) for c in lk], [tir.col(c) for c in rk],
+                        how="left", out_capacity=64)
+    with pytest.raises(JOverflow) as jerr:
+        jplan.execute_plan(jp, {"l": jl, "r": jr})
+    with pytest.raises(TOverflow) as terr:
+        tplan.execute_plan(tp, {"l": tl, "r": tr})
+    assert terr.value.drops == jerr.value.drops
+    assert terr.value.drops
+
+
+TOPN = {
+    "int_asc": ("k", True, 10), "int_desc": ("k", False, 10),
+    "string_asc": ("g", True, 7), "string_desc": ("g", False, 7),
+    "decimal_desc": ("v", False, 25), "float_asc": ("x", True, 5),
+    "float_desc": ("x", False, 5), "date_asc": ("dt", True, 3),
+    "bool_desc": ("b", False, 4), "k_above_n": ("k", True, 5000),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOPN))
+def test_top_n_matches(facts, name):
+    jrel, trel = facts
+    key, asc, k = TOPN[name]
+    jout = jops.top_n(jrel, jir.col(key), asc, k)
+    tout = tops.top_n(trel, tir.col(key), asc, k)
+    assert tout.capacity == jout.capacity
+    _assert_same(tout, jout)
+
+
+def test_top_n_lowers_from_limit_over_sort(facts):
+    jrel, trel = facts
+    jp = jplan.Limit(jplan.Sort(jplan.TableScan("t"), [jir.col("v")],
+                                [False]), 9)
+    tp = tplan.Limit(tplan.Sort(tplan.TableScan("t"), [tir.col("v")],
+                                [False]), 9)
+    _assert_same(tplan.execute_plan(tp, {"t": trel}),
+                 jplan.execute_plan(jp, {"t": jrel}))
+
+
+DISTINCT_GROUPS = {
+    "int_key": lambda ir: {"k": ir.col("k")},
+    "string_key": lambda ir: {"g": ir.col("g")},
+    "two_keys": lambda ir: {"g": ir.col("g"), "h": ir.col("h")},
+    "expr_key": lambda ir: {"kk": ir.col("k") % ir.lit(3)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(DISTINCT_GROUPS))
+def test_count_distinct_matches(facts, name):
+    jrel, trel = facts
+
+    def aggs(ir, ops):
+        c = ir.col
+        return [ops.AggSpec("nd_v", "count_distinct", c("v")),
+                ops.AggSpec("nd_dt", "count_distinct", c("dt")),
+                ops.AggSpec("nd_g", "count_distinct", c("g")),
+                ops.AggSpec("nd_b", "count_distinct", c("b")),
+                ops.AggSpec("cnt", "count_star"),
+                ops.AggSpec("sum_v", "sum", c("v"))]
+
+    keys = DISTINCT_GROUPS[name]
+    jout = jops.hash_groupby(jrel, keys(jir), aggs(jir, jops))
+    tout = tops.hash_groupby(trel, keys(tir), aggs(tir, tops))
+    assert tout.capacity == jout.capacity
+    _assert_same(tout, jout)
+    _assert_same(tops.scalar_agg(trel, aggs(tir, tops)),
+                 jops.scalar_agg(jrel, aggs(jir, jops)))
+
+
+def _residual(ir, kind):
+    c = ir.col
+    return {"lt": [c("lv") < c("rv")],
+            "two": [c("lv") * ir.lit(10) > c("rv"), c("ls").ne(c("rs"))],
+            "none": []}[kind]
+
+
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("kind", ["lt", "two", "none"])
+def test_semi_join_residual_matches(multi_sides, anti, kind):
+    jl, tl, jr, tr = multi_sides
+    jout = jops.semi_join_residual(
+        jl, jr, [jir.col("la")], [jir.col("ra")], _residual(jir, kind),
+        anti=anti, out_capacity=4096)
+    tout = tops.semi_join_residual(
+        tl, tr, [tir.col("la")], [tir.col("ra")], _residual(tir, kind),
+        anti=anti, out_capacity=4096)
+    _assert_same(tout, jout)
+
+
+@pytest.mark.parametrize("anti", [False, True])
+def test_semi_join_residual_plan_and_overflow(multi_sides, anti):
+    jl, tl, jr, tr = multi_sides
+
+    def plan(m, cap):
+        ir, _dt, _ops, pl = m
+        return pl.SemiJoinResidual(
+            pl.TableScan("l"), pl.TableScan("r"),
+            [ir.col("la"), ir.col("lb")], [ir.col("ra"), ir.col("rb")],
+            _residual(ir, "lt"), anti=anti, out_capacity=cap)
+
+    jt, tt = {"l": jl, "r": jr}, {"l": tl, "r": tr}
+    _assert_same(tplan.execute_plan(plan(TORCH, 4096), tt),
+                 jplan.execute_plan(plan(JAX, 4096), jt))
+    with pytest.raises(JOverflow) as jerr:
+        jplan.execute_plan(plan(JAX, 16), jt)
+    with pytest.raises(TOverflow) as terr:
+        tplan.execute_plan(plan(TORCH, 16), tt)
+    assert terr.value.drops == jerr.value.drops
+    assert terr.value.drops
