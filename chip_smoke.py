@@ -18,14 +18,23 @@ Phases, each printing its own lines:
    kernel on the device-resident lineitem columns against the Q6 oracle;
 6. sql: all eight TPC-H tables in the port's ``Catalog`` on the card,
    ANALYZEd, and the 22 TPC-H queries through ``Session.execute(sql).rows()``, each
-   held against the SQLite oracle (built and run meanwhile in a second
-   process from the same seed) and timed, with its capacity re-plans and
-   peak device memory;
-7. one JSON line of the kernels with their launch counts on the main
+   held against the SQLite oracle (built and run meanwhile, from the
+   same seed, in two more processes that share out every SQL statement
+   of phases 6-8) and timed, with its capacity re-plans and peak device
+   memory;
+7. sql-index: on the same catalog, a secondary index on every ``*key``
+   column (the JAX package's SF1 parity configuration,
+   ``scripts/sf_parity.py``), each sorted sidecar built and timed, then
+   the 22 queries again and the index-probe join IP1, each held against
+   SQLite, with the ``IndexProbe`` nodes of the plan that ran;
+8. sql-surface: window functions, unions and a DML script
+   (``bench/surface_queries.py``) on the same catalog, each statement's
+   rows and rowcount held against SQLite's;
+9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before phase 4 and again
-   before phase 6, whose SQL path, like the JAX package's, reaches no
+   before each SQL phase, whose path, like the JAX package's, reaches no
    hand-written kernel);
-8. the card's name and power limit, then the result line.
+10. the card's name and power limit, then the result line.
 
 Any mismatch or error exits nonzero before the result line.  Without a
 CUDA device, or without the package beside this file, it exits nonzero
@@ -37,7 +46,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -46,14 +54,6 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 PLAN_RUNS = 5
 SQL_RUNS = 3                     # timed runs per query, after a warm-up
-
-
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _batched_ms(torch, fn, batch=50, reps=5) -> float:
@@ -227,14 +227,33 @@ def phase_main_path(torch, dev, tables, types, card):
     return timings
 
 
-def _oracle_worker(repo, sf, queue):
-    """Second process: regenerate TPC-H from the same seed, load it into
-    SQLite and run the 22 queries there (SQLite is single-threaded; the
-    card's phases run meanwhile)."""
-    sys.path.insert(0, repo)
-    from oceanbase_tpu_torch.bench.oracle import load_sqlite, run_oracle
-    from oceanbase_tpu_torch.bench.tpch import gen_tpch
+# The SQLite oracle runs in two processes beside the card's phases
+# (SQLite is single-threaded).  The first takes these TPC-H queries and
+# every statement of bench/surface_queries.py, the second the other
+# TPC-H queries: about equal SQLite time each, by per-query times taken
+# at SF0.1.
+ORACLE_FIRST = (1, 2, 3, 4, 5, 6, 7, 10, 11, 12, 13)
+
+
+def oracle_jobs() -> list:
+    """[(key, sql)] for each oracle process; a key is a TPC-H query
+    number or a ``bench/surface_queries.py`` name, in the order run."""
+    from oceanbase_tpu_torch.bench import surface_queries as sq
     from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+
+    first = [(q, QUERIES[q]) for q in ORACLE_FIRST]
+    first += [("IP1", sq.IP1)] + sorted(sq.READS.items()) + sq.D1
+    second = [(q, sql) for q, sql in sorted(QUERIES.items())
+              if q not in ORACLE_FIRST]
+    return [first, second]
+
+
+def _oracle_worker(repo, sf, stmts, queue):
+    """One oracle process: regenerate TPC-H from the same seed, load it
+    into SQLite and run ``stmts`` -> {key: (rows, rowcount)}."""
+    sys.path.insert(0, repo)
+    from oceanbase_tpu_torch.bench.oracle import load_sqlite, run_oracle_stmt
+    from oceanbase_tpu_torch.bench.tpch import gen_tpch
 
     tables, types = gen_tpch(sf=sf)
     t0 = time.perf_counter()
@@ -242,84 +261,177 @@ def _oracle_worker(repo, sf, queue):
     load_s = time.perf_counter() - t0
     del tables
     t0 = time.perf_counter()
-    rows = {q: run_oracle(conn, sql) for q, sql in sorted(QUERIES.items())}
-    queue.put((load_s, time.perf_counter() - t0, rows))
+    out = {key: run_oracle_stmt(conn, sql) for key, sql in stmts}
+    queue.put((load_s, time.perf_counter() - t0, out))
 
 
-def start_oracle(repo, sf):
+def start_oracles(repo, sf) -> list:
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    proc = ctx.Process(target=_oracle_worker, args=(repo, sf, queue),
-                       daemon=True)
-    proc.start()
-    return proc, queue
+    oracles = []
+    for stmts in oracle_jobs():
+        queue = ctx.Queue()
+        proc = ctx.Process(target=_oracle_worker,
+                           args=(repo, sf, stmts, queue), daemon=True)
+        proc.start()
+        oracles.append((proc, queue))
+    return oracles
 
 
-def phase_sql(torch, dev, tables, types, card, oracle):
+def oracle_results(oracles) -> dict:
+    """Wait for every oracle process's answers; each must exit cleanly."""
+    want = {}
+    for i, (proc, queue) in enumerate(oracles):
+        load_s, run_s, out = queue.get(timeout=900)
+        proc.join(timeout=60)
+        if proc.exitcode != 0:
+            raise RuntimeError(f"oracle process exited {proc.exitcode}")
+        print(f"[sql] set-up: SQLite oracle {i + 1} loaded in {load_s:.3f} "
+              f"s, ran its {len(out)} statements in {run_s:.3f} s")
+        want.update(out)
+    return want
+
+
+def phase_sql(dev, tables, types, card, oracles):
     """Phase 6: the 22 TPC-H queries through the port's SQL session."""
-    from oceanbase_tpu_torch.bench.oracle import rows_match
-    from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
+    from oceanbase_tpu_torch.bench.harness import (
+        timed_statement, tpch_session,
+    )
     from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
-    from oceanbase_tpu_torch.sql import Session
 
-    t0 = time.perf_counter()
-    sess = Session(device=dev)
-    for name, arrays in tables.items():
-        sess.catalog.load_numpy(
-            name, arrays, primary_key=TPCH_PRIMARY_KEYS[name],
-            types={k: v for k, v in types.items() if k in arrays})
-    torch.cuda.synchronize()
+    sess, load_s, analyze_s = tpch_session(tables, types, device=dev)
     print(f"[sql] catalog: {len(tables)} tables, "
           f"{sess.catalog.device_bytes()} bytes on {dev} in "
-          f"{time.perf_counter() - t0:.3f} s")
-    # exact optimizer statistics before the run, as the JAX package's
-    # SF1 parity run gathers them (scripts/sf_parity.py): the load-time
-    # sampled NDVs under-budget SF1 joins past the 4^3 re-plan ladder
-    t0 = time.perf_counter()
-    for name in tables:
-        sess.execute(f"analyze table {name}")
+          f"{load_s:.3f} s")
     print(f"[sql] set-up: ANALYZE of {len(tables)} tables in "
-          f"{time.perf_counter() - t0:.3f} s")
+          f"{analyze_s:.3f} s")
 
     got, stats = {}, {}
     for q, sql in sorted(QUERIES.items()):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        got[q] = sess.execute(sql).rows()       # warm-up, checked below
-        retries = sess.last_retries
-        times = []
-        for _ in range(SQL_RUNS):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            sess.execute(sql)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t1) * 1e3)
-        stats[q] = (statistics.median(times), len(got[q]), retries,
-                    torch.cuda.max_memory_allocated())
-        ms, nrows, retries, peak = stats[q]
+        # the first run is the warm-up, checked below
+        res, ms, retries, peak = timed_statement(sess, sql, SQL_RUNS)
+        got[q] = res.rows()
+        stats[q] = (ms, len(got[q]), retries, peak)
         print(f"[sql] q{q}: {ms:.3f} ms/query (median of {SQL_RUNS}, bind "
-              f"included), rows={nrows}, retries={retries}, "
+              f"included), rows={len(got[q])}, retries={retries}, "
               f"peak_mem={peak} B; {card}", flush=True)
 
-    proc, queue = oracle
-    load_s, run_s, want = queue.get(timeout=900)
-    proc.join(timeout=60)
-    if proc.exitcode != 0:
-        raise RuntimeError(f"oracle process exited {proc.exitcode}")
-    print(f"[sql] set-up: SQLite oracle loaded in {load_s:.3f} s, 22 "
-          f"queries there in {run_s:.3f} s (second process)")
-    for q, sql in sorted(QUERIES.items()):
-        ordered = "order by" in sql.lower() and q not in (2, 18, 21)
-        ok, why = rows_match(got[q], want[q], ordered=ordered)
-        if not ok:
-            raise AssertionError(f"Q{q} differs from the SQLite oracle: "
-                                 f"{why}")
+    want = oracle_results(oracles)
+    check_tpch(got, want, "")
     total_ms = sum(st[0] for st in stats.values())
     print(f"[sql] all 22 queries match SQLite; {total_ms:.3f} ms in all "
           f"(sum of medians) on {card}")
-    return stats
+    return sess, want
+
+
+def check_tpch(got, want, tag):
+    from oceanbase_tpu_torch.bench.oracle import rows_match
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+
+    for q, sql in sorted(QUERIES.items()):
+        ordered = "order by" in sql.lower() and q not in (2, 18, 21)
+        ok, why = rows_match(got[q], want[q][0], ordered=ordered)
+        if not ok:
+            raise AssertionError(f"Q{q}{tag} differs from the SQLite "
+                                 f"oracle: {why}")
+
+
+def phase_sql_index(torch, sess, tables, want, card):
+    """Phase 7: the SF1 parity run's secondary indexes, each sidecar
+    built and timed, then the 22 queries and IP1 again."""
+    from oceanbase_tpu_torch.bench.harness import (
+        key_indexes, timed_statement,
+    )
+    from oceanbase_tpu_torch.bench.surface_queries import IP1
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.exec.plan import (
+        IndexProbe, TableScan, index_probes, prepare_index_probes,
+    )
+    from oceanbase_tpu_torch.expr import ir
+
+    for ix, name, c in key_indexes(tables):
+        sess.execute(f"create index {ix} on {name} ({c})")
+        # build the sidecar now, as the first probe of it would
+        rel = sess.catalog.table_data(name)
+        side = {name: rel}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepare_index_probes(sess.catalog, IndexProbe(
+            TableScan(name), name, ix, ir.col(c)), side)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        sc = side[IndexProbe.sidecar_name(name, ix)]
+        nbytes = sum(col.data.numel() * col.data.element_size()
+                     for col in sc.columns.values())
+        print(f"[sql-index] sidecar {ix}: {ms:.3f} ms, {nbytes} B "
+              f"({sc.capacity} lanes for {rel.capacity} rows); {card}")
+
+    got, total_ms, total_probes = {}, 0.0, 0
+    for q, sql in sorted(QUERIES.items()):
+        res, ms, retries, peak = timed_statement(sess, sql, SQL_RUNS)
+        got[q] = res.rows()
+        probes = len(index_probes(sess.last_plan))
+        total_ms += ms
+        total_probes += probes
+        print(f"[sql-index] q{q}: {ms:.3f} ms/query (median of {SQL_RUNS}), "
+              f"rows={len(got[q])}, retries={retries}, peak_mem={peak} B, "
+              f"index_probes={probes}; {card}", flush=True)
+    check_tpch(got, want, " (indexed)")
+    print(f"[sql-index] all 22 queries match SQLite; {total_ms:.3f} ms in "
+          f"all (sum of medians), {total_probes} IndexProbe nodes; {card}")
+
+    res, ms, retries, peak = timed_statement(sess, IP1, SQL_RUNS)
+    probes = len(index_probes(sess.last_plan))
+    print(f"[sql-index] IP1: {ms:.3f} ms/query (median of {SQL_RUNS}), "
+          f"rows={len(res.rows())}, retries={retries}, peak_mem={peak} B, "
+          f"index_probes={probes}; {card}")
+    if probes < 1:
+        raise AssertionError("IP1 did not plan an IndexProbe")
+    return res.rows()
+
+
+def phase_sql_surface(sess, card, ip1_rows, want):
+    """Phase 8: window functions, unions and the D1 DML script on the
+    same catalog, each held against SQLite (rows and rowcounts)."""
+    from oceanbase_tpu_torch.bench import surface_queries as sq
+    from oceanbase_tpu_torch.bench.harness import timed_statement
+    from oceanbase_tpu_torch.bench.oracle import rows_match
+
+    got = {}
+    for name, sql in sorted(sq.READS.items()):
+        res, ms, retries, peak = timed_statement(sess, sql, SQL_RUNS)
+        got[name] = res.rows()
+        print(f"[sql-surface] {name}: {ms:.3f} ms/query (median of "
+              f"{SQL_RUNS}), rows={len(got[name])}, retries={retries}, "
+              f"peak_mem={peak} B; {card}", flush=True)
+    counts = {}
+    for name, sql in sq.D1:
+        res, ms, _retries, peak = timed_statement(sess, sql, 0)
+        counts[name] = res.rowcount
+        if name == "select":
+            got[name] = res.rows()
+        print(f"[sql-surface] D1 {name}: {ms:.3f} ms (one run), "
+              f"rowcount={res.rowcount}, peak_mem={peak} B; {card}",
+              flush=True)
+
+    checks = [("IP1", ip1_rows, False)] + \
+        [(n, got[n], n in sq.ORDERED) for n in sorted(sq.READS)] + \
+        [("select", got["select"], True)]
+    for name, rows, ordered in checks:
+        ok, why = rows_match(rows, want[name][0], ordered=ordered,
+                             rtol=sq.RTOL.get(name, 1e-6))
+        if not ok:
+            raise AssertionError(f"{name} differs from SQLite: {why}")
+    for name, _sql in sq.D1:
+        if name not in ("create", "select") and \
+                counts[name] != want[name][1]:
+            raise AssertionError(f"D1 {name}: rowcount {counts[name]} != "
+                                 f"SQLite's {want[name][1]}")
+    if "6-NONE" not in [r[0] for r in got["select"]]:
+        raise AssertionError("D1's UPDATE lost the new '6-NONE' value")
+    print(f"[sql-surface] IP1, {len(sq.READS)} reads and every D1 step "
+          f"match SQLite, rowcounts included; {card}")
 
 
 def main() -> int:
@@ -331,12 +443,13 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    from oceanbase_tpu_torch.bench.harness import card_line
     from oceanbase_tpu_torch.bench.tpch import gen_tpch
     from oceanbase_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    card = _card_line()
+    card = card_line()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device "
           f"{torch.cuda.get_device_name(0)} count "
@@ -352,7 +465,7 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     sf = float(os.environ.get("OB_SMOKE_SF", "1"))
-    oracle = start_oracle(here, sf)
+    oracles = start_oracles(here, sf)
     t0 = time.perf_counter()
     tables, types = gen_tpch(sf=sf)
     li = tables["lineitem"]
@@ -377,17 +490,25 @@ def main() -> int:
                 f"{rec['name']} was not launched on the main path")
 
     _build.reset_launch_counts()
-    phase_sql(torch, dev, tables, types, card, oracle)
+    sess, want = phase_sql(dev, tables, types, card, oracles)
     torch.cuda.synchronize()
     print(f"[sql] kernel launches on the SQL path: "
           f"{_build.launch_counts()}")
+    _build.reset_launch_counts()
+    ip1_rows = phase_sql_index(torch, sess, tables, want, card)
+    torch.cuda.synchronize()
+    print(f"[sql-index] kernel launches: {_build.launch_counts()}")
+    _build.reset_launch_counts()
+    phase_sql_surface(sess, card, ip1_rows, want)
+    torch.cuda.synchronize()
+    print(f"[sql-surface] kernel launches: {_build.launch_counts()}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in kernels]}))
     print(f"[done] {time.perf_counter() - t_start:.3f} s in all")
-    print(_card_line())
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

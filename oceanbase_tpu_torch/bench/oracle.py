@@ -15,7 +15,7 @@ import sqlite3
 
 import numpy as np
 
-from oceanbase_tpu_torch.datatypes import SqlType, TypeKind, days_to_date
+from oceanbase_tpu_torch.datatypes import DATE_EPOCH, TypeKind
 
 
 def load_sqlite(tables: dict, types: dict) -> sqlite3.Connection:
@@ -29,10 +29,13 @@ def load_sqlite(tables: dict, types: dict) -> sqlite3.Connection:
         for c in colnames:
             arr = cols[c]
             t = types.get(c)
+            # decimals and dates convert as whole arrays (the same values
+            # as days_to_date and an int / 10**scale, row by row)
             if t is not None and t.kind == TypeKind.DECIMAL:
-                pycols.append([v / (10 ** t.scale) for v in arr.tolist()])
+                pycols.append((arr / (10 ** t.scale)).tolist())
             elif t is not None and t.kind == TypeKind.DATE:
-                pycols.append([days_to_date(int(v)) for v in arr])
+                pycols.append(np.datetime_as_string(
+                    DATE_EPOCH + arr.astype("timedelta64[D]")).tolist())
             elif arr.dtype == object or arr.dtype.kind in "US":
                 pycols.append([str(v) for v in arr])
             else:
@@ -90,6 +93,13 @@ def to_sqlite_sql(sql: str) -> str:
 def run_oracle(conn: sqlite3.Connection, sql: str) -> list[tuple]:
     cur = conn.execute(to_sqlite_sql(sql))
     return [tuple(r) for r in cur.fetchall()]
+
+
+def run_oracle_stmt(conn: sqlite3.Connection, sql: str):
+    """Any statement -> (rows, rowcount); a DML statement's rowcount is
+    the rows it changed (SQLite's ``changes()``), a query's is -1."""
+    cur = conn.execute(to_sqlite_sql(sql))
+    return [tuple(r) for r in cur.fetchall()], cur.rowcount
 
 
 def rows_match(got: list[tuple], want: list[tuple], ordered: bool,

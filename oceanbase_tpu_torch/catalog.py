@@ -1,12 +1,13 @@
 """Catalog: schemas, tables, statistics, on the port's device relations.
 
-Port of the part of ``oceanbase_tpu/catalog.py`` a SELECT needs:
-``ColumnDef``/``IndexDef``/``TableDef``, the load-time NDV estimate
-``sampled_ndv`` and a ``Catalog`` of named tables -> (definition, device
-``Relation``).  Loading computes the same row counts and NDV statistics
-as the JAX package, so its binder and optimizer choose the same plans and
-capacities.  Views, external and transient tables wait for ROADMAP
-Queue 1 item 7 (``view_def`` answers None).
+Port of ``oceanbase_tpu/catalog.py`` for a session without a storage
+plane: ``ColumnDef``/``IndexDef``/``TableDef``, the load-time NDV
+estimate ``sampled_ndv`` and a ``Catalog`` of named tables ->
+(definition, device ``Relation``), with table and view DDL.  Loading
+computes the same row counts and NDV statistics as the JAX package, so
+its binder and optimizer choose the same plans and capacities.  External
+and transient tables wait for the storage plane (ROADMAP Queue 1
+item 5).
 
 A catalog lives on one device: ``Catalog(device=None)`` resolves it to
 ``"cuda"`` and raises without CUDA unless the caller passes
@@ -95,18 +96,89 @@ def sampled_ndv(arr, n: int, sample: int = 8192) -> int:
 class Catalog:
     """Named tables -> (definition, device-resident data).
 
-    Thread-safe; ``schema_version`` bumps on every load."""
+    Thread-safe; ``schema_version`` bumps on every load and DDL."""
 
     def __init__(self, device=None):
         self.device = default_device(device)
         self._lock = threading.RLock()
         self._defs: dict[str, TableDef] = {}
         self._data: dict[str, Relation] = {}
+        # views: name -> {"sql": body text, "cols": [alias...]|[]},
+        # expanded at bind time
+        self._views: dict[str, dict] = {}
+        # IndexProbe sidecars: (table, index) -> (source relation,
+        # sidecar); an entry serves only the relation it was built from
+        self._sidecars: dict[tuple[str, str], tuple[Relation, Relation]] = {}
         self.schema_version = 1
 
+    # -- index sidecars ---------------------------------------------------
+    def sidecar(self, table: str, index: str, rel: Relation):
+        """The cached sidecar of ``table.index`` built from ``rel``, or
+        None (none cached, or built from another relation)."""
+        with self._lock:
+            hit = self._sidecars.get((table, index))
+            return hit[1] if hit is not None and hit[0] is rel else None
+
+    def cache_sidecar(self, table: str, index: str, rel: Relation,
+                      sidecar: Relation):
+        with self._lock:
+            self._sidecars[(table, index)] = (rel, sidecar)
+
+    def drop_sidecars(self, table: str, index: str | None = None):
+        """Free the cached sidecars of ``table`` (of one index if named)."""
+        with self._lock:
+            for key in [k for k in self._sidecars if k[0] == table
+                        and index in (None, k[1])]:
+                del self._sidecars[key]
+
+    # -- views ------------------------------------------------------------
+    def create_view(self, name: str, sql: str, cols=None,
+                    or_replace: bool = False):
+        with self._lock:
+            if self.has_table(name):
+                raise ValueError(f"table {name} already exists")
+            if name in self._views and not or_replace:
+                raise ValueError(f"view {name} already exists")
+            self._views[name] = {"sql": sql, "cols": list(cols or [])}
+            self.schema_version += 1
+
+    def drop_view(self, name: str) -> bool:
+        with self._lock:
+            if self._views.pop(name, None) is None:
+                return False
+            self.schema_version += 1
+            return True
+
     def view_def(self, name: str):
-        """Views are not ported yet: no name is a view."""
-        return None
+        with self._lock:
+            return self._views.get(name)
+
+    def view_names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._views)
+
+    # -- DDL -------------------------------------------------------------
+    def create_table(self, tdef: TableDef, if_not_exists: bool = False):
+        with self._lock:
+            if self.view_def(tdef.name) is not None:
+                raise ValueError(f"view {tdef.name} already exists")
+            if tdef.name in self._defs:
+                if if_not_exists:
+                    return
+                raise ValueError(f"table {tdef.name} already exists")
+            self._defs[tdef.name] = tdef
+            self.schema_version += 1
+
+    def drop_table(self, name: str, if_exists: bool = False):
+        with self._lock:
+            if name not in self._defs:
+                if if_exists:
+                    return
+                raise KeyError(name)
+            del self._defs[name]
+            self._data.pop(name, None)
+            self.drop_sidecars(name)
+            self.schema_version += 1
 
     # -- data ------------------------------------------------------------
     def load_numpy(self, name: str, arrays: dict[str, np.ndarray],
@@ -134,11 +206,22 @@ class Catalog:
                 name, cols, primary_key=primary_key or [], row_count=n,
                 ndv=ndv)
             self._data[name] = rel
+            self.drop_sidecars(name)
             self.schema_version += 1
 
     def set_data(self, name: str, rel: Relation):
+        """Install a table's new relation; it must live on the catalog's
+        device."""
+        dev = rel.device
+        same = dev.type == self.device.type and (
+            dev.index is None or self.device.index is None
+            or dev.index == self.device.index)
+        if not same:
+            raise ValueError(f"relation on {rel.device}, catalog on "
+                             f"{self.device}")
         with self._lock:
             self._data[name] = rel
+            self.drop_sidecars(name)   # built from the relation replaced
             d = self._defs.get(name)
             if d is not None:
                 d.row_count = rel.capacity

@@ -23,9 +23,6 @@ How the JAX primitives map:
   ties keep the lower index first, as ``top_k`` does.
 - ``uint64`` hashing      -> int64 with wrap-around multiplies and masked
   arithmetic shifts standing in for logical ones (``_mix64``).
-
-Scope: ``index_probe`` and ``concat`` (the IndexProbe and Union plan
-nodes) are not ported yet; no TPC-H query reaches them.
 """
 
 from __future__ import annotations
@@ -44,7 +41,12 @@ from oceanbase_tpu_torch.expr.compile import (
     eval_expr,
     eval_predicate,
 )
-from oceanbase_tpu_torch.vector.column import Column, Relation, take
+from oceanbase_tpu_torch.vector.column import (
+    Column,
+    Relation,
+    StringDict,
+    take,
+)
 
 _INT_MAX = int(np.iinfo(np.int64).max)
 
@@ -769,6 +771,63 @@ def join(
     return Relation(columns=full_cols, mask=torch.cat([live, app_live]))
 
 
+def index_probe(
+    probe: Relation,
+    sidecar: Relation,
+    base: Relation,
+    key: ir.Expr,
+    columns: Sequence[str] | None,
+    rename: dict[str, str] | None,
+    out_capacity: int | None = None,
+) -> Relation:
+    """Index nested-loop join: a ``searchsorted`` probe of ``key`` into a
+    pre-sorted index sidecar, then a positional gather of the base
+    table's rows.
+
+    sidecar: ``__key__`` sorted int64 over the base's live rows with
+    valid keys, padded with ``_INT_MAX``; ``__pos__`` the matching row
+    positions into ``base``.  Keys are exact ints (the optimizer picks
+    this path only for single int-like columns), so every expanded lane
+    is a true match.  NULL and dead probe keys never match."""
+    ln = probe.capacity
+    lm = probe.mask_or_true()
+    kc = eval_expr(key, probe)
+    lkey = kc.data.to(torch.int64)
+    lvalid = _keys_valid([kc], lm)
+
+    skey = sidecar.columns["__key__"].data
+    spos = sidecar.columns["__pos__"].data
+    sn = sidecar.capacity
+
+    # _INT_MAX - 1, not _INT_MAX: the pad keys are _INT_MAX, so a dead
+    # probe lane's sentinel must sort strictly below them
+    lkey_p = torch.where(lvalid, lkey, _scalar(_INT_MAX - 1, lkey))
+    lo = torch.searchsorted(skey, lkey_p, right=False)
+    hi = torch.searchsorted(skey, lkey_p, right=True)
+    counts = torch.where(lvalid, hi - lo, _scalar(0, lo))
+
+    cap = out_capacity if out_capacity is not None else max(ln, sn)
+    total = counts.sum()
+    diag.push("index_probe_overflow", torch.clamp(total - cap, min=0),
+              capacity=cap)
+    start = torch.cumsum(counts, 0) - counts  # exclusive prefix
+    probe_idx = _repeat_index(counts, cap)
+    lane = _arange(cap, lm.device)
+    out_live = lane < total
+    off = lane - take(start, probe_idx)
+    span = torch.clamp(take(lo, probe_idx) + off, 0, sn - 1)
+    base_idx = take(spos, span)
+
+    out_cols: dict[str, Column] = {}
+    for name, c in probe.columns.items():
+        out_cols[name] = c.gather(probe_idx)
+    names = columns if columns is not None else list(base.columns)
+    for bname in names:
+        out_cols[(rename or {}).get(bname, bname)] = \
+            base.columns[bname].gather(base_idx)
+    return Relation(columns=out_cols, mask=out_live)
+
+
 def semi_join_residual(
     left: Relation,
     right: Relation,
@@ -800,6 +859,58 @@ def semi_join_residual(
     return left.with_mask(lm & (matches > 0))
 
 
+def merge_dicts(cols: Sequence[Column]) -> tuple[list, StringDict | None]:
+    """Re-encode string columns into one merged dictionary.
+
+    Columns already sharing one dictionary come back as they are; else
+    the merged dictionary is the sorted union of the values (the order
+    the codes keep) and each column's codes are remapped by a gather
+    through a host-built lookup table.  Columns without a dictionary
+    (all-NULL lanes) pass through."""
+    dicts = [c.sdict for c in cols if c.sdict is not None]
+    if not dicts:
+        return list(cols), None
+    if all(d is dicts[0] for d in dicts):
+        return list(cols), dicts[0]
+    merged = StringDict(np.unique(np.concatenate([d.values
+                                                  for d in dicts])))
+    out = []
+    for c in cols:
+        if c.sdict is None:
+            out.append(c)
+            continue
+        remap = np.searchsorted(merged.values,
+                                c.sdict.values).astype(np.int32)
+        codes = take(torch.from_numpy(remap).to(c.device), c.data)
+        out.append(Column(codes, c.valid, c.dtype, merged))
+    return out, merged
+
+
+def concat(rels: Sequence[Relation]) -> Relation:
+    """UNION ALL: stack relations (same column ids) into one.  String
+    columns with different dictionaries are re-encoded into a merged
+    dictionary (``merge_dicts``)."""
+    out_cols: dict[str, Column] = {}
+    for name in rels[0].columns:
+        cols = [r.columns[name] for r in rels]
+        if any(c.sdict is not None for c in cols):
+            cols, merged = merge_dicts(cols)
+            data = torch.cat([c.data for c in cols])
+            out_cols[name] = Column(data, _concat_valid(cols),
+                                    cols[0].dtype, merged)
+            continue
+        data = torch.cat([c.data.to(cols[0].data.dtype) for c in cols])
+        out_cols[name] = Column(data, _concat_valid(cols), cols[0].dtype)
+    mask = torch.cat([r.mask_or_true() for r in rels])
+    return Relation(columns=out_cols, mask=mask)
+
+
+def _concat_valid(cols):
+    if all(c.valid is None for c in cols):
+        return None
+    return torch.cat([c.valid_or_true() for c in cols])
+
+
 def _translate_dict(lc: Column, rc: Column) -> Column:
     """Map left dict codes into right's dictionary space (-1 = no match)."""
     assert lc.sdict is not None and rc.sdict is not None
@@ -813,7 +924,7 @@ def _translate_dict(lc: Column, rc: Column) -> Column:
 
 
 __all__ = [
-    "AggSpec", "compact", "filter_rows", "hash_groupby",
-    "join", "lexsort", "limit", "project", "scalar_agg", "segment_sum",
-    "semi_join_residual", "sort_rows", "top_n",
+    "AggSpec", "compact", "concat", "filter_rows", "hash_groupby",
+    "index_probe", "join", "lexsort", "limit", "merge_dicts", "project",
+    "scalar_agg", "segment_sum", "semi_join_residual", "sort_rows", "top_n",
 ]

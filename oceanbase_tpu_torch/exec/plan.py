@@ -14,8 +14,9 @@ plan bound by the port hashes like the JAX package's.
 
 There is no jit counterpart: torch runs eagerly.  The XLA executable
 cache, the metrics/trace/admission hooks and the plan-monitor lanes are
-not ported yet; neither are the IndexProbe, Union and Window lowerings
-(no TPC-H query reaches them).
+not ported yet (ROADMAP Queue 1 item 9).  ``prepare_index_probes``
+builds the sorted sidecar an ``IndexProbe`` reads on the base table's
+device and caches it on the catalog.
 """
 
 from __future__ import annotations
@@ -28,12 +29,15 @@ from typing import Optional, Sequence
 
 import torch
 
+from oceanbase_tpu_torch.datatypes import SqlType
 from oceanbase_tpu_torch.exec import diag, ops
+from oceanbase_tpu_torch.exec.window import window as window_op
 from oceanbase_tpu_torch.expr import ir
-from oceanbase_tpu_torch.vector.column import Relation
-
-_TODO_NODE = ("waits for ROADMAP Queue 1 (IndexProbe and Union: "
-              "index_probe/concat; Window: window functions)")
+from oceanbase_tpu_torch.vector.column import (
+    Column,
+    Relation,
+    bucket_capacity,
+)
 
 
 class PlanNode:
@@ -380,12 +384,23 @@ def _lower(node: PlanNode, tables: dict[str, Relation]) -> Relation:
             node.left_keys, node.right_keys, how=node.how,
             out_capacity=node.out_capacity,
         )
+    if isinstance(node, IndexProbe):
+        return ops.index_probe(
+            _lower(node.child, tables),
+            tables[IndexProbe.sidecar_name(node.table, node.index)],
+            tables[node.table], node.key, node.columns, node.rename,
+            out_capacity=node.out_capacity,
+        )
     if isinstance(node, SemiJoinResidual):
         return ops.semi_join_residual(
             _lower(node.left, tables), _lower(node.right, tables),
             node.left_keys, node.right_keys, node.residual,
             anti=node.anti, out_capacity=node.out_capacity,
         )
+    if isinstance(node, Union):
+        return ops.concat([_lower(c, tables) for c in node.inputs])
+    if isinstance(node, Window):
+        return window_op(_lower(node.child, tables), node.specs)
     if isinstance(node, Sort):
         return ops.sort_rows(_lower(node.child, tables), node.keys,
                              node.ascending)
@@ -401,7 +416,7 @@ def _lower(node: PlanNode, tables: dict[str, Relation]) -> Relation:
     if isinstance(node, Compact):
         return ops.compact(_lower(node.child, tables), node.capacity,
                            strict=node.strict)
-    raise NotImplementedError(f"{type(node).__name__} {_TODO_NODE}")
+    raise NotImplementedError(type(node).__name__)
 
 
 def referenced_tables(node: PlanNode) -> set[str]:
@@ -413,15 +428,80 @@ def referenced_tables(node: PlanNode) -> set[str]:
     return out
 
 
+def index_probes(plan: PlanNode) -> list:
+    """The plan's IndexProbe nodes."""
+    out, stack = [], [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, IndexProbe):
+            out.append(node)
+        stack.extend(node.children())
+    return out
+
+
+def build_sidecar(catalog, node: IndexProbe, rel: Relation) -> Relation:
+    """The sorted index sidecar ``node`` reads, built from the base
+    relation ``rel``: ``__key__`` the index column over its live valid
+    rows, stably sorted and padded to the bucket ladder with
+    ``_INT_MAX``; ``__pos__`` the matching positions into ``rel``.
+
+    Built on ``rel``'s device with a stable ``torch.sort`` (the same
+    permutation as the reference's stable numpy argsort, so the same
+    sidecar).  Reading the live count to size it is its one host sync."""
+    td = catalog.table_def(node.table)
+    ix = next(i for i in td.indexes if i.name == node.index)
+    col = rel.columns[ix.columns[0]]
+    live = col.valid_or_true() & rel.mask_or_true()
+    pos = torch.nonzero(live).reshape(-1)
+    keys, order = torch.sort(col.data.to(torch.int64).index_select(0, pos),
+                             stable=True)
+    n = keys.shape[0]
+    cap = bucket_capacity(max(n, 1))
+    pk = torch.full((cap,), ops._INT_MAX, dtype=torch.int64,
+                    device=keys.device)
+    ppos = torch.zeros(cap, dtype=torch.int64, device=keys.device)
+    pk[:n] = keys
+    ppos[:n] = pos.index_select(0, order)
+    return Relation(columns={
+        "__key__": Column(pk, None, SqlType.int_()),
+        "__pos__": Column(ppos, None, SqlType.int_())}, mask=None)
+
+
+def prepare_index_probes(catalog, plan: PlanNode,
+                         tables: dict[str, Relation]) -> None:
+    """Inject the sidecar (``build_sidecar``) of every IndexProbe in
+    ``plan`` into ``tables``, in place.  Sidecars are cached on the
+    catalog for the relation they were built from: a DML statement
+    installs a new relation, so the next execution rebuilds.
+
+    Every executor entry point that lowers a plan over catalog tables
+    calls this first: session execution, EXPLAIN and bind-time
+    scalar-subquery folding."""
+    for node in index_probes(plan):
+        rel = tables.get(node.table)
+        if rel is None:
+            continue  # a missing base table fails in _lower, not here
+        sidecar = catalog.sidecar(node.table, node.index, rel)
+        if sidecar is None:
+            sidecar = build_sidecar(catalog, node, rel)
+            catalog.cache_sidecar(node.table, node.index, rel, sidecar)
+        tables[IndexProbe.sidecar_name(node.table, node.index)] = sidecar
+
+
 def execute_plan(plan: PlanNode, tables: dict[str, Relation]) -> Relation:
     """Run a plan against device tables, eagerly, on their device.
 
     Raises diag.CapacityOverflow when any static-capacity operator
     overflowed — results would be silently truncated otherwise; the
     caller re-plans with larger budgets.  The overflow check is the one
-    host read of an execution.
+    host read of an execution.  IndexProbe sidecars must already be in
+    ``tables`` (``prepare_index_probes``).
     """
     needed = referenced_tables(plan)
+    # sidecars are injected relations, not catalog tables, so
+    # referenced_tables leaves them out; keep them past the filter below
+    needed |= {IndexProbe.sidecar_name(n.table, n.index)
+               for n in index_probes(plan)}
     with diag.collect() as entries:
         out = _lower(plan, {k: v for k, v in tables.items() if k in needed})
     if entries:

@@ -380,11 +380,12 @@ class Binder:
             self.folded_volatile = True  # value depends on current data
             plan, outs, _ = self.bind_select(e.select)
             from oceanbase_tpu_torch.exec.plan import (
-                execute_plan, referenced_tables)
+                execute_plan, prepare_index_probes, referenced_tables)
 
             # the port's executor, on the catalog's device tables
             tables = {t: self.catalog.table_data(t)
                       for t in referenced_tables(plan)}
+            prepare_index_probes(self.catalog, plan, tables)
             rel = execute_plan(plan, tables)
             from oceanbase_tpu_torch.vector import to_numpy
 

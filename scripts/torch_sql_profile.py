@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -38,24 +37,16 @@ def main(argv) -> int:
     sys.path.insert(0, str(REPO / "scripts"))
     from torch_slice_profile import profile_calls
 
-    from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS, gen_tpch
+    from oceanbase_tpu_torch.bench.harness import card_line, tpch_session
+    from oceanbase_tpu_torch.bench.tpch import gen_tpch
     from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
-    from oceanbase_tpu_torch.sql import Session
     from oceanbase_tpu_torch.sql.parser import parse_sql
 
     qnums = [int(a) for a in argv] or sorted(QUERIES)
     tables, types = gen_tpch(sf=SF)
-    sess = Session(device="cuda")
-    for name, arrays in tables.items():
-        sess.catalog.load_numpy(
-            name, arrays, primary_key=TPCH_PRIMARY_KEYS[name],
-            types={k: v for k, v in types.items() if k in arrays})
-        sess.execute(f"analyze table {name}")
+    sess, _load_s, _analyze_s = tpch_session(tables, types)
     del tables
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     for q in qnums:
         sql = QUERIES[q]
         sess.execute(sql)

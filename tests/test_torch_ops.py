@@ -311,15 +311,23 @@ def test_segment_minmax_empty_segments_match(fn):
 
 
 def test_ops_not_ported_yet_raise(facts):
-    # the IndexProbe and Union lowerings (index_probe, concat) and Window
-    # are the ones still queued
+    # every plan node lowers now (Union, IndexProbe and Window are held
+    # against the reference in tests/test_torch_{dml,index_probe,
+    # window}.py); a node the executor does not know still raises, and
+    # an IndexProbe whose sidecar was never prepared fails loudly
     _jrel, trel = facts
     scan = tplan.TableScan("t")
-    for node in (tplan.Union([scan, scan]),
-                 tplan.IndexProbe(scan, "t", "ix", tir.col("k")),
-                 tplan.Window(scan, [])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tplan.execute_plan(node, {"t": trel})
+
+    class Unknown(tplan.PlanNode):
+        pass
+
+    with pytest.raises(NotImplementedError, match="Unknown"):
+        tplan.execute_plan(Unknown(), {"t": trel})
+    with pytest.raises(KeyError, match="__probe__t__ix"):
+        tplan.execute_plan(tplan.IndexProbe(scan, "t", "ix", tir.col("k")),
+                           {"t": trel})
+    out = tplan.execute_plan(tplan.Union([scan, scan]), {"t": trel})
+    assert out.capacity == 2 * trel.capacity
 
 
 # ---------------------------------------------------------------------------
