@@ -16,12 +16,24 @@ Phases, each printing its own lines:
    read back and held against numpy oracles, each plan timed;
 5. kernel mode (the JAX package's ``BENCH_MODE=pallas``): the fused Q6
    kernel on the device-resident lineitem columns against the Q6 oracle;
+5b. stream (the JAX package's ``BENCH_MODE=stream``): the Q6 and Q1
+   plans through ``exec/granule.py::execute_streamed`` over the lineitem
+   columns in 2^21-row granules (pinned host buffers, a copy stream),
+   against the numpy oracles, timed beside phase 4's whole-table rows/s,
+   with the host-to-device bytes and the copy and compute stream times;
 6. sql: all eight TPC-H tables in the port's ``Catalog`` on the card,
    ANALYZEd, and the 22 TPC-H queries through ``Session.execute(sql).rows()``, each
    held against the SQLite oracle (built and run meanwhile, from the
    same seed, in two more processes that share out every SQL statement
    of phases 6-8) and timed, with its capacity re-plans and peak device
    memory;
+6b. spill (the JAX package's ``Database`` at its default work area of
+   2^22 rows): the plans phase 6 ran for the 11 TPC-H queries its spill
+   tier runs, through ``exec/spill_exec.py::execute_spilled`` with
+   lineitem streamed from the host, held against SQLite; the 8 queries
+   it refuses raise ``NotDistributable``; the S1 external sort against
+   SQLite and the J1 co-partitioned disk join against numpy; each with
+   its ``SpillStats`` and peak device memory;
 7. sql-index: on the same catalog, a secondary index on every ``*key``
    column (the JAX package's SF1 parity configuration,
    ``scripts/sf_parity.py``), each sorted sidecar built and timed, then
@@ -31,9 +43,9 @@ Phases, each printing its own lines:
    (``bench/surface_queries.py``) on the same catalog, each statement's
    rows and rowcount held against SQLite's;
 9. one JSON line of the kernels with their launch counts on the main
-   path (phases 4-5; counts are reset just before phase 4 and again
-   before each SQL phase, whose path, like the JAX package's, reaches no
-   hand-written kernel);
+   path (phases 4-5; counts are reset just before each phase from 4 on
+   and printed after it: the stream, spill and SQL paths, like the JAX
+   package's, reach no hand-written kernel), and each phase's seconds;
 10. the card's name and power limit, then the result line.
 
 Any mismatch or error exits nonzero before the result line.  Without a
@@ -54,6 +66,19 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 PLAN_RUNS = 5
 SQL_RUNS = 3                     # timed runs per query, after a warm-up
+STREAM_RUNS = 5                  # timed streamed runs, after a warm-up
+SPILL_RUNS = 3                   # timed spilled runs, after a warm-up
+# bench.py's BENCH_MODE=stream: its granule size and the columns it streams
+STREAM_CHUNK_ROWS = 1 << 21
+STREAM_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+                  "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+# the JAX package's Database default work area (sql_work_area_rows)
+SPILL_BUDGET_ROWS = 1 << 22
+# the TPC-H queries its spill tier runs with lineitem streamed, and those
+# it refuses (NotDistributable)
+SPILL_QUERIES = (1, 3, 5, 6, 7, 8, 9, 10, 12, 14, 19)
+SPILL_REFUSED = (4, 13, 15, 17, 18, 20, 21, 22)
+J1_PARTITIONS = 16
 
 
 def _batched_ms(torch, fn, batch=50, reps=5) -> float:
@@ -227,11 +252,212 @@ def phase_main_path(torch, dev, tables, types, card):
     return timings
 
 
+def phase_stream(torch, dev, tables, types, card, whole_ms):
+    """Phase stream: the JAX package's ``BENCH_MODE=stream`` at its own
+    settings — the Q6 and Q1 plans through ``execute_streamed`` over the
+    lineitem columns ``bench.py`` streams, in 2^21-row granules, one
+    cache across runs — checked against the numpy oracles and timed
+    beside phase 4's whole-table rows/s."""
+    from oceanbase_tpu_torch.bench import oracle_np
+    from oceanbase_tpu_torch.bench.harness import pcie_link
+    from oceanbase_tpu_torch.bench.queries import q1_plan, q6_plan
+    from oceanbase_tpu_torch.exec.granule import (
+        StreamStats, execute_streamed, numpy_chunk_provider,
+    )
+    from oceanbase_tpu_torch.vector import to_numpy
+
+    li = tables["lineitem"]
+    n = len(li["l_orderkey"])
+    arrays = {k: li[k] for k in STREAM_COLUMNS}
+    btypes = {k: v for k, v in types.items() if k in STREAM_COLUMNS}
+    provider = numpy_chunk_provider(arrays)
+    for qname, plan in (("q6", q6_plan()), ("q1", q1_plan())):
+        cache = {}
+
+        def run(stats=None):
+            return execute_streamed(plan, provider,
+                                    chunk_rows=STREAM_CHUNK_ROWS,
+                                    types=btypes, cache=cache, device=dev,
+                                    stats=stats)
+
+        def check(res):
+            if qname == "q6":
+                want = oracle_np.numpy_q6(li)
+                if int(res["revenue"][0]) != want:
+                    raise AssertionError(
+                        f"streamed Q6 {res['revenue']} != {want}")
+            else:
+                _check_q1(res, oracle_np.numpy_q1(li))
+
+        t0 = time.perf_counter()
+        check(to_numpy(run()))  # the warm-up: dictionaries, pinned ring
+        first_s = time.perf_counter() - t0
+        times, runs = [], []
+        for _ in range(STREAM_RUNS):
+            stats = StreamStats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = run(stats)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            runs.append(stats)
+            check(to_numpy(out))
+        ms = statistics.median(times)
+        st = runs[-1]  # granules and bytes are the same every run
+        copy_ms = statistics.median([r.copy_ms() for r in runs])
+        compute_ms = statistics.median([r.compute_ms() for r in runs])
+        link, link_gbs, basis = pcie_link()
+        print(f"[stream] {qname}: {st.granules} granules of "
+              f"{STREAM_CHUNK_ROWS} rows (last {n % STREAM_CHUNK_ROWS} "
+              f"live) match the numpy oracle; first run {first_s:.3f} s "
+              f"(dictionary pre-pass included)")
+        print(f"[stream] {qname}: {ms:.3f} ms/run (median of {STREAM_RUNS}), "
+              f"{n / (ms / 1e3):.1f} rows/s; whole-table plan (phase 4) "
+              f"{n / (whole_ms[qname] / 1e3):.1f} rows/s; {card}")
+        print(f"[stream] {qname}: H2D {st.h2d_bytes} B/run, copy "
+              f"{copy_ms:.3f} ms on the copy stream = "
+              f"{_gbs(st.h2d_bytes, copy_ms):.3f} GB/s "
+              f"({_gbs(st.h2d_bytes, ms):.3f} GB/s over the run); "
+              f"granule programs {compute_ms:.3f} ms on the compute stream; "
+              f"host link gen,width,max gen,max width = {link} "
+              f"(nominal {link_gbs:.3f} GB/s, {basis} link); {card}",
+              flush=True)
+
+
+def _gbs(nbytes, ms) -> float:
+    return nbytes / ms / 1e6 if ms > 0 else float("nan")
+
+
+def _timed_spill(torch, fn, runs):
+    """One checked warm-up (peak memory from it), then the median of
+    ``runs`` -> (warm-up result, ms, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    return res, statistics.median(times), peak
+
+
+def _stats_text(st) -> str:
+    return (f"kind={st.kind} runs={st.runs} bytes={st.bytes} "
+            f"spilled_rows={st.spilled_rows} batches={st.batches} "
+            f"host_reads={st.host_reads}")
+
+
+def phase_spill(torch, dev, sess, tables, card, sql_stats, want):
+    """Phase spill: the JAX package's spill tier at its ``Database``'s
+    default work area (2^22 rows), lineitem the one over-budget table:
+    the 11 TPC-H queries the tier runs, the S1 external sort and the J1
+    co-partitioned disk join, each held against SQLite or numpy; the 8
+    queries the tier refuses must raise NotDistributable."""
+    import tempfile
+
+    from oceanbase_tpu_torch.bench.harness import (
+        spill_inputs, spilled_result, timed_statement,
+    )
+    from oceanbase_tpu_torch.bench.oracle import rows_match
+    from oceanbase_tpu_torch.bench.surface_queries import S1
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.exec.granule import numpy_chunk_provider
+    from oceanbase_tpu_torch.exec.spill import partitioned_join_spilled
+    from oceanbase_tpu_torch.exec.spill_exec import SpillStats, execute_spilled
+    from oceanbase_tpu_torch.px.planner import NotDistributable
+    from oceanbase_tpu_torch.storage.tmpfile import TempFileStore
+
+    host = {"lineitem": tables["lineitem"]}
+
+    def spilled(plan, outputs):
+        providers, device_tables, types_by_table = spill_inputs(
+            sess.catalog, plan, host)
+        with tempfile.TemporaryDirectory(prefix="ob_spill_") as d:
+            arrays, valids, dtypes, st = execute_spilled(
+                plan, providers, os.path.join(d, "q"), SPILL_BUDGET_ROWS,
+                device_tables, types_by_table, set(host),
+                chunk_rows=STREAM_CHUNK_ROWS, device=dev)
+        return spilled_result(arrays, valids, dtypes, outputs), st
+
+    def statement(name, sql, ordered, mem_ms):
+        label = f"q{name}" if isinstance(name, int) else name
+        sess.execute(sql)  # the plan phase "sql" ran, re-plans included
+        plan, outputs = sess.last_plan, sess.last_outputs
+        (res, st), ms, peak = _timed_spill(
+            torch, lambda: spilled(plan, outputs), SPILL_RUNS)
+        ok, why = rows_match(res.rows(), want[name][0], ordered=ordered)
+        if not ok:
+            raise AssertionError(f"spilled {label} differs from SQLite: "
+                                 f"{why}")
+        print(f"[spill] {label}: {ms:.3f} ms/query (median of {SPILL_RUNS}), "
+              f"rows={len(res.rows())} equal SQLite, {_stats_text(st)}, "
+              f"peak_mem={peak} B; in memory {mem_ms}; {card}", flush=True)
+        return ms
+
+    total = 0.0
+    for q in SPILL_QUERIES:
+        sql = QUERIES[q]
+        ordered = "order by" in sql.lower() and q not in (2, 18, 21)
+        total += statement(q, sql, ordered,
+                           f"{sql_stats[q][0]:.3f} ms (phase sql)")
+    print(f"[spill] all {len(SPILL_QUERIES)} queries equal SQLite; "
+          f"{total:.3f} ms in all (sum of medians) on {card}")
+    for q in SPILL_REFUSED:
+        sess.execute(QUERIES[q])
+        try:
+            spilled(sess.last_plan, sess.last_outputs)
+        except NotDistributable as e:
+            print(f"[spill] q{q}: NotDistributable ({e})")
+            continue
+        raise AssertionError(f"the spill tier ran Q{q}, which the JAX "
+                             f"package's refuses")
+    _res, s1_ms, _retries, _peak = timed_statement(sess, S1, SQL_RUNS)
+    statement("S1", S1, True, f"{s1_ms:.3f} ms (median of {SQL_RUNS})")
+
+    # J1: lineitem ⋈ orders co-partitioned through disk
+    li, od = tables["lineitem"], tables["orders"]
+    left = {"l_orderkey": li["l_orderkey"],
+            "l_extendedprice": li["l_extendedprice"]}
+    right = {"o_orderkey": od["o_orderkey"], "o_orderdate": od["o_orderdate"]}
+
+    def j1():
+        st = SpillStats(kind="join")
+        rows = price = 0
+        with tempfile.TemporaryDirectory(prefix="ob_spill_") as d, \
+                TempFileStore(os.path.join(d, "j1")) as store:
+            for arrays, _valids in partitioned_join_spilled(
+                    numpy_chunk_provider(left)("lineitem", STREAM_CHUNK_ROWS),
+                    numpy_chunk_provider(right)("orders", STREAM_CHUNK_ROWS),
+                    ["l_orderkey"], ["o_orderkey"], store, how="inner",
+                    n_partitions=J1_PARTITIONS, budget_rows=SPILL_BUDGET_ROWS,
+                    device=dev, stats=st):
+                st.batches += 1
+                rows += len(arrays["l_orderkey"])
+                price += int(arrays["l_extendedprice"].sum())
+            st.runs, st.bytes = store._next, store.bytes_written
+        return rows, price, st
+
+    (rows, price, st), ms, peak = _timed_spill(torch, j1, SPILL_RUNS)
+    hit = np.isin(li["l_orderkey"], od["o_orderkey"])
+    want_rows, want_price = int(hit.sum()), int(li["l_extendedprice"][hit].sum())
+    if (rows, price) != (want_rows, want_price):
+        raise AssertionError(f"J1 ({rows}, {price}) != numpy ({want_rows}, "
+                             f"{want_price})")
+    print(f"[spill] J1: {ms:.3f} ms (median of {SPILL_RUNS}), {rows} rows, "
+          f"sum(l_extendedprice)={price} equal numpy, {_stats_text(st)}, "
+          f"peak_mem={peak} B; {card}", flush=True)
+
+
 # The SQLite oracle runs in two processes beside the card's phases
 # (SQLite is single-threaded).  The first takes these TPC-H queries and
-# every statement of bench/surface_queries.py, the second the other
-# TPC-H queries: about equal SQLite time each, by per-query times taken
-# at SF0.1.
+# the statements of bench/surface_queries.py but S1, the second the other
+# TPC-H queries and S1: about equal SQLite time each, by per-query times
+# taken at SF0.1.
 ORACLE_FIRST = (1, 2, 3, 4, 5, 6, 7, 10, 11, 12, 13)
 
 
@@ -244,7 +470,7 @@ def oracle_jobs() -> list:
     first = [(q, QUERIES[q]) for q in ORACLE_FIRST]
     first += [("IP1", sq.IP1)] + sorted(sq.READS.items()) + sq.D1
     second = [(q, sql) for q, sql in sorted(QUERIES.items())
-              if q not in ORACLE_FIRST]
+              if q not in ORACLE_FIRST] + [("S1", sq.S1)]
     return [first, second]
 
 
@@ -322,7 +548,7 @@ def phase_sql(dev, tables, types, card, oracles):
     total_ms = sum(st[0] for st in stats.values())
     print(f"[sql] all 22 queries match SQLite; {total_ms:.3f} ms in all "
           f"(sum of medians) on {card}")
-    return sess, want
+    return sess, want, stats
 
 
 def check_tpch(got, want, tag):
@@ -479,29 +705,39 @@ def main() -> int:
     kernels = phase_kernels(torch, dev, sf_cols)
     del sf_cols
 
-    _build.reset_launch_counts()
-    phase_main_path(torch, dev, tables, types, card)
-    torch.cuda.synchronize()
-    counts = _build.launch_counts()
+    def timed_phase(name, fn, *args):
+        """Run one phase with the launch counts set to 0 just before it;
+        print its seconds -> (its result, its launch counts)."""
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        print(f"[time] phase {name}: {time.perf_counter() - t0:.3f} s")
+        return out, _build.launch_counts()
+
+    whole_ms, counts = timed_phase("main", phase_main_path, torch, dev,
+                                   tables, types, card)
     for rec in kernels:
         rec["launches"] = counts.get(rec["name"], 0)
         if rec["launches"] < 1:
             raise AssertionError(
                 f"{rec['name']} was not launched on the main path")
 
-    _build.reset_launch_counts()
-    sess, want = phase_sql(dev, tables, types, card, oracles)
-    torch.cuda.synchronize()
-    print(f"[sql] kernel launches on the SQL path: "
-          f"{_build.launch_counts()}")
-    _build.reset_launch_counts()
-    ip1_rows = phase_sql_index(torch, sess, tables, want, card)
-    torch.cuda.synchronize()
-    print(f"[sql-index] kernel launches: {_build.launch_counts()}")
-    _build.reset_launch_counts()
-    phase_sql_surface(sess, card, ip1_rows, want)
-    torch.cuda.synchronize()
-    print(f"[sql-surface] kernel launches: {_build.launch_counts()}")
+    _, counts = timed_phase("stream", phase_stream, torch, dev, tables,
+                            types, card, whole_ms)
+    print(f"[stream] kernel launches: {counts}")
+    (sess, want, sql_stats), counts = timed_phase(
+        "sql", phase_sql, dev, tables, types, card, oracles)
+    print(f"[sql] kernel launches on the SQL path: {counts}")
+    _, counts = timed_phase("spill", phase_spill, torch, dev, sess, tables,
+                            card, sql_stats, want)
+    print(f"[spill] kernel launches: {counts}")
+    ip1_rows, counts = timed_phase("sql-index", phase_sql_index, torch, sess,
+                                   tables, want, card)
+    print(f"[sql-index] kernel launches: {counts}")
+    _, counts = timed_phase("sql-surface", phase_sql_surface, sess, card,
+                            ip1_rows, want)
+    print(f"[sql-surface] kernel launches: {counts}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

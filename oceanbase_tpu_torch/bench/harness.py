@@ -7,9 +7,13 @@
 - ``key_indexes``: that run's secondary indexes, one on every ``*key``
   column;
 - ``timed_statement``: the host-clock statement timer, CUDA-synchronized;
-- ``card_line``: the card's name and power limit from ``nvidia-smi``.
+- ``card_line``: the card's name and power limit from ``nvidia-smi``,
+  ``pcie_link``: its host link and that link's nominal rate;
+- ``spill_inputs`` and ``spilled_result``: a bound plan's inputs to
+  ``exec/spill_exec.py::execute_spilled`` and its host columns back as a
+  ``Result``, as the reference session's spill route builds them.
 
-The timer and ``card_line`` need a CUDA device.
+The timer, ``card_line`` and ``pcie_link`` need a CUDA device.
 """
 
 from __future__ import annotations
@@ -18,10 +22,15 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
+from oceanbase_tpu_torch.datatypes import SqlType
+from oceanbase_tpu_torch.exec.granule import numpy_chunk_provider
+from oceanbase_tpu_torch.exec.plan import referenced_tables
 from oceanbase_tpu_torch.sql import Session
+from oceanbase_tpu_torch.sql.session import Result
 
 
 def card_line() -> str:
@@ -32,6 +41,31 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+#: GT/s per lane by PCIe generation; 8b/10b coding up to gen 2, 128b/130b after
+_PCIE_GTS = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
+
+
+def pcie_link() -> tuple[str, float, str]:
+    """(the link as ``nvidia-smi --query-gpu=pcie.link.gen.current,
+    pcie.link.width.current,pcie.link.gen.max,pcie.link.width.max``
+    prints it for the first card, that link's nominal rate in GB/s per
+    direction, which pair the rate is from: "current", "max" when the
+    current one reads "[N/A]", or "not reported" with a NaN rate)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.width.current,pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    line = out.stdout.strip().splitlines()[0]
+    fields = [f.strip() for f in line.split(",")]
+    for basis, (gen, width) in (("current", fields[0:2]),
+                                ("max", fields[2:4])):
+        if gen.isdigit() and width.isdigit() and int(gen) in _PCIE_GTS:
+            coding = 0.8 if int(gen) <= 2 else 128 / 130
+            return line, _PCIE_GTS[int(gen)] * int(width) * coding / 8, basis
+    return line, float("nan"), "not reported"
 
 
 def tpch_session(tables: dict, types: dict, device="cuda"):
@@ -83,3 +117,57 @@ def timed_statement(sess: Session, sql: str, runs: int):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t1) * 1e3)
     return res, statistics.median(times), retries, peak
+
+
+def spill_inputs(catalog, plan, host_tables: dict):
+    """(providers, device_tables, types_by_table) for ``execute_spilled``:
+    each table of ``host_tables`` ({table: {column: array}}) that the
+    plan reads streams from those arrays in granules, typed by the
+    catalog's definition; every other table it reads is the catalog's
+    device relation."""
+    providers, device_tables, types_by_table = {}, {}, {}
+    for t in referenced_tables(plan):
+        if t in host_tables:
+            providers[t] = numpy_chunk_provider(host_tables[t])
+            types_by_table[t] = {c.name: c.dtype
+                                 for c in catalog.table_def(t).columns}
+        elif catalog.has_table(t):
+            device_tables[t] = catalog.table_data(t)
+    return providers, device_tables, types_by_table
+
+
+def spilled_result(arrays: dict, valids: dict, dtypes: dict,
+                   outputs: list) -> Result:
+    """``execute_spilled``'s host columns -> a ``Result`` over the
+    statement's ``outputs`` ([(column id, name)]), as the reference
+    session's ``_materialize_host`` builds it: ``Result.rows()``
+    descales the raw scaled DECIMAL ints with the returned dtypes."""
+    names, out_a, out_v, out_t = [], {}, {}, {}
+    n = len(next(iter(arrays.values()))) if arrays else 0
+    for cid, name in outputs:
+        out_name = name
+        k = 2
+        while out_name in out_a:
+            out_name = f"{name}_{k}"
+            k += 1
+        names.append(out_name)
+        a = arrays.get(cid)
+        if a is None:
+            if n:
+                raise KeyError(f"spill result missing output column {cid} "
+                               f"({name})")
+            a = np.zeros(0, dtype=np.int64)  # no batch survived
+        out_a[out_name] = a
+        out_v[out_name] = valids.get(cid)
+        t = dtypes.get(cid)
+        if t is None:
+            if a.dtype == object or a.dtype.kind in "US":
+                t = SqlType.string()
+            elif a.dtype.kind == "f":
+                t = SqlType.double()
+            elif a.dtype.kind == "b":
+                t = SqlType.bool_()
+            else:
+                t = SqlType.int_()
+        out_t[out_name] = t
+    return Result(names, out_a, out_v, out_t, rowcount=n)

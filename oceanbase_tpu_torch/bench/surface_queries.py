@@ -9,6 +9,8 @@ small scale, each held against SQLite.
 - ``READS``: window functions (W1-W4) and unions (U1, U2).
 - ``D1``: a DML script on a copy of orders; its UPDATE sets a string
   column to a value the column's dictionary lacks.
+- ``S1``: an ORDER BY over every lineitem row that the spill tier
+  (``exec/spill_exec.py``) answers with an external sort through disk.
 
 Every name here maps to SQL text in the dialect the port's parser reads;
 ``bench.oracle.to_sqlite_sql`` turns it into SQLite's.
@@ -16,6 +18,11 @@ Every name here maps to SQL text in the dialect the port's parser reads;
 
 IP1 = ("select sum(l_extendedprice), count(*) from orders, lineitem "
        "where o_orderkey = l_orderkey and o_orderdate = date '1995-03-15'")
+
+#: at SF1 it sorts 6,002,357 rows, more than the reference database's
+#: default work area (``sql_work_area_rows`` = 2^22 rows)
+S1 = ("select l_orderkey, l_linenumber, l_extendedprice from lineitem "
+      "order by l_extendedprice desc, l_orderkey, l_linenumber limit 1000")
 
 READS: dict[str, str] = {
     # a window over every order, ~10 orders a customer

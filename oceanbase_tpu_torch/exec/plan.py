@@ -504,17 +504,25 @@ def execute_plan(plan: PlanNode, tables: dict[str, Relation]) -> Relation:
                for n in index_probes(plan)}
     with diag.collect() as entries:
         out = _lower(plan, {k: v for k, v in tables.items() if k in needed})
-    if entries:
-        lanes = torch.stack([torch.clamp(v.to(torch.int64), min=0)
-                             for _n, v, _cap in entries])
-        # the result-boundary read: one scalar decides validity
-        if int(lanes.sum()) > 0:
-            vals = lanes.cpu().tolist()
-            drops = [(n, cap, v)
-                     for (n, _v, cap), v in zip(entries, vals) if v > 0]
-            detail = ", ".join(f"{n}={v}" for n, _cap, v in drops)
-            raise diag.CapacityOverflow(
-                f"operator capacity exceeded ({detail} rows dropped); "
-                f"re-plan with larger out_capacity", drops=drops,
-            )
+    check_overflow(entries)
     return out
+
+
+def check_overflow(entries: list) -> None:
+    """Raise diag.CapacityOverflow when any lane a ``diag.collect()``
+    gathered dropped rows.  The lanes sum on the device into one scalar,
+    and reading it is the one host read (none without lanes); the
+    per-lane detail is read only on the error path."""
+    if not entries:
+        return
+    lanes = torch.stack([torch.clamp(v.to(torch.int64), min=0)
+                         for _n, v, _cap in entries])
+    if int(lanes.sum()) > 0:
+        vals = lanes.cpu().tolist()
+        drops = [(n, cap, v)
+                 for (n, _v, cap), v in zip(entries, vals) if v > 0]
+        detail = ", ".join(f"{n}={v}" for n, _cap, v in drops)
+        raise diag.CapacityOverflow(
+            f"operator capacity exceeded ({detail} rows dropped); "
+            f"re-plan with larger out_capacity", drops=drops,
+        )

@@ -165,6 +165,8 @@ class Session:
         self.last_retries = 0
         #: the plan the last SELECT ran (after any capacity re-plans)
         self.last_plan: PlanNode | None = None
+        #: its output columns, [(column id, output name)]
+        self.last_outputs: list = []
 
     @property
     def device(self):
@@ -263,6 +265,7 @@ class Session:
                 factor *= 4
         self.last_retries = attempt
         self.last_plan = p
+        self.last_outputs = outputs
         return rel, outputs
 
     def _explain(self, stmt, params, analyze: bool = False) -> Result:

@@ -28,6 +28,7 @@ from oceanbase_tpu_torch.bench.tpch import gen_tpch as tgen_tpch
 from oceanbase_tpu_torch.sql import Session as TSession
 from oceanbase_tpu_torch.vector import column as tcol
 from test_torch_ops import _load
+from test_torch_sql_frontend import align_colids
 
 
 def _outcome(s, sql, params=None):
@@ -43,6 +44,7 @@ def run_both(script, params=None):
     outcomes (rows, rowcount and column names, or the error's type)."""
     js, ts = JSession(), TSession(device="cpu")
     for sql in script:
+        align_colids()
         want, got = _outcome(js, sql, params), _outcome(ts, sql, params)
         assert got[0] == want[0], (sql, got, want)
         if got[0] == "error":

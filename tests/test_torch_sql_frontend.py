@@ -11,6 +11,7 @@ may have set cannot make them differ."""
 
 import dataclasses
 import enum
+import itertools
 
 import numpy as np
 import pytest
@@ -134,9 +135,19 @@ def _literals(node, ir):
     return found
 
 
+def align_colids():
+    """Start both binders' process-wide column-id counters at one value.
+    Output names embed the ids, and earlier tests in the same worker may
+    have bound more statements in one package than in the other."""
+    start = max(next(jbinder._uid), next(tbinder._uid))
+    jbinder._uid = itertools.count(start)
+    tbinder._uid = itertools.count(start)
+
+
 @pytest.mark.parametrize("qnum", QNUMS)
 def test_bound_plan_matches(catalogs, qnum):
     jc, tc = catalogs
+    align_colids()
     jp, jouts, jest = _bind(jbinder, jopt, jc, jparse, JQUERIES[qnum])
     tp, touts, test = _bind(tbinder, topt, tc, tparse, TQUERIES[qnum])
     assert tplan.logical_hash(tp) == jplan.logical_hash(jp)
