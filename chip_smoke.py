@@ -42,6 +42,18 @@ Phases, each printing its own lines:
 8. sql-surface: window functions, unions and a DML script
    (``bench/surface_queries.py``) on the same catalog, each statement's
    rows and rowcount held against SQLite's;
+8b. db: the port's ``Database`` (LSM storage, the PALF WAL, MVCC
+   transactions) in a temporary directory on the card at its defaults:
+   the eight tables direct-loaded through ``catalog.load_numpy`` and
+   ANALYZEd, the 22 TPC-H queries through ``db.session()`` held against
+   SQLite (lineitem's rows exceed the 2^22-row work area, so its queries
+   stream from the LSM through the spill tier, each printed with its
+   route), an OLTP mix on ``orders`` (autocommit primary-key point
+   UPDATEs and SELECTs with statement and WAL-commit latencies, a
+   multi-statement transaction, a rolled-back one, a write conflict
+   between two sessions), a checkpoint, more commits, and a reopen from
+   the same directory without ``close()`` that replays the WAL tail and
+   must read back every committed row, Q1 and Q6;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
    and printed after it: the stream, spill and SQL paths, like the JAX
@@ -74,6 +86,11 @@ STREAM_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
                   "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
 # the JAX package's Database default work area (sql_work_area_rows)
 SPILL_BUDGET_ROWS = 1 << 22
+# phase db: the work area its Database runs with (None: the default,
+# 2^22 rows), its autocommit point statements on orders, and its seed
+DB_WORK_AREA_ROWS = None
+DB_POINT_OPS = 200
+DB_SEED = 11
 # the TPC-H queries its spill tier runs with lineitem streamed, and those
 # it refuses (NotDistributable)
 SPILL_QUERIES = (1, 3, 5, 6, 7, 8, 9, 10, 12, 14, 19)
@@ -555,7 +572,8 @@ def check_tpch(got, want, tag):
     from oceanbase_tpu_torch.bench.oracle import rows_match
     from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
 
-    for q, sql in sorted(QUERIES.items()):
+    for q in sorted(got):
+        sql = QUERIES[q]
         ordered = "order by" in sql.lower() and q not in (2, 18, 21)
         ok, why = rows_match(got[q], want[q][0], ordered=ordered)
         if not ok:
@@ -660,6 +678,219 @@ def phase_sql_surface(sess, card, ip1_rows, want):
           f"match SQLite, rowcounts included; {card}")
 
 
+def _dir_bytes(root) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _dirs, files in os.walk(root) for f in files)
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def phase_db(torch, dev, tables, types, card, want):
+    """Phase db: the port's ``Database`` at TPC-H scale on the card — load,
+    ANALYZE, the 22 queries (spilled or in memory, each against SQLite),
+    the OLTP mix on orders, checkpoint, more commits, and a reopen that
+    replays the WAL tail and reads back what was committed."""
+    import gc
+    import shutil
+    import tempfile
+
+    from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.server.database import Database
+    from oceanbase_tpu_torch.tx.errors import WriteConflict
+
+    root = tempfile.mkdtemp(prefix="ob_db_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        db = Database(root, device=dev)
+        boot_s = time.perf_counter() - t0
+        if DB_WORK_AREA_ROWS is not None:
+            db.config.set("sql_work_area_rows", DB_WORK_AREA_ROWS)
+        budget = int(db.config["sql_work_area_rows"])
+        t0 = time.perf_counter()
+        for name, arrays in tables.items():
+            db.catalog.load_numpy(
+                name, arrays, primary_key=TPCH_PRIMARY_KEYS[name],
+                types={k: v for k, v in types.items() if k in arrays})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"[db] boot {boot_s:.3f} s; load of {len(tables)} tables into "
+              f"the LSM {load_s:.3f} s, {_dir_bytes(root)} bytes on disk; "
+              f"work area {budget} rows; {card}", flush=True)
+        sess = db.session()
+        t0 = time.perf_counter()
+        for name in tables:
+            sess.execute(f"analyze table {name}")
+        torch.cuda.synchronize()
+        print(f"[db] ANALYZE of {len(tables)} tables {time.perf_counter() - t0:.3f}"
+              f" s; cached relations {db.catalog.device_bytes()} B")
+        for name in tables:
+            rel = db.catalog.table_data(name)
+            if rel.device.type != dev.type:
+                raise AssertionError(f"{name}'s relation is on {rel.device}")
+        print(f"[db] table_data relations of all {len(tables)} tables on "
+              f"{dev}")
+
+        got, total_ms, n_spilled = {}, 0.0, 0
+        for q, sql in sorted(QUERIES.items()):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = sess.execute(sql)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            got[q] = res.rows()
+            total_ms += ms
+            st = sess.last_spill
+            n_spilled += st is not None
+            route = f"spilled ({_stats_text(st)})" if st is not None \
+                else f"in memory (retries={sess.last_retries})"
+            print(f"[db] q{q}: {ms:.3f} ms (one run), rows={len(got[q])}, "
+                  f"{route}; {card}", flush=True)
+        check_tpch(got, want, " (db)")
+        print(f"[db] all 22 queries match SQLite, {n_spilled} through the "
+              f"spill route; {total_ms:.3f} ms in all")
+
+        # -- OLTP on orders ----------------------------------------------
+        od = tables["orders"]
+        n_ord = len(od["o_orderkey"])
+        rng = np.random.default_rng(DB_SEED)
+        picks = rng.choice(n_ord, DB_POINT_OPS + 8, replace=False)
+        keys = [int(od["o_orderkey"][i]) for i in picks]
+        price = {k: int(od["o_totalprice"][i]) for k, i in zip(keys, picks)}
+        commit_ms = []
+        commit = db.tx.commit
+
+        def timed_commit(tx):
+            t = time.perf_counter()
+            out = commit(tx)
+            commit_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        db.tx.commit = timed_commit
+        upd_ms = []
+        for k in keys[:DB_POINT_OPS]:
+            t1 = time.perf_counter()
+            n = sess.execute(f"update orders set o_totalprice = o_totalprice"
+                             f" + 1.00 where o_orderkey = {k}").rowcount
+            upd_ms.append((time.perf_counter() - t1) * 1e3)
+            price[k] += 100
+            if n != 1 or sess.last_access_paths.get(
+                    "orders") is None:
+                raise AssertionError(f"point UPDATE of {k}: rowcount {n}, "
+                                     f"path {sess.last_access_paths}")
+        print(f"[db] {DB_POINT_OPS} autocommit point UPDATEs: statement "
+              f"p50 {_pct(upd_ms, 50):.3f} ms p99 {_pct(upd_ms, 99):.3f} ms; "
+              f"WAL commit p50 {_pct(commit_ms, 50):.3f} ms p99 "
+              f"{_pct(commit_ms, 99):.3f} ms (3 replicas, fsync each); "
+              f"relation {sess.last_dml_capacity} lanes via the "
+              f"{sess.last_access_paths['orders'].kind} key path; {card}")
+        sel_ms = []
+        for k in keys[:DB_POINT_OPS]:
+            t1 = time.perf_counter()
+            rows = sess.execute(f"select o_totalprice from orders where "
+                                f"o_orderkey = {k}").rows()
+            sel_ms.append((time.perf_counter() - t1) * 1e3)
+            if rows != [(price[k] / 100,)]:
+                raise AssertionError(f"point SELECT of {k}: {rows}")
+        print(f"[db] {DB_POINT_OPS} point SELECTs: the first {sel_ms[0]:.3f}"
+              f" ms (re-materializes orders after the UPDATEs), then p50 "
+              f"{_pct(sel_ms[1:], 50):.3f} ms p99 {_pct(sel_ms[1:], 99):.3f}"
+              f" ms; {card}")
+
+        k1, k2, k3, k4, k5, k6, k7, k8 = keys[DB_POINT_OPS:]
+        new_key = int(od["o_orderkey"].max()) + 1
+        sess.execute("begin")
+        sess.execute(f"update orders set o_totalprice = o_totalprice + 5.00"
+                     f" where o_orderkey in ({k1}, {k2})")
+        sess.execute(f"insert into orders values ({new_key}, 1, 'O', 123.45,"
+                     f" '1998-01-01', '1-URGENT', 'Clerk#000000001', 0, "
+                     f"'port db phase')")
+        sess.execute("commit")
+        price[k1] += 500
+        price[k2] += 500
+        price[new_key] = 12345
+        sess.execute("begin")
+        sess.execute(f"update orders set o_totalprice = 0 where o_orderkey"
+                     f" = {k3}")
+        sess.execute(f"delete from orders where o_orderkey = {k4}")
+        sess.execute("rollback")
+        for k in (k3, k4):
+            if sess.execute(f"select o_totalprice from orders where "
+                            f"o_orderkey = {k}").rows() != [(price[k] / 100,)]:
+                raise AssertionError(f"rolled-back write to {k} visible")
+        s2 = db.session()
+        sess.execute("begin")
+        sess.execute(f"update orders set o_totalprice = o_totalprice + 2.00"
+                     f" where o_orderkey = {k5}")
+        try:
+            s2.execute(f"update orders set o_totalprice = 1 where "
+                       f"o_orderkey = {k5}")
+        except WriteConflict as e:
+            print(f"[db] write conflict between two sessions raised: {e}")
+        else:
+            raise AssertionError("the second writer of a key did not "
+                                 "conflict")
+        sess.execute("commit")
+        price[k5] += 200
+        print("[db] multi-statement transaction committed, rolled-back "
+              "one invisible")
+
+        t0 = time.perf_counter()
+        db.checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        for k in (k6, k7):
+            sess.execute(f"update orders set o_totalprice = o_totalprice + "
+                         f"3.00 where o_orderkey = {k}")
+            price[k] += 300
+        sess.execute(f"delete from orders where o_orderkey = {k8}")
+        del price[k8]
+        n_live = n_ord  # one row inserted, one deleted
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[db] checkpoint {ckpt_s:.3f} s, then 3 more commits; peak "
+              f"device memory {peak} B; {_dir_bytes(root)} bytes on disk")
+
+        # -- drop without close() and reopen: WAL tail replay -------------
+        del sess, s2, db
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        db = Database(root, device=dev)
+        reopen_s = time.perf_counter() - t0
+        print(f"[db] reopen {reopen_s:.3f} s, replayed "
+              f"{db.tenant().replayed_entries} WAL entries")
+        sess = db.session()
+        for k, p in sorted(price.items()):
+            rows = sess.execute(f"select o_totalprice from orders where "
+                                f"o_orderkey = {k}").rows()
+            if rows != [(p / 100,)]:
+                raise AssertionError(f"reopened: key {k} reads {rows}, "
+                                     f"committed {p / 100}")
+        if sess.execute(f"select count(*) from orders where o_orderkey = "
+                        f"{k8}").rows() != [(0,)]:
+            raise AssertionError("reopened: the deleted row is back")
+        if sess.execute("select count(*) from orders").rows() != \
+                [(n_live,)]:
+            raise AssertionError("reopened: orders' row count differs")
+        reread = {}
+        for q in (1, 6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reread[q] = sess.execute(QUERIES[q]).rows()
+            torch.cuda.synchronize()
+            print(f"[db] reopened q{q}: {(time.perf_counter() - t1) * 1e3:.3f}"
+                  f" ms, route {'spilled' if sess.last_spill else 'in memory'}")
+        check_tpch(reread, want, " (reopened db)")
+        print(f"[db] the reopened database reads back all {len(price)} "
+              f"committed point rows, orders' {n_live} rows, Q1 and Q6; "
+              f"{card}")
+        db.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -738,6 +969,11 @@ def main() -> int:
     _, counts = timed_phase("sql-surface", phase_sql_surface, sess, card,
                             ip1_rows, want)
     print(f"[sql-surface] kernel launches: {counts}")
+    del sess  # the catalog-only session's tables leave the card
+    torch.cuda.empty_cache()
+    _, counts = timed_phase("db", phase_db, torch, dev, tables, types, card,
+                            want)
+    print(f"[db] kernel launches: {counts}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -22,15 +22,13 @@ import statistics
 import subprocess
 import time
 
-import numpy as np
 import torch
 
 from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
-from oceanbase_tpu_torch.datatypes import SqlType
 from oceanbase_tpu_torch.exec.granule import numpy_chunk_provider
 from oceanbase_tpu_torch.exec.plan import referenced_tables
 from oceanbase_tpu_torch.sql import Session
-from oceanbase_tpu_torch.sql.session import Result
+from oceanbase_tpu_torch.sql.session import materialize_host
 
 
 def card_line() -> str:
@@ -136,38 +134,6 @@ def spill_inputs(catalog, plan, host_tables: dict):
     return providers, device_tables, types_by_table
 
 
-def spilled_result(arrays: dict, valids: dict, dtypes: dict,
-                   outputs: list) -> Result:
-    """``execute_spilled``'s host columns -> a ``Result`` over the
-    statement's ``outputs`` ([(column id, name)]), as the reference
-    session's ``_materialize_host`` builds it: ``Result.rows()``
-    descales the raw scaled DECIMAL ints with the returned dtypes."""
-    names, out_a, out_v, out_t = [], {}, {}, {}
-    n = len(next(iter(arrays.values()))) if arrays else 0
-    for cid, name in outputs:
-        out_name = name
-        k = 2
-        while out_name in out_a:
-            out_name = f"{name}_{k}"
-            k += 1
-        names.append(out_name)
-        a = arrays.get(cid)
-        if a is None:
-            if n:
-                raise KeyError(f"spill result missing output column {cid} "
-                               f"({name})")
-            a = np.zeros(0, dtype=np.int64)  # no batch survived
-        out_a[out_name] = a
-        out_v[out_name] = valids.get(cid)
-        t = dtypes.get(cid)
-        if t is None:
-            if a.dtype == object or a.dtype.kind in "US":
-                t = SqlType.string()
-            elif a.dtype.kind == "f":
-                t = SqlType.double()
-            elif a.dtype.kind == "b":
-                t = SqlType.bool_()
-            else:
-                t = SqlType.int_()
-        out_t[out_name] = t
-    return Result(names, out_a, out_v, out_t, rowcount=n)
+#: ``execute_spilled``'s host columns -> a ``Result`` over the
+#: statement's outputs, as the session's spill route builds it
+spilled_result = materialize_host

@@ -31,10 +31,9 @@ Differences from the reference:
 - only the columns the scan reads are encoded and uploaded; the
   string-dictionary pre-pass unions Python sets (the same sorted values
   as ``np.unique`` over object arrays, about 50x faster) and a granule's
-  codes come from a hash lookup (the same codes as ``searchsorted``).
-
-``segment_chunk_provider`` (LSM granules with MVCC merge) waits for the
-storage plane, ROADMAP Queue 1 item 5.
+  codes come from a hash lookup (the same codes as ``searchsorted``);
+- ``segment_chunk_provider`` (LSM granules with MVCC merge) computes the
+  reference's newest-wins rule vectorized instead of row by row.
 """
 
 from __future__ import annotations
@@ -51,6 +50,8 @@ from oceanbase_tpu_torch.exec import plan as pp
 from oceanbase_tpu_torch.expr import ir
 from oceanbase_tpu_torch.px.dist_ops import split_aggs
 from oceanbase_tpu_torch.px.planner import NotDistributable, split_top
+from oceanbase_tpu_torch.storage.segment import key_ids
+from oceanbase_tpu_torch.storage.tablet import _rows_to_arrays
 from oceanbase_tpu_torch.vector.column import (
     Column,
     Relation,
@@ -671,9 +672,127 @@ def numpy_chunk_provider(arrays: dict, valids: dict | None = None):
     return provider
 
 
+def segment_chunk_provider(tablet, snapshot: int):
+    """Granules straight from the LSM with the reference's MVCC merge
+    semantics (≙ the multi-way merge iterator fusing memtable +
+    SSTables, ob_multiple_scan_merge).
+
+    LSM order: memtables first (newest), then segments newest->oldest,
+    rows within a part newest-version-first; a key's first appearance in
+    that order is authoritative, and a tombstone there suppresses the
+    older versions too.  The reference walks every row in Python with a
+    seen-key set; here the rule is vectorized: the key columns of every
+    visible part are read first, ``segment.key_ids`` numbers the key
+    tuples, and ``np.unique(..., return_index=True)`` over the parts in
+    LSM order finds each key's first appearance.  The parts' other
+    columns are decoded afterwards, one part at a time.  Zone-map
+    ``bounds`` prune only columns whose stored values share the integer
+    literal's domain: the reference also prunes DECIMAL columns by the
+    unscaled literal and drops the chunks that match (ROADMAP Queue 3
+    #11)."""
+
+    # extract_column_bounds keeps integer-typed literals only; they
+    # prune in the stored value domain of integer, date and bool columns,
+    # never of a DECIMAL column's scaled ints (ROADMAP Queue 3 #11)
+    same_domain = {c for c, t in tablet.types.items()
+                   if t.kind.value in ("int", "date", "datetime", "bool")}
+
+    def provider(table, chunk_rows, bounds=None):
+        key_cols = tablet.key_cols
+        with tablet._lock:
+            mem_parts = []
+            for mt in tablet.memtables():
+                rows = mt.snapshot_rows(snapshot)
+                if rows:
+                    mem_parts.append(_rows_to_arrays(rows, tablet.columns,
+                                                     tablet.types))
+            segs = list(tablet.segments[::-1])
+        # each part: (key arrays, deleted, later-decode thunk)
+        parts = []
+        for a, v in mem_parts:
+            parts.append(([a[k] for k in key_cols], a["__deleted__"],
+                          (lambda a=a, v=v: (a, v))))
+        for seg in segs:
+            if seg.min_version > snapshot:
+                continue
+            chunk_mask = None
+            if bounds:
+                chunk_mask = np.ones(seg.n_chunks, dtype=bool)
+                for col, (lo, hi) in bounds.items():
+                    if col in seg.columns and col in same_domain:
+                        chunk_mask &= seg.prune_chunks(col, lo, hi)
+                if not chunk_mask.any():
+                    continue  # whole segment skipped by zone maps
+                if chunk_mask.all():
+                    chunk_mask = None
+            meta = [c for c in ("__deleted__", "__version__")
+                    if c in seg.columns]
+            ka, _kv = seg.decode(names=list(key_cols) + meta,
+                                 chunk_mask=chunk_mask)
+            vis = None
+            if seg.max_version > snapshot and "__version__" in ka:
+                vis = ka["__version__"] <= snapshot
+                ka = {k: x[vis] for k, x in ka.items()}
+
+            def decode(seg=seg, chunk_mask=chunk_mask, vis=vis):
+                arrays, valids = seg.decode(
+                    names=[c for c in tablet.columns if c in seg.columns],
+                    chunk_mask=chunk_mask)
+                if vis is not None:
+                    arrays = {k: x[vis] for k, x in arrays.items()}
+                    valids = {k: (x[vis] if x is not None else None)
+                              for k, x in valids.items()}
+                return arrays, valids
+
+            parts.append(([ka[k] for k in key_cols], ka.get("__deleted__"),
+                          decode))
+        keeps = _newest_first_keep(parts)
+        for (_keys, _deleted, decode), keep in zip(parts, keeps):
+            if not keep.any():
+                continue
+            arrays, valids = decode()
+            out_a = {k: a[keep] for k, a in arrays.items()
+                     if k in tablet.columns}
+            out_v = {k: (x[keep] if x is not None else None)
+                     for k, x in valids.items() if k in tablet.columns}
+            n = int(keep.sum())
+            for s in range(0, n, chunk_rows):
+                e = min(s + chunk_rows, n)
+                yield ({k: a[s:e] for k, a in out_a.items()},
+                       {k: (x[s:e] if x is not None else None)
+                        for k, x in out_v.items()})
+
+    return provider
+
+
+def _newest_first_keep(parts) -> list:
+    """Per part, the rows ``segment_chunk_provider`` yields: the first
+    appearance of each key in LSM order (parts in order, each part's
+    rows last to first), unless that appearance is a tombstone."""
+    sizes = [len(keys[0]) if keys else 0 for keys, _d, _f in parts]
+    total = sum(sizes)
+    if total == 0:
+        return [np.zeros(n, dtype=bool) for n in sizes]
+    ncols = len(parts[0][0])
+    seq = [np.concatenate([np.asarray(keys[c])[::-1]
+                           for keys, _d, _f in parts])
+           for c in range(ncols)]
+    _u, first = np.unique(key_ids(seq), return_index=True)
+    win = np.zeros(total, dtype=bool)
+    win[first] = True
+    out, off = [], 0
+    for (_keys, deleted, _f), n in zip(parts, sizes):
+        keep = win[off:off + n][::-1].copy()
+        if deleted is not None:
+            keep &= ~np.asarray(deleted, dtype=bool)
+        out.append(keep)
+        off += n
+    return out
+
+
 __all__ = [
     "DEFAULT_CHUNK_ROWS", "GranuleUploader", "StreamStats",
     "execute_sorted_streamed", "execute_streamed", "extract_column_bounds",
     "numpy_chunk_provider", "prefetch_iter", "scan_columns",
-    "snap_chunk_rows",
+    "segment_chunk_provider", "snap_chunk_rows",
 ]

@@ -1,0 +1,160 @@
+"""Declarative configuration registry.
+
+Port of ``oceanbase_tpu/server/config.py`` (≙ the parameter seed file,
+src/share/parameter/ob_parameter_seed.ipp, runtime-settable via ALTER
+SYSTEM SET, persisted, with per-tenant overlays): the same ``Config``
+(typed, validated, persisted to ``config.json``, ``watch`` hooks, tenant
+overlays) over only the knobs the ported modules read.  Every other
+knob of the reference (metrics, profiling, calibration, the plan cache,
+admission, ASH, throttling, disk budgets, ...) raises the reference's
+``KeyError("unknown parameter ...")`` on get, set and load: a knob of a
+plane that is not ported is refused, never accepted and ignored.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+
+@dataclass
+class ParamDef:
+    name: str
+    default: Any
+    ptype: str             # int | bool | str | float | cap
+    doc: str
+    validator: Optional[Callable[[Any], bool]] = None
+
+
+_DEFS: dict[str, ParamDef] = {}
+
+
+def DEF(name, default, ptype, doc, validator=None):
+    _DEFS[name] = ParamDef(name, default, ptype, doc, validator)
+    return name
+
+
+def _pos(v):
+    return v > 0
+
+
+# ---------------------------------------------------------------------------
+# parameter seed: the knobs the port reads, with the reference's defaults
+# ---------------------------------------------------------------------------
+
+# SQL engine (sql/session.py: the spill route)
+DEF("sql_work_area_rows", 1 << 22, "int",
+    "per-query work-area row budget; inputs estimated above it stream "
+    "through the disk spill tier (≙ ObTenantSqlMemoryManager work areas)",
+    _pos)
+DEF("enable_sql_spill", True, "bool",
+    "route over-budget sorts/joins/group-bys through the temp-file "
+    "spill tier instead of failing on CapacityOverflow")
+# storage materialization (storage/engine.py::StorageCatalog._bucketed)
+DEF("enable_shape_buckets", True, "bool",
+    "pad device relations materialized from storage to geometric "
+    "capacity buckets (dead lanes masked)")
+DEF("shape_bucket_growth", 2.0, "float",
+    "geometric growth factor of the storage-materialization bucket "
+    "ladder", lambda v: v >= 1.125)
+DEF("shape_bucket_floor", 64, "int",
+    "smallest capacity bucket (tables below it pad up to the floor)",
+    _pos)
+# storage (sql/session.py::_maybe_freeze)
+DEF("memstore_limit_rows", 1_000_000, "int",
+    "freeze threshold per tablet (rows in active memtable)", _pos)
+DEF("minor_compact_trigger", 4, "int",
+    "L0 segment count triggering minor compaction (≙ minor_compact_trigger)",
+    _pos)
+# device-relation cache (server/tenant.py)
+DEF("kv_cache_limit_bytes", 2 << 30, "cap",
+    "device-relation (block) cache budget per tenant "
+    "(≙ ObKVGlobalCache memory limit)", _pos)
+
+
+def _unknown(name: str) -> KeyError:
+    return KeyError(f"unknown parameter {name!r}")
+
+
+class Config:
+    """One configuration instance (cluster-level or tenant overlay)."""
+
+    def __init__(self, persist_path: str | None = None,
+                 parent: "Config | None" = None):
+        self._values: dict[str, Any] = {}
+        self._parent = parent
+        self._persist_path = persist_path
+        self._lock = threading.RLock()
+        self._watchers: list[Callable[[str, Any], None]] = []
+        if persist_path and os.path.exists(persist_path):
+            with open(persist_path) as f:
+                stored = json.load(f)
+            for k, v in stored.items():
+                if k not in _DEFS:
+                    raise _unknown(k)
+                self._values[k] = v
+
+    # ------------------------------------------------------------------
+    def get(self, name: str):
+        if name not in _DEFS:
+            raise _unknown(name)
+        with self._lock:
+            if name in self._values:
+                return self._values[name]
+        if self._parent is not None:
+            return self._parent.get(name)
+        return _DEFS[name].default
+
+    def __getitem__(self, name):
+        return self.get(name)
+
+    def set(self, name: str, value):
+        """Runtime update with type coercion + validation
+        (≙ ALTER SYSTEM SET)."""
+        d = _DEFS.get(name)
+        if d is None:
+            raise _unknown(name)
+        value = _coerce(d.ptype, value)
+        if d.validator is not None and not d.validator(value):
+            raise ValueError(f"invalid value {value!r} for {name}")
+        with self._lock:
+            self._values[name] = value
+            if self._persist_path:
+                tmp = self._persist_path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(self._values, f, indent=1)
+                os.replace(tmp, self._persist_path)
+            watchers = list(self._watchers)
+        for w in watchers:
+            w(name, value)
+
+    def watch(self, fn: Callable[[str, Any], None]):
+        self._watchers.append(fn)
+
+    def snapshot(self) -> dict:
+        return {name: self.get(name) for name in sorted(_DEFS)}
+
+
+_CAP_UNITS = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
+
+
+def _coerce(ptype: str, v):
+    if ptype == "int":
+        return int(v)
+    if ptype == "float":
+        return float(v)
+    if ptype == "bool":
+        if isinstance(v, str):
+            return v.lower() in ("1", "true", "on", "yes")
+        return bool(v)
+    if ptype == "cap":
+        if isinstance(v, str) and v and v[-1].lower() in _CAP_UNITS:
+            return int(float(v[:-1]) * _CAP_UNITS[v[-1].lower()])
+        return int(v)
+    return str(v)
+
+
+__all__ = ["Config", "ParamDef"]

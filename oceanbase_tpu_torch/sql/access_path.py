@@ -1,0 +1,299 @@
+"""Index-aware access-path selection.
+
+Port of ``oceanbase_tpu/sql/access_path.py`` for unpartitioned tablets:
+host-side numpy, as in the reference; the candidate rows it returns
+become a small device relation in the session.
+
+Reference analog: the optimizer's access-path choice over base/index
+paths (src/sql/optimizer/ob_join_order.h AccessPath, cost-compared per
+index) feeding DAS index scan + table lookup iterators
+(src/sql/das/iter/ob_das_iter.h).
+
+TPU-first twist — the *candidate-superset prefilter*: instead of
+rewriting the plan with an index-scan operator, a chosen path replaces
+the scanned table's DEVICE relation with a small host-materialized
+candidate set (snapshot-consistent, pruned via key-sorted segments' zone
+maps; see storage/lookup.py).  The compiled plan is UNCHANGED and
+re-applies its full filter on the candidates, so any superset is sound —
+the index only has to bound the rows uploaded, which is where the win is
+(host decode of a few chunks vs whole-table upload + device scan).
+
+Paths considered, in cost order:
+1. primary  — range/eq conjuncts on a prefix of the tablet key columns
+              (and/or the partition column) prune chunks directly;
+2. secondary — eq/range conjuncts on a prefix of an index's columns
+              scan the index table (its OWN key-sorted segments pruned
+              the same way), then the collected pk values bound a
+              pruned fetch of the base table.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from oceanbase_tpu_torch.exec import plan as pp
+from oceanbase_tpu_torch.expr import ir
+from oceanbase_tpu_torch.storage.lookup import (
+    estimate_rows_in_ranges,
+    range_rows,
+)
+
+# a path is taken only when its zone-map row estimate is under both an
+# absolute cap (keep host decode + upload small) and a fraction of the
+# table (otherwise the whole-table device scan is already right)
+ABS_ROW_CAP = 1 << 18
+FRACTION = 0.25
+
+
+def _conjuncts(pred):
+    if isinstance(pred, ir.Logic) and pred.op == "and":
+        out = []
+        for a in pred.args:
+            out.extend(_conjuncts(a))
+        return out
+    return [pred]
+
+
+def _storage_value(lit: ir.Literal, target):
+    from oceanbase_tpu_torch.expr.compile import literal_value
+    from oceanbase_tpu_torch.sql.session import _coerce_value
+
+    v, t = literal_value(lit)
+    return _coerce_value(v, t, target)
+
+
+def _range_of(conj, inv_rename: dict, coltypes: dict):
+    """conj -> (base_col, lo, hi) for single-column comparisons against
+    literals, in the STORAGE value domain; None if not rangeable."""
+    if isinstance(conj, ir.Cmp):
+        l, r = conj.left, conj.right
+        op = conj.op
+        if isinstance(r, ir.ColumnRef) and isinstance(l, ir.Literal):
+            l, r = r, l
+            op = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}.get(op, op)
+        if not (isinstance(l, ir.ColumnRef) and isinstance(r, ir.Literal)):
+            return None
+        base = inv_rename.get(l.name)
+        if base is None or base not in coltypes:
+            return None
+        try:
+            v = _storage_value(r, coltypes[base])
+        except Exception:
+            return None
+        if v is None:
+            return None
+        if op == "=":
+            return (base, v, v)
+        if op in ("<", "<="):
+            # zone pruning is inclusive-range; open bounds stay sound
+            # (slightly wider candidates, filter re-applies exactly)
+            return (base, None, v)
+        if op in (">", ">="):
+            return (base, v, None)
+        return None
+    if isinstance(conj, ir.InList) and not conj.negated and \
+            isinstance(conj.arg, ir.ColumnRef):
+        base = inv_rename.get(conj.arg.name)
+        if base is None or base not in coltypes:
+            return None
+        vals = []
+        for x in conj.values:
+            lit = x if isinstance(x, ir.Literal) else None
+            if lit is None:
+                return None
+            try:
+                v = _storage_value(lit, coltypes[base])
+            except Exception:
+                return None
+            if v is None:
+                return None
+            vals.append(v)
+        if not vals:
+            return None
+        return (base, min(vals), max(vals))
+    return None
+
+
+def _intersect(old, lo, hi):
+    """Intersect (lo, hi] inclusive ranges; None = unbounded side."""
+    if old is not None:
+        olo, ohi = old
+        lo = olo if lo is None else lo if olo is None else max(lo, olo)
+        hi = ohi if hi is None else hi if ohi is None else min(hi, ohi)
+    return (lo, hi)
+
+
+def ranges_of_pred(pred, coltypes: dict) -> dict:
+    """Bound predicate over plain base-column names (UPDATE/DELETE
+    WHERE) -> {col: (lo, hi)}."""
+    ident = {c: c for c in coltypes}
+    ranges: dict = {}
+    for c in _conjuncts(pred):
+        r = _range_of(c, ident, coltypes)
+        if r is None:
+            continue
+        col, lo, hi = r
+        ranges[col] = _intersect(ranges.get(col), lo, hi)
+    return ranges
+
+
+def scan_filter_ranges(plan, engine):
+    """Walk the plan for Filter chains over a TableScan ->
+    {table: {base_col: (lo, hi)}} (conjunct ranges intersected).
+
+    A table scanned MORE THAN ONCE (self-join aliases) is never
+    returned: the prefilter substitutes the one shared device relation
+    per table name, so per-alias ranges would unsoundly restrict every
+    other scan of that table."""
+    out: dict[str, dict] = {}
+    scan_counts: dict[str, int] = {}
+
+    def visit(node, preds):
+        if isinstance(node, pp.Filter):
+            visit(node.child, preds + [node.pred])
+            return
+        if isinstance(node, pp.TableScan):
+            scan_counts[node.table] = scan_counts.get(node.table, 0) + 1
+            ts = engine.tables.get(node.table) if engine else None
+            if ts is None or not preds:
+                return
+            inv = {cid: base
+                   for base, cid in (node.rename or {}).items()} or \
+                {c: c for c in ts.tablet.columns}
+            coltypes = ts.tablet.types
+            ranges = out.setdefault(node.table, {})
+            for p in preds:
+                for c in _conjuncts(p):
+                    r = _range_of(c, inv, coltypes)
+                    if r is None:
+                        continue
+                    col, lo, hi = r
+                    ranges[col] = _intersect(ranges.get(col), lo, hi)
+            return
+        for fname in ("child", "left", "right"):
+            kid = getattr(node, fname, None)
+            if kid is not None:
+                visit(kid, [])
+        for kid in getattr(node, "inputs", []) or []:
+            visit(kid, [])
+
+    visit(plan, [])
+    return {t: r for t, r in out.items() if scan_counts.get(t, 0) == 1}
+
+
+@dataclass
+class AccessChoice:
+    table: str
+    kind: str            # "primary" | "index"
+    index_name: str | None
+    prune: dict          # ranges driving zone-map pruning
+    est_rows: int
+
+
+def choose_path(engine, table: str, ranges: dict):
+    """Pick the cheapest applicable path for one table, or None to keep
+    the whole-table device scan."""
+    ts = engine.tables.get(table)
+    if ts is None or not ranges:
+        return None
+    tablet = ts.tablet
+    total = max(1, tablet.row_count_estimate())
+    budget = min(ABS_ROW_CAP, int(total * FRACTION))
+    best = None
+
+    def _eq_cols(rs):
+        return {c for c, (lo, hi) in rs.items()
+                if lo is not None and lo == hi}
+
+    def _card_refine(est, rs, key_cols, unique_full):
+        """Zone maps can't see inside a chunk; refine with schema
+        cardinality: a full-key equality matches at most one live row
+        (plus a handful of versions), an equality on column c at most
+        ~rows/ndv(c) (≙ ObOptEstCost selectivity from basic stats)."""
+        eqs = _eq_cols(rs)
+        if unique_full and set(key_cols) <= eqs:
+            return min(est, 4)
+        for c in eqs:
+            nd = ts.tdef.ndv.get(c)
+            if nd:
+                est = min(est, max(1, (total // max(nd, 1)) * 2))
+        return est
+
+    # primary path: prunable columns are the tablet key columns (sound
+    # for version chains)
+    kc = tablet.key_cols
+    prim = {c: ranges[c] for c in ranges if c in kc}
+    if prim:
+        est = estimate_rows_in_ranges(tablet, prim)
+        est = _card_refine(est, prim, [c for c in kc
+                                       if c != "__rowid__"] or kc, True)
+        if est <= budget:
+            best = AccessChoice(table, "primary", None, prim, est)
+
+    # secondary paths: a usable prefix of some index's columns
+    for ix in ts.tdef.indexes:
+        pre = {}
+        for c in ix.columns:
+            if c not in ranges:
+                break
+            pre[c] = ranges[c]
+            lo, hi = ranges[c]
+            if lo is None or hi is None or lo != hi:
+                break  # range conjunct ends the usable prefix
+        if not pre:
+            continue
+        istore = engine.tables.get(ix.storage_table)
+        if istore is None:
+            continue
+        est = estimate_rows_in_ranges(istore.tablet, pre)
+        est = _card_refine(est, pre, ix.columns,
+                           ix.unique and set(ix.columns) <= _eq_cols(pre))
+        if est <= budget and (best is None or est < best.est_rows):
+            best = AccessChoice(table, "index", ix.name, pre, est)
+    return best
+
+
+def materialize_candidates(engine, choice: AccessChoice, snapshot: int,
+                           tx_id: int = 0):
+    """-> (arrays, valids) of the candidate rows for the chosen path
+    (snapshot-consistent; a superset of the final matches)."""
+    ts = engine.tables[choice.table]
+    if choice.kind == "primary":
+        return range_rows(ts.tablet, choice.prune, snapshot, tx_id)
+    ix = next(i for i in ts.tdef.indexes if i.name == choice.index_name)
+    istore = engine.tables[ix.storage_table]
+    entries, _ev = range_rows(istore.tablet, choice.prune, snapshot,
+                              tx_id)
+    pk_cols = istore.tablet.key_cols[len(ix.columns):]
+    n = len(next(iter(entries.values()))) if entries else 0
+    if n == 0:
+        # no matching entries: an empty result with the base columns
+        tab = ts.tablet
+        arrays = {c: np.zeros(0, dtype=object
+                              if tab.types[c].is_string
+                              else tab.types[c].np_dtype)
+                  for c in tab.columns}
+        return arrays, {c: None for c in arrays}
+    # bound the base fetch by the pk value envelope from the index
+    # entries (sound: every matching base row's pk is inside it), then
+    # exact-filter to the pk set so stale wide envelopes stay small
+    base_prune = {}
+    for c in pk_cols:
+        col = entries[c]
+        a = col.astype("U") if col.dtype == object else col
+        base_prune[c] = (col[np.argmin(a)] if col.dtype == object
+                         else a.min(),
+                         col[np.argmax(a)] if col.dtype == object
+                         else a.max())
+    arrays, valids = range_rows(ts.tablet, base_prune, snapshot, tx_id)
+    nb = len(next(iter(arrays.values()))) if arrays else 0
+    if nb and len(pk_cols) == 1:
+        pk = pk_cols[0]
+        want = entries[pk]
+        sel = np.isin(arrays[pk], want)
+        arrays = {c: a[sel] for c, a in arrays.items()}
+        valids = {c: (v[sel] if v is not None else None)
+                  for c, v in valids.items()}
+    return arrays, valids

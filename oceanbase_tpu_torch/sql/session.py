@@ -1,30 +1,48 @@
 """Session: the SQL entry point (parse -> bind -> optimize -> execute).
 
-Port of the catalog-only statement surface of
-``oceanbase_tpu/sql/session.py``, the session without a ``Database``.
-A SELECT is parsed, bound and optimized on the host by the port's own
-front end, then run by the port's ``execute_plan`` on the catalog's
-device under the reference's capacity-retry ladder: a
-``CapacityOverflow`` re-plans with 4x budgets (``scale_capacities``) up
-to ``max_capacity_retry`` times, then raises.  The result is read back
-once and materialized on the host.
+Port of ``oceanbase_tpu/sql/session.py``.  A SELECT is parsed, bound and
+optimized on the host by the port's own front end, then run by the
+port's ``execute_plan`` on the catalog's device under the reference's
+capacity-retry ladder: a ``CapacityOverflow`` re-plans with 4x budgets
+(``scale_capacities``) up to ``max_capacity_retry`` times, then raises.
+The result is read back once and materialized on the host.
 
-Around it: CREATE/DROP TABLE, CREATE/DROP VIEW, CREATE [UNIQUE]/DROP
-INDEX (metadata; the sorted sidecar an index probe reads is built at
-execution), INSERT ... VALUES / SELECT (a host-side append, as in the
-reference), UPDATE and DELETE (masked updates on the device), BEGIN /
-COMMIT / ROLLBACK (no-ops without a storage plane), SET, SHOW TABLES /
-INDEX / VARIABLES, DESCRIBE, SHOW CREATE TABLE / VIEW, EXPLAIN and
-ANALYZE TABLE.
+Without a ``Database`` (the catalog-only session): CREATE/DROP TABLE,
+CREATE/DROP VIEW, CREATE [UNIQUE]/DROP INDEX (metadata; the sorted
+sidecar an index probe reads is built at execution), INSERT ... VALUES /
+SELECT (a host-side append, as in the reference), UPDATE and DELETE
+(masked updates on the device), BEGIN / COMMIT / ROLLBACK (no-ops), SET,
+SHOW TABLES / INDEX / VARIABLES, DESCRIBE, SHOW CREATE TABLE / VIEW,
+EXPLAIN and ANALYZE TABLE.
 
-There is no plan cache, no parallel or pushed-down execution, no spill
-tier and no tracing or metrics here.  Statements that need the storage
-and transaction plane raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+With a ``Database`` (``Database(root).session()``), the reference's
+storage branches: tables live in the LSM engine; a SELECT reads the
+snapshot of its transaction (``_table_snapshot``), a filter on a key or
+an index prefix swaps the table's device relation for a few pruned
+chunks (``sql/access_path.py``), and a table whose estimated rows exceed
+``sql_work_area_rows`` streams from the LSM through the spill tier
+(``_spill_candidates`` -> ``_try_spilled`` -> ``segment_chunk_provider``
+-> ``execute_spilled``), which is also the backstop of an exhausted
+capacity-retry ladder.  INSERT/UPDATE/DELETE write MVCC versions through
+the ``TransService`` (snapshot isolation, write-conflict detection, WAL
+group commit, statement rollback inside a transaction); UPDATE and
+DELETE evaluate their WHERE and SET expressions on the device and read
+the matched rows back once per statement.  BEGIN / COMMIT / ROLLBACK,
+CREATE TABLE with inline indexes, CREATE TABLE ... AS SELECT, engine
+CREATE/DROP INDEX with backfill, TRUNCATE, SET GLOBAL / ALTER SYSTEM
+SET for the ported knobs and ALTER SYSTEM MINOR/MAJOR FREEZE.
+
+There is no plan cache, no parallel or pushed-down execution and no
+tracing or metrics here.  Statements of planes not yet ported raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
+import time
+import uuid
 from dataclasses import dataclass
 from typing import Optional
 
@@ -39,6 +57,7 @@ from oceanbase_tpu_torch.datatypes import (
     days_to_date,
 )
 from oceanbase_tpu_torch.exec.diag import CapacityOverflow
+from oceanbase_tpu_torch.exec.granule import segment_chunk_provider
 from oceanbase_tpu_torch.exec.ops import merge_dicts
 from oceanbase_tpu_torch.exec.plan import (
     IndexProbe,
@@ -56,13 +75,18 @@ from oceanbase_tpu_torch.expr.compile import (
     eval_predicate,
     literal_value,
 )
+from oceanbase_tpu_torch.px.planner import NotDistributable
+from oceanbase_tpu_torch.sql import access_path as ap
 from oceanbase_tpu_torch.sql import ast
 from oceanbase_tpu_torch.sql.binder import Binder, Scope
 from oceanbase_tpu_torch.sql.optimizer import CostModel, scale_capacities
 from oceanbase_tpu_torch.sql.parser import parse_sql
+from oceanbase_tpu_torch.storage.lookup import estimate_rows_in_ranges
+from oceanbase_tpu_torch.tx.errors import WriteConflict
 from oceanbase_tpu_torch.vector import (
     Column,
     Relation,
+    bucket_capacity,
     empty_relation,
     from_numpy,
     to_numpy,
@@ -70,35 +94,39 @@ from oceanbase_tpu_torch.vector import (
 
 _POW10 = [10**i for i in range(38)]
 
-_STORAGE = "ROADMAP Queue 1 item 5 (the storage and transaction plane)"
+_STORAGE_B = ("ROADMAP Queue 1 item 5b (the second half of the storage "
+              "and transaction plane)")
 _MEASURE = "ROADMAP Queue 1 item 9 (the measurement plane)"
 _VECTOR = "ROADMAP Queue 1 items 4 and 8 (VECTOR and side device modules)"
 
 
-def _needs(what: str, item: str = _STORAGE):
-    return NotImplementedError(f"{what} needs a Database; it waits for "
-                               f"{item}")
+def _needs(what: str, item: str = _STORAGE_B):
+    return NotImplementedError(f"{what} waits for {item}")
 
 
-# statement type -> (what, ROADMAP item) for statements this session
-# refuses
-_NEEDS_DATABASE = {
+def _needs_db(what: str):
+    return NotImplementedError(
+        f"{what} needs a Database "
+        f"(oceanbase_tpu_torch.server.database.Database)")
+
+
+# statement type -> (what, ROADMAP item) for statements of planes the
+# port has not ported yet, refused with or without a Database
+_UNPORTED = {
     ast.ProfileStmt: ("PROFILE", _MEASURE),
     ast.AnalyzeWorkloadStmt: ("ANALYZE WORKLOAD REPORT", _MEASURE),
-    ast.CreateExternalTableStmt: ("CREATE EXTERNAL TABLE", _STORAGE),
-    ast.KillStmt: ("KILL", _STORAGE),
-    ast.SavepointStmt: ("SAVEPOINT", _STORAGE),
-    ast.XaStmt: ("XA", _STORAGE),
-    ast.ProcedureStmt: ("a stored procedure", _STORAGE),
-    ast.CallStmt: ("CALL", _STORAGE),
-    ast.AlterSystemStmt: ("ALTER SYSTEM", _STORAGE),
-    ast.AlterTableStmt: ("ALTER TABLE", _STORAGE),
-    ast.TenantStmt: ("a tenant", _STORAGE),
-    ast.UserStmt: ("a user", _STORAGE),
-    ast.LoadDataStmt: ("LOAD DATA", _STORAGE),
-    ast.TruncateStmt: ("TRUNCATE", _STORAGE),
-    ast.SequenceStmt: ("a sequence", _STORAGE),
-    ast.LockTableStmt: ("LOCK TABLES", _STORAGE),
+    ast.CreateExternalTableStmt: ("CREATE EXTERNAL TABLE", _STORAGE_B),
+    ast.KillStmt: ("KILL", _STORAGE_B),
+    ast.SavepointStmt: ("SAVEPOINT", _STORAGE_B),
+    ast.XaStmt: ("XA", _STORAGE_B),
+    ast.ProcedureStmt: ("a stored procedure", _STORAGE_B),
+    ast.CallStmt: ("CALL", _STORAGE_B),
+    ast.AlterTableStmt: ("ALTER TABLE", _STORAGE_B),
+    ast.TenantStmt: ("a tenant", _STORAGE_B),
+    ast.UserStmt: ("a user", _STORAGE_B),
+    ast.LoadDataStmt: ("LOAD DATA", _STORAGE_B),
+    ast.SequenceStmt: ("a sequence", _STORAGE_B),
+    ast.LockTableStmt: ("LOCK TABLES", _STORAGE_B),
 }
 
 
@@ -148,7 +176,8 @@ def _strings(names) -> np.ndarray:
 class Session:
     """One client session: session variables + ``execute(sql)``.
 
-    ``catalog`` defaults to an empty ``Catalog`` on ``device`` (None means
+    ``catalog`` defaults to the ``Database``'s catalog when ``db`` is
+    given, else to an empty ``Catalog`` on ``device`` (None means
     ``"cuda"``; without CUDA that raises unless ``device="cpu"``).  A
     given catalog keeps its own device."""
 
@@ -156,21 +185,52 @@ class Session:
     HIST_BUCKETS = 64
     MCV_K = 16  # most-common-values kept per string column
 
-    def __init__(self, catalog: Catalog | None = None, device=None):
-        self.catalog = catalog if catalog is not None else Catalog(device)
+    def __init__(self, catalog: Catalog | None = None, device=None,
+                 db=None):
+        if catalog is None:
+            catalog = db.catalog if db is not None else Catalog(device)
+        self.catalog = catalog
+        #: server.database.Database when backed by the storage/tx plane
+        self.db = db
         self.variables: dict[str, object] = {
             "autocommit": 1, "max_capacity_retry": self.MAX_CAPACITY_RETRIES,
         }
+        self._tx = None  # active explicit transaction (BEGIN ... COMMIT)
         #: CapacityOverflow re-plans the last statement needed
         self.last_retries = 0
         #: the plan the last SELECT ran (after any capacity re-plans)
         self.last_plan: PlanNode | None = None
         #: its output columns, [(column id, output name)]
         self.last_outputs: list = []
+        #: SpillStats of the last SELECT when it took the spill route
+        self.last_spill = None
+        #: {table: AccessChoice} of the last SELECT, UPDATE or DELETE
+        #: whose relation came from the access path (sql/access_path.py)
+        self.last_access_paths: dict = {}
+        #: capacity of the relation the last UPDATE/DELETE evaluated
+        self.last_dml_capacity = 0
 
     @property
     def device(self):
         return self.catalog.device
+
+    @property
+    def tenant(self):
+        return self.db.tenant() if self.db is not None else None
+
+    @property
+    def _txsvc(self):
+        return self.db.tx
+
+    @property
+    def _engine(self):
+        return self.db.engine
+
+    def close(self):
+        """Roll back the session's open transaction, if any."""
+        if self._tx is not None and self.db is not None:
+            self._txsvc.rollback(self._tx)
+            self._tx = None
 
     def execute(self, sql: str, params: list | None = None) -> Result:
         """Parse + execute one statement."""
@@ -201,10 +261,16 @@ class Session:
         if isinstance(stmt, ast.DropIndexStmt):
             return self._drop_index(stmt)
         if isinstance(stmt, ast.InsertStmt):
+            if self.db is not None:
+                return self._insert_tx(stmt, params)
             return self._insert(stmt, params)
         if isinstance(stmt, ast.UpdateStmt):
+            if self.db is not None:
+                return self._update_tx(stmt, params)
             return self._update(stmt, params)
         if isinstance(stmt, ast.DeleteStmt):
+            if self.db is not None:
+                return self._delete_tx(stmt, params)
             return self._delete(stmt, params)
         if isinstance(stmt, ast.ShowTablesStmt):
             names = sorted(set(self.catalog.tables())
@@ -217,19 +283,26 @@ class Session:
         if isinstance(stmt, ast.AnalyzeStmt):
             return self._analyze(stmt)
         if isinstance(stmt, ast.TxStmt):
-            return _ok()  # nothing to begin or end without a storage plane
+            return self._tx_control(stmt.op)
         if isinstance(stmt, ast.SetVarStmt):
             if stmt.scope == "global":
-                raise ValueError("no global config available")
-            self.variables[stmt.name] = stmt.value
+                if self.db is None:
+                    raise ValueError("no global config available")
+                self.tenant.config.set(stmt.name, stmt.value)
+            else:
+                self.variables[stmt.name] = stmt.value
             return _ok()
+        if isinstance(stmt, ast.AlterSystemStmt):
+            return self._alter_system(stmt)
+        if isinstance(stmt, ast.TruncateStmt):
+            return self._truncate(stmt)
         if isinstance(stmt, ast.ShowCreateStmt):
             return self._show_create(stmt.table)
         if isinstance(stmt, ast.ShowStmt):
             return self._show(stmt)
-        needs = _NEEDS_DATABASE.get(type(stmt))
-        if needs is not None:
-            raise _needs(*needs)
+        unported = _UNPORTED.get(type(stmt))
+        if unported is not None:
+            raise _needs(*unported)
         raise NotImplementedError(type(stmt).__name__)
 
     # ------------------------------------------------------------------
@@ -242,15 +315,41 @@ class Session:
         return binder.bind_select(stmt)
 
     def _execute_select(self, stmt: ast.SelectStmt, params) -> Result:
-        return self._materialize(*self._run_select(stmt, params))
+        self.last_spill = None
+        if self.db is None:
+            return self._materialize(*self._run_select(stmt, params))
+        plan, outputs, _est = self._plan_select(stmt, params)
+        # estimate-driven spill route (≙ the SQL memory manager deciding
+        # spill from work-area estimates BEFORE execution): over-budget
+        # inputs never materialize whole on the device
+        big = self._spill_candidates(plan)
+        if big:
+            res = self._try_spilled(plan, outputs, big)
+            if res is not None:
+                return res
+        try:
+            rel, outputs = self._run_plan(plan, outputs)
+        except CapacityOverflow:
+            # backstop: re-plan retries exhausted -> disk spill tier,
+            # largest input as the stream
+            big = self._spill_candidates(plan, force_largest=True)
+            res = self._try_spilled(plan, outputs, big) if big else None
+            if res is not None:
+                return res
+            raise
+        return self._materialize(rel, outputs)
 
     def _run_select(self, stmt: ast.SelectStmt, params):
         """Bind and run a SELECT on the device under the capacity-retry
         ladder -> (result relation, [(column id, output name)])."""
         plan, outputs, _est = self._plan_select(stmt, params)
-        tables = {t: self.catalog.table_data(t)
+        return self._run_plan(plan, outputs)
+
+    def _run_plan(self, plan: PlanNode, outputs):
+        tables = {t: self._table_snapshot(t)
                   for t in referenced_tables(plan)
                   if self.catalog.has_table(t)}
+        self.last_access_paths = self._index_prefilter(plan, tables)
         prepare_index_probes(self.catalog, plan, tables)
         factor = 1
         max_retry = int(self.variables["max_capacity_retry"])
@@ -301,6 +400,149 @@ class Session:
             dtypes[out_name] = col.dtype
         n = len(next(iter(arrays.values()))) if names else 0
         return Result(names, arrays, valids, dtypes, rowcount=n)
+
+    # ------------------------------------------------------------------
+    # the storage read path (with a Database)
+    # ------------------------------------------------------------------
+    def _table_snapshot(self, name: str) -> Relation:
+        """Read a table at the right snapshot: an active transaction sees
+        its own writes plus its begin-snapshot; otherwise the latest
+        committed state (the cached device relation)."""
+        if self.db is not None and self._tx is not None:
+            return self.catalog.table_data_at(
+                name, self._tx.snapshot, self._tx.tx_id)
+        return self.catalog.table_data(name)
+
+    def _index_prefilter(self, plan, tables) -> dict:
+        """Candidate-superset access paths (sql/access_path.py): replace
+        a filtered table's device relation with a small host-pruned
+        candidate set.  The plan re-applies its full filter, so the
+        substitution never changes results — only how few rows reach the
+        device.  -> {table: AccessChoice}."""
+        if self.db is None or not tables:
+            return {}
+        if not bool(self.variables.get("enable_index_access", 1)):
+            return {}
+        try:
+            by_table = ap.scan_filter_ranges(plan, self._engine)
+        except Exception:
+            return {}
+        choices: dict = {}
+        for t, ranges in by_table.items():
+            if t not in tables or t not in self._engine.tables:
+                continue
+            choice = ap.choose_path(self._engine, t, ranges)
+            if choice is None:
+                continue
+            if self._tx is not None:
+                snap, txid = self._tx.snapshot, self._tx.tx_id
+            else:
+                snap, txid = self._txsvc.gts.current(), 0
+            try:
+                arrays, valids = ap.materialize_candidates(
+                    self._engine, choice, snap, txid)
+            except Exception:
+                continue  # any surprise -> keep the full-table path
+            tables[t] = self._candidate_relation(
+                self._engine.tables[t], arrays, valids)
+            choices[t] = choice
+        return choices
+
+    def _candidate_relation(self, ts, arrays, valids) -> Relation:
+        """Host candidate arrays -> a device Relation padded onto the
+        shared capacity-bucket ladder with a live-row mask."""
+        n = len(next(iter(arrays.values()))) if arrays else 0
+        rel = from_numpy(
+            arrays,
+            types={c.name: c.dtype for c in ts.tdef.columns},
+            valids={k: v for k, v in valids.items() if v is not None},
+            device=self.device)
+        return rel.pad_to(bucket_capacity(n))
+
+    # ------------------------------------------------------------------
+    # the spill route (≙ SQL memory manager + spillable operators)
+    # ------------------------------------------------------------------
+    def _spill_candidates(self, plan, force_largest: bool = False) -> set:
+        """Tables whose estimated rows REACHING the plan exceed the
+        work-area budget (``sql_work_area_rows``).  The estimate is
+        post-access-path: a table whose filter conjuncts admit a
+        selective primary/secondary path keeps the in-memory path even
+        when the raw table is over budget.  With ``force_largest`` (the
+        CapacityOverflow backstop) the largest table qualifies even
+        under budget — the plan overflowed regardless, so stream it."""
+        if self.db is None or not bool(self.db.config["enable_sql_spill"]):
+            return set()
+        refs = list(referenced_tables(plan))
+        if self._tx is not None and \
+                any(t in self._tx.participants for t in refs):
+            # spill streams read committed state at a snapshot; a table
+            # this tx has written must come from the own-writes read
+            # path, so stay in memory when any referenced table is dirty
+            return set()
+        budget = int(self.db.config["sql_work_area_rows"])
+        try:
+            ranges_by_table = ap.scan_filter_ranges(plan, self._engine)
+        except Exception:
+            ranges_by_table = {}
+        est = {}
+        for t in refs:
+            ts = self._engine.tables.get(t)
+            if ts is None:
+                continue
+            rngs = ranges_by_table.get(t) or {}
+            choice = ap.choose_path(self._engine, t, rngs) if rngs \
+                else None
+            est[t] = (choice.est_rows if choice is not None
+                      else estimate_rows_in_ranges(ts.tablet, rngs))
+        big = {t for t, e in est.items() if e > budget}
+        if not big and force_largest and est:
+            big = {max(est, key=est.get)}
+        return big
+
+    def _try_spilled(self, plan, outputs, big: set) -> Result | None:
+        """Execute through ``exec/spill_exec.py`` (granule streams from
+        the LSM + temp-file runs).  -> Result, or None when the plan
+        shape is unsupported (the caller falls back to the in-memory
+        engine)."""
+        from oceanbase_tpu_torch.exec.spill_exec import execute_spilled
+
+        # ONE read point for every table in the query (big streams and
+        # device relations alike); inside an explicit transaction the
+        # tx begin-snapshot (_spill_candidates excluded tables it wrote)
+        snap = (self._tx.snapshot if self._tx is not None
+                else self._txsvc.gts.current())
+        providers, types_by_table, device_tables = {}, {}, {}
+        for t in referenced_tables(plan):
+            ts = self._engine.tables.get(t)
+            if ts is None:
+                continue
+            if t in big:
+                providers[t] = segment_chunk_provider(ts.tablet, snap)
+                types_by_table[t] = {c.name: c.dtype
+                                     for c in ts.tdef.columns}
+            else:
+                device_tables[t] = self.catalog.table_data_at(t, snap)
+        if not providers:
+            return None
+        # device-resident subtrees may carry IndexProbe nodes; their
+        # sorted sidecars ride in the device-table dict
+        prepare_index_probes(self.catalog, plan, device_tables)
+        sdir = os.path.join(self.db.root or tempfile.gettempdir(),
+                            "tmpfile", f"q{uuid.uuid4().hex[:10]}")
+        try:
+            arrays, valids, dtypes, stats = execute_spilled(
+                plan, providers, sdir,
+                int(self.db.config["sql_work_area_rows"]),
+                device_tables, types_by_table, big, device=self.device)
+        except (NotDistributable, NotImplementedError):
+            # unsupported shape OR a non-splittable aggregate
+            # (count_distinct) — fall back to the in-memory engine
+            return None
+        self.last_spill = stats
+        self.last_retries = 0
+        self.last_plan = plan
+        self.last_outputs = outputs
+        return materialize_host(arrays, valids, dtypes, outputs)
 
     # ------------------------------------------------------------------
     # metadata: ANALYZE, DESCRIBE, SHOW
@@ -468,7 +710,14 @@ class Session:
             raise _needs(f"SHOW {stmt.what.upper()}", _MEASURE)
         if stmt.what == "processlist":
             raise _needs("SHOW PROCESSLIST")
-        return _ok()  # SHOW PARAMETERS: no system configuration here
+        if self.db is None:
+            return _ok()  # SHOW PARAMETERS: no system configuration here
+        snap = self.tenant.config.snapshot()
+        return Result(
+            ["name", "value"],
+            {"name": _strings(snap),
+             "value": _strings(str(v) for v in snap.values())},
+            {}, {}, rowcount=len(snap))
 
     # ------------------------------------------------------------------
     # DDL
@@ -476,24 +725,38 @@ class Session:
     def _create_table(self, stmt: ast.CreateTableStmt) -> Result:
         # capability checks before anything is created
         if stmt.as_select is not None:
-            raise _needs("CREATE TABLE ... AS SELECT")
-        if stmt.indexes:
-            raise _needs("an inline secondary index")
+            if self.db is None:
+                raise _needs_db("CREATE TABLE ... AS SELECT")
+            return self._create_table_as(stmt)
+        if stmt.indexes and self.db is None:
+            raise _needs_db("an inline secondary index")
+        auto_cols = [c.name for c in stmt.columns if c.auto_increment]
+        if auto_cols and self.db is not None:
+            # filling it needs a sequence: refused, not ignored
+            raise _needs("AUTO_INCREMENT")
         cols = [ColumnDef(c.name, c.dtype, c.nullable) for c in stmt.columns]
-        # AUTO_INCREMENT is recorded; filling it needs a sequence, which
-        # needs the storage plane (an omitted value is NULL here)
+        # catalog-only: AUTO_INCREMENT is recorded, and an omitted value
+        # is NULL
         tdef = TableDef(stmt.name, cols, primary_key=stmt.primary_key,
                         partition=stmt.partition,
-                        auto_increment_cols=[c.name for c in stmt.columns
-                                             if c.auto_increment])
+                        auto_increment_cols=auto_cols)
         existed = stmt.if_not_exists and self.catalog.has_table(stmt.name)
         self.catalog.create_table(tdef, if_not_exists=stmt.if_not_exists)
-        if not existed:
-            # one all-dead row (static shapes need capacity >= 1), on the
-            # catalog's device
-            self.catalog.set_data(stmt.name, empty_relation(
-                {c.name: c.dtype for c in stmt.columns},
-                device=self.device))
+        if existed:
+            return _ok()
+        if self.db is not None:
+            # inline INDEX/UNIQUE KEY specs become secondary indexes (the
+            # table is brand new: nothing to backfill or drain); the
+            # engine serves the empty snapshot itself
+            for i, (iname, icols, iuniq) in enumerate(stmt.indexes):
+                self._engine.create_index(
+                    stmt.name, iname or f"idx_{stmt.name}_{i}", icols,
+                    unique=iuniq)
+            return _ok()
+        # one all-dead row (static shapes need capacity >= 1), on the
+        # catalog's device
+        self.catalog.set_data(stmt.name, empty_relation(
+            {c.name: c.dtype for c in stmt.columns}, device=self.device))
         return _ok()
 
     def _create_index(self, stmt: ast.CreateIndexStmt) -> Result:
@@ -510,6 +773,20 @@ class Session:
             if stmt.if_not_exists:
                 return _ok()
             raise ValueError(f"index {stmt.name} exists on {stmt.table}")
+        if self.db is not None:
+            # the engine's index table + backfill (≙ ObDDLService index
+            # build); the schema-version bump re-resolves access paths
+            if self._tx is not None and \
+                    stmt.table in self._tx.participants:
+                raise RuntimeError(
+                    "CREATE INDEX on a table already written by the open "
+                    "transaction is not supported (commit first)")
+            self._engine.create_index(
+                stmt.table, stmt.name, stmt.columns, unique=stmt.unique,
+                drain=self._tx_drain_fence())
+            self.catalog.invalidate(stmt.table)
+            self.catalog.schema_version += 1
+            return _ok()
         for c in stmt.columns:
             td.column(c)  # existence check
         td.indexes.append(IndexDef(
@@ -520,6 +797,15 @@ class Session:
 
     def _drop_index(self, stmt: ast.DropIndexStmt) -> Result:
         td = self.catalog.table_def(stmt.table)
+        if self.db is not None:
+            try:
+                self._engine.drop_index(stmt.table, stmt.name)
+            except KeyError:
+                if not stmt.if_exists:
+                    raise
+            self.catalog.invalidate(stmt.table)
+            self.catalog.schema_version += 1
+            return _ok()
         before = len(td.indexes)
         td.indexes = [ix for ix in td.indexes if ix.name != stmt.name]
         if len(td.indexes) == before and not stmt.if_exists:
@@ -653,6 +939,418 @@ class Session:
                               rel.with_mask(rel.mask_or_true() & ~hit))
         return _ok(rowcount=int(hit.sum()))
 
+    # ------------------------------------------------------------------
+    # transactions and transactional DML (with a Database)
+    # ------------------------------------------------------------------
+    def _tx_control(self, op: str) -> Result:
+        if self.db is None:
+            return _ok()  # nothing to begin or end without a storage plane
+        if op == "begin":
+            if self._tx is not None:
+                self._txsvc.commit(self._tx)  # implicit commit (MySQL)
+            self._tx = self._txsvc.begin()
+        elif op == "commit":
+            if self._tx is not None:
+                self._txsvc.commit(self._tx)
+                self._tx = None
+        elif op == "rollback":
+            if self._tx is not None:
+                self._txsvc.rollback(self._tx)
+                self._tx = None
+        return _ok()
+
+    def _run_in_tx(self, fn, tx_hint=None):
+        """Run fn(tx) in the active explicit transaction (with
+        statement-level rollback on failure) or an autocommit one
+        (≙ implicit transactions around single statements).  ``tx_hint``
+        supplies a pre-begun autocommit transaction so the statement's
+        reads and writes share one snapshot."""
+        if self._tx is not None:
+            tx = self._tx
+            tx.stmt_seq += 1
+            seq = tx.stmt_seq
+            writes_before = {t: len(p.keys)
+                             for t, p in tx.participants.items()}
+            try:
+                return fn(tx)
+            except Exception:
+                stmt_writes = {}
+                for t, p in tx.participants.items():
+                    new = p.keys[writes_before.get(t, 0):]
+                    if new:
+                        stmt_writes[t] = new
+                self._txsvc.rollback_statement(tx, seq, stmt_writes)
+                raise
+        tx = tx_hint if tx_hint is not None else self._txsvc.begin()
+        try:
+            out = fn(tx)
+        except Exception:
+            self._txsvc.rollback(tx)
+            raise
+        try:
+            self._txsvc.commit(tx)
+        except Exception:
+            # a failed commit aborts the transaction
+            self._txsvc.rollback(tx)
+            raise
+        return out
+
+    def _stmt_tx(self):
+        """-> (tx-for-this-statement, hint): the explicit tx if one is
+        open, else a fresh autocommit tx whose snapshot the statement's
+        reads must use (pass hint on to _run_in_tx)."""
+        if self._tx is not None:
+            return self._tx, None
+        tx = self._txsvc.begin()
+        return tx, tx
+
+    def _insert_tx(self, stmt: ast.InsertStmt, params) -> Result:
+        if stmt.replace:
+            raise _needs("REPLACE INTO")
+        td = self.catalog.table_def(stmt.table)
+        cols = stmt.columns or td.column_names
+        rows_values: list[dict] = []
+        if stmt.rows is not None:
+            for row in stmt.rows:
+                if len(row) != len(cols):
+                    raise ValueError("INSERT arity mismatch")
+                values: dict = {}
+                for c, e in zip(cols, row):
+                    v, t = literal_value(_as_literal(e, params))
+                    values[c] = _coerce_value(v, t, td.column(c).dtype)
+                for c in td.columns:
+                    values.setdefault(c.name, None)
+                rows_values.append(values)
+        else:
+            sub = self._execute_select(stmt.select, params)
+            for i in range(sub.rowcount):
+                values = {}
+                for c, sn in zip(cols, sub.names):
+                    x = sub.arrays[sn][i]
+                    vd = sub.valids.get(sn)
+                    if vd is not None and not vd[i]:
+                        values[c] = None
+                    else:
+                        values[c] = x.item() if hasattr(x, "item") else x
+                for c in td.columns:
+                    values.setdefault(c.name, None)
+                rows_values.append(values)
+        tablet = self._engine.tables[stmt.table].tablet
+
+        def op(tx):
+            for values in rows_values:
+                self._txsvc.write(tx, stmt.table, tablet,
+                                  tablet.make_key(values), "insert", values)
+
+        self._run_in_tx(op)
+        self.catalog.invalidate(stmt.table)
+        # keep the binder's est_rows current: a plan bound while the
+        # table looked empty would budget capacities for one row
+        td.row_count = tablet.row_count_estimate()
+        self._maybe_freeze(stmt.table)
+        return _ok(rowcount=len(rows_values))
+
+    def _matching_rows(self, table: str, where, params, tx):
+        """-> (rel, mask, tablet, binder, scope): the relation at the
+        statement tx's snapshot + the WHERE mask (reads and writes share
+        one snapshot so the SI write-conflict check is sound).
+
+        Point/range WHERE clauses on the primary key or an index take the
+        candidate-superset access path — an OLTP UPDATE/DELETE touches a
+        few pruned chunks, not a whole-table materialization.  Any
+        surprise on that path falls back to the full table, as in the
+        reference."""
+        ts = self._engine.tables[table]
+        tablet = ts.tablet
+        binder = Binder(self.catalog, params=params or [])
+        scope = Scope()
+        for cname in tablet.columns:
+            scope.add(cname, cname, alias=table)
+        pred = binder.bind_expr(where, scope) if where is not None else None
+        rel = None
+        self.last_access_paths = {}
+        if pred is not None and \
+                bool(self.variables.get("enable_index_access", 1)):
+            try:
+                ranges = ap.ranges_of_pred(pred, tablet.types)
+                choice = ap.choose_path(self._engine, table, ranges)
+                if choice is not None:
+                    arrays, valids = ap.materialize_candidates(
+                        self._engine, choice, tx.snapshot, tx.tx_id)
+                    rel = self._candidate_relation(ts, arrays, valids)
+                    self.last_access_paths = {table: choice}
+            except Exception:
+                rel = None  # any surprise -> full-table path
+                self.last_access_paths = {}
+        if rel is None:
+            rel = self.catalog.table_data_at(table, tx.snapshot, tx.tx_id)
+        self.last_dml_capacity = rel.capacity
+        mask = eval_predicate(pred, rel) if pred is not None \
+            else rel.mask_or_true()
+        return rel, mask, tablet, binder, scope
+
+    def _update_tx(self, stmt: ast.UpdateStmt, params) -> Result:
+        td = self.catalog.table_def(stmt.table)
+        tx, tx_hint = self._stmt_tx()
+        try:
+            return self._update_tx_body(stmt, params, td, tx, tx_hint)
+        except Exception:
+            if tx_hint is not None and tx_hint.state.value == "active":
+                self._txsvc.rollback(tx_hint)
+            raise
+
+    def _update_tx_body(self, stmt, params, td, tx, tx_hint) -> Result:
+        """Evaluate the SET expressions over the snapshot on the device,
+        then read the matched rows and their new values back once (one
+        copy per column) and write Python values through the tx plane."""
+        rel, mask, tablet, binder, scope = self._matching_rows(
+            stmt.table, stmt.where, params, tx)
+        new_cols = {}
+        for cname, e in stmt.assignments:
+            c = eval_expr(binder.bind_expr(e, scope), rel)
+            new_cols[cname] = cast_column(c, td.column(cname).dtype)
+        matched = to_numpy(rel.with_mask(mask))
+        n_upd = len(next(iter(matched.values()))) if matched else 0
+        midx = torch.nonzero(mask).reshape(-1)
+        new_host = {}
+        for cname, c in new_cols.items():
+            vals = c.data.index_select(0, midx).cpu().numpy()
+            if c.sdict is not None:
+                vals = c.sdict.values[np.clip(vals, 0, c.sdict.size - 1)]
+            vv = (c.valid.index_select(0, midx).cpu().numpy()
+                  if c.valid is not None
+                  else np.ones(len(vals), dtype=bool))
+            new_host[cname] = (vals, vv)
+        key_changed = any(c in tablet.key_cols for c, _ in stmt.assignments)
+
+        def op(tx):
+            for i in range(n_upd):
+                old_values = _row_values(matched, tablet.columns, i)
+                values = dict(old_values)
+                for cname, (vals, vv) in new_host.items():
+                    values[cname] = _py(vals[i]) if vv[i] else None
+                new_key = tuple(values[k] for k in tablet.key_cols)
+                if key_changed:
+                    old_key = tuple(old_values[k] for k in tablet.key_cols)
+                    if old_key != new_key:
+                        # PK move = delete old row + insert new
+                        self._txsvc.write(tx, stmt.table, tablet, old_key,
+                                          "delete", old_values)
+                        self._txsvc.write(tx, stmt.table, tablet, new_key,
+                                          "insert", values)
+                        continue
+                self._txsvc.write(tx, stmt.table, tablet, new_key, "update",
+                                  values)
+
+        self._run_in_tx(op, tx_hint=tx_hint)
+        self.catalog.invalidate(stmt.table)
+        self._maybe_freeze(stmt.table)
+        return _ok(rowcount=n_upd)
+
+    def _delete_tx(self, stmt: ast.DeleteStmt, params) -> Result:
+        tx, tx_hint = self._stmt_tx()
+        try:
+            rel, mask, tablet, _b, _s = self._matching_rows(
+                stmt.table, stmt.where, params, tx)
+            matched = to_numpy(rel.with_mask(mask))
+            n_del = len(next(iter(matched.values()))) if matched else 0
+
+            def op(tx):
+                for i in range(n_del):
+                    values = _row_values(matched, tablet.columns, i)
+                    self._txsvc.write(
+                        tx, stmt.table, tablet,
+                        tuple(values[k] for k in tablet.key_cols),
+                        "delete", values)
+
+            self._run_in_tx(op, tx_hint=tx_hint)
+        except Exception:
+            if tx_hint is not None and tx_hint.state.value == "active":
+                self._txsvc.rollback(tx_hint)
+            raise
+        self.catalog.invalidate(stmt.table)
+        self._maybe_freeze(stmt.table)
+        return _ok(rowcount=n_del)
+
+    def _maybe_freeze(self, table: str):
+        """Memstore-pressure freeze: an active memtable beyond the
+        configured row budget flushes to L0 (≙ freeze trigger)."""
+        ts = self._engine.tables.get(table)
+        if ts is None:
+            return
+        cfg = self.tenant.config
+        if len(ts.tablet.active) >= int(cfg["memstore_limit_rows"]):
+            # horizon-clamped: versions newer than a live transaction's
+            # snapshot must stay in the memtables or its write-conflict
+            # check goes blind (lost update)
+            self._engine.freeze_and_flush(
+                table, snapshot=self._txsvc.flush_snapshot())
+            self.catalog.invalidate(table)
+            l0 = sum(1 for s in ts.tablet.segments if s.level == 0)
+            if l0 >= int(cfg["minor_compact_trigger"]):
+                self._engine.minor_compact(table)
+
+    def _tx_drain_fence(self, timeout_s: float = 10.0):
+        """-> callable waiting out transactions live NOW (their earlier
+        writes predate index maintenance); the online-DDL write fence
+        (≙ ObDDLService waiting on the schema-version tx barrier)."""
+        svc = self._txsvc
+        own_tx = self._tx.tx_id if self._tx is not None else None
+
+        def drain():
+            # captured HERE: engine.create_index calls the fence after
+            # installing the IndexDef, so every transaction whose writes
+            # could have escaped maintenance is in this set
+            with svc._lock:
+                live_before = set(svc._live)
+            # the session's own open transaction cannot be waited on
+            live_before.discard(own_tx)
+            deadline = time.monotonic() + timeout_s
+            while True:
+                with svc._lock:
+                    if not (live_before & set(svc._live)):
+                        return
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        "CREATE INDEX timed out waiting for in-flight "
+                        "transactions to finish")
+                time.sleep(0.01)
+        return drain
+
+    def _create_table_as(self, stmt: ast.CreateTableStmt) -> Result:
+        """CREATE TABLE AS SELECT: schema inferred from the result set,
+        rows direct-loaded (≙ CTAS via the direct-load path)."""
+        res = self._execute_select(stmt.as_select, None)
+        cols = [ColumnDef(name, res.dtypes.get(name, SqlType.int_()))
+                for name in res.names]
+        tdef = TableDef(stmt.name, cols)
+        self.catalog.create_table(tdef, if_not_exists=stmt.if_not_exists)
+        arrays, valids = {}, {}
+        for name in res.names:
+            arr = res.arrays[name]
+            t = res.dtypes.get(name)
+            if t is not None and t.is_string:
+                # NULL lanes carry None payloads; validity is authoritative
+                arrays[name] = np.array(
+                    [x if x is not None else "" for x in arr], dtype=object)
+            else:
+                arrays[name] = arr
+            v = res.valids.get(name)
+            if v is not None and not v.all():
+                valids[name] = v
+        if res.rowcount:
+            self._engine.bulk_load(stmt.name, arrays, valids or None,
+                                   version=self._txsvc.gts.get_ts())
+        self.catalog.invalidate(stmt.name)
+        tdef.row_count = res.rowcount
+        return _ok(rowcount=res.rowcount)
+
+    def _truncate(self, stmt: ast.TruncateStmt) -> Result:
+        """TRUNCATE TABLE: DDL semantics — implicit commit of the open
+        transaction (MySQL), a WAL barrier, a fresh tablet.
+
+        The reference takes an exclusive table lock so live writers'
+        group-committed redo lands before the barrier; the table-lock
+        manager waits for ROADMAP Queue 1 item 5b, so this refuses with
+        WriteConflict while another live transaction has written the
+        table, instead of waiting for it."""
+        if self.db is None:
+            raise _needs_db("TRUNCATE")
+        self.catalog.table_def(stmt.table)  # existence check
+        if self._tx is not None:
+            self._txsvc.commit(self._tx)  # DDL implies COMMIT
+            self._tx = None
+        svc = self._txsvc
+        with svc._lock:
+            writers = sorted(t.tx_id for t in svc._live.values()
+                             if stmt.table in t.participants)
+        if writers:
+            raise WriteConflict(
+                f"TRUNCATE {stmt.table}: written by live transaction(s) "
+                f"{writers}")
+        tx = svc.begin()
+        try:
+            lsn = svc._log({"op": "truncate", "table": stmt.table})
+            self._engine.truncate_table(stmt.table, wal_lsn=lsn)
+        finally:
+            svc.commit(tx)
+        self.catalog.invalidate(stmt.table)
+        return _ok()
+
+    def _alter_system(self, stmt: ast.AlterSystemStmt) -> Result:
+        if self.db is None:
+            raise _needs_db("ALTER SYSTEM")
+        if stmt.action == "set":
+            self.db.config.set(stmt.name, stmt.value)
+            return _ok()
+        if stmt.action == "calibrate":
+            raise _needs("ALTER SYSTEM CALIBRATE", _MEASURE)
+        # MINOR/MAJOR FREEZE, CHECKPOINT: flush every table at the
+        # horizon, not gts-now (versions newer than a live transaction's
+        # snapshot must stay in the memtables)
+        eng = self._engine
+        snap = self._txsvc.flush_snapshot()
+        for name in list(eng.tables):
+            eng.freeze_and_flush(name, snapshot=snap)
+            if stmt.action == "major_freeze":
+                eng.major_compact(name)
+            self.catalog.invalidate(name)
+        return _ok()
+
+
+def _py(x):
+    """A numpy scalar as its Python value (strings stay strings)."""
+    return x.item() if hasattr(x, "item") else x
+
+
+def _row_values(matched: dict, columns, i: int) -> dict:
+    """Row ``i`` of a ``to_numpy`` result as {column: Python value or
+    None}, over the tablet's columns present in it."""
+    out = {}
+    for c in columns:
+        if c in matched:
+            vd = matched.get("__valid__" + c)
+            out[c] = None if vd is not None and not vd[i] \
+                else _py(matched[c][i])
+    return out
+
+
+def materialize_host(arrays: dict, valids: dict, dtypes: dict,
+                     outputs: list) -> Result:
+    """Host columns (the spill tier's result) -> a ``Result`` over the
+    statement's ``outputs`` ([(column id, name)]), the reference
+    session's ``_materialize_host``: ``Result.rows()`` descales the raw
+    scaled DECIMAL ints with the returned dtypes."""
+    names, out_a, out_v, out_t = [], {}, {}, {}
+    n = len(next(iter(arrays.values()))) if arrays else 0
+    for cid, name in outputs:
+        out_name = name
+        k = 2
+        while out_name in out_a:
+            out_name = f"{name}_{k}"
+            k += 1
+        names.append(out_name)
+        a = arrays.get(cid)
+        if a is None:
+            if n:
+                raise KeyError(f"spill result missing output column {cid} "
+                               f"({name})")
+            a = np.zeros(0, dtype=np.int64)  # no batch survived
+        out_a[out_name] = a
+        out_v[out_name] = valids.get(cid)
+        t = dtypes.get(cid)
+        if t is None:
+            if a.dtype == object or a.dtype.kind in "US":
+                t = SqlType.string()
+            elif a.dtype.kind == "f":
+                t = SqlType.double()
+            elif a.dtype.kind == "b":
+                t = SqlType.bool_()
+            else:
+                t = SqlType.int_()
+        out_t[out_name] = t
+    return Result(names, out_a, out_v, out_t, rowcount=n)
+
 
 def _as_literal(e, params) -> ir.Literal:
     if isinstance(e, ir.Literal):
@@ -719,4 +1417,4 @@ def format_plan(node, indent: int = 0) -> str:
                                for c in node.children()])
 
 
-__all__ = ["Result", "Session", "format_plan"]
+__all__ = ["Result", "Session", "format_plan", "materialize_host"]

@@ -1,0 +1,158 @@
+"""Transactional secondary-index maintenance.
+
+A copy of ``oceanbase_tpu/storage/indexes.py``.
+
+Reference analog: the DML write path updating local index tablets in the
+same transaction as the data table (src/storage/ob_dml_running_ctx +
+index-table DAS write tasks; uniqueness via
+src/storage/ob_rowkey_duplication_checker-style lookups).
+
+Every index is an index TABLE whose key is (index columns + primary-key
+columns).  Maintenance runs inside ``TransService.write`` BEFORE the base
+row is written: the pre-image is read through the LSM (own-transaction
+writes visible), stale entries are tombstoned and new entries inserted
+via recursive ``svc.write`` calls — so index writes ride the same WAL
+redo, participant tracking, statement rollback, and recovery replay as
+any other write, for free.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from oceanbase_tpu_torch.storage.lookup import point_lookup, range_rows
+
+
+class IndexKeyLocks:
+    """In-flight unique-index rowkey locks.
+
+    ≙ the reference holding an index-rowkey lock across the duplicate
+    check (ObRowkeyDuplicationChecker path): a writer inserting value V
+    into a unique index takes the (index, V) lock before checking and
+    holds it until its transaction ends, so (a) two concurrent inserters
+    of V serialize (the loser fails fast with WriteConflict, matching
+    this build's no-wait conflict model), and (b) the duplicate check is
+    atomic with respect to commit — no window where another transaction
+    commits V between our check and our commit."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._held: dict[tuple, int] = {}    # (index table, prefix) -> tx
+        # tx -> {key: stmt_seq of FIRST acquisition} (statement rollback
+        # must release only locks its statement introduced)
+        self._by_tx: dict[int, dict] = {}
+
+    def acquire(self, table: str, prefix: tuple, tx_id: int,
+                stmt_seq: int = 0):
+        from oceanbase_tpu_torch.tx.errors import WriteConflict
+
+        k = (table, prefix)
+        with self._lock:
+            holder = self._held.get(k)
+            if holder is not None and holder != tx_id:
+                raise WriteConflict(
+                    f"unique index {table} value {prefix} being "
+                    f"inserted by tx {holder}")
+            self._held[k] = tx_id
+            self._by_tx.setdefault(tx_id, {}).setdefault(k, stmt_seq)
+
+    def release_all(self, tx_id: int):
+        with self._lock:
+            for k in self._by_tx.pop(tx_id, {}):
+                if self._held.get(k) == tx_id:
+                    del self._held[k]
+
+    def release_stmt(self, tx_id: int, min_stmt_seq: int):
+        """Release locks first acquired at stmt_seq >= min_stmt_seq (the
+        rolled-back statement's acquisitions; earlier statements keep
+        theirs — their index entries are still pending commit)."""
+        with self._lock:
+            mine = self._by_tx.get(tx_id)
+            if not mine:
+                return
+            for k in [k for k, s in mine.items() if s >= min_stmt_seq]:
+                del mine[k]
+                if self._held.get(k) == tx_id:
+                    del self._held[k]
+
+
+def maintain_indexes(svc, engine, tx, table: str, tablet, key: tuple,
+                     op: str, values: dict):
+    """Write index-table entries matching a base-table write.
+
+    MUST be called before the base ``tablet.write`` so the pre-image is
+    still the old row.  ``values`` must carry every indexed column for
+    insert/update ops (the session DML paths write full rows)."""
+    ts = engine.tables.get(table)
+    if ts is None or not ts.tdef.indexes:
+        return
+    old = point_lookup(tablet, key, tx.snapshot, tx.tx_id)
+    newvals = dict(values)
+    for kc, kv in zip(tablet.key_cols, key):
+        if newvals.get(kc) is None:
+            newvals[kc] = kv
+    for ix in ts.tdef.indexes:
+        istore = engine.tables.get(ix.storage_table)
+        if istore is None:  # index dropped concurrently
+            continue
+        itab = istore.tablet
+        ikey_cols = itab.key_cols
+        old_ekey = (tuple(old.get(c) for c in ikey_cols)
+                    if old is not None else None)
+        if op == "delete":
+            if old_ekey is not None:
+                svc.write(tx, ix.storage_table, itab, old_ekey, "delete",
+                          dict(zip(ikey_cols, old_ekey)))
+            continue
+        new_ekey = tuple(newvals.get(c) for c in ikey_cols)
+        if old_ekey == new_ekey:
+            continue  # indexed columns unchanged
+        if ix.unique and all(newvals.get(c) is not None
+                             for c in ix.columns):
+            _check_unique(svc, tx, ix, itab, new_ekey, ikey_cols)
+        if old_ekey is not None:
+            svc.write(tx, ix.storage_table, itab, old_ekey, "delete",
+                      dict(zip(ikey_cols, old_ekey)))
+        svc.write(tx, ix.storage_table, itab, new_ekey, "insert",
+                  dict(zip(ikey_cols, new_ekey)))
+
+
+def _check_unique(svc, tx, ix, itab, new_ekey: tuple, ikey_cols):
+    """MySQL unique-index semantics: no two live rows may share non-NULL
+    values on all index columns (rows with any NULL never conflict).
+    Own-transaction writes are visible to the check.
+
+    Two layers (≙ the reference locking the index rowkey during the
+    duplicate check):
+    1. rowkey lock — the (index, value) lock serializes concurrent
+       inserters of the same value; an uncommitted rival holds it, so we
+       fail fast with WriteConflict instead of scanning memtables;
+    2. committed check — read the index range at the LATEST committed
+       state (not the transaction snapshot: an entry committed after our
+       snapshot by an already-finished transaction must still conflict);
+       any live entry with the same index-column prefix but a different
+       base row -> DuplicateKey.  The lock from layer 1 is held until
+       our transaction ends, so no rival can slip a commit in between
+       this check and ours."""
+    from oceanbase_tpu_torch.storage.lookup import _INF
+
+    n_ix = len(ix.columns)
+    prefix = new_ekey[:n_ix]
+    svc.index_locks.acquire(ix.storage_table, prefix, tx.tx_id,
+                            stmt_seq=tx.stmt_seq)
+    ranges = {c: (v, v) for c, v in zip(ix.columns, prefix)}
+    # read at _INF = the latest committed state plus own-tx writes (own
+    # uncommitted versions rank exactly _INF in _tablet_newest; sharing
+    # the constant keeps that visibility invariant in one place)
+    arrays, _valids = range_rows(itab, ranges, _INF, tx.tx_id,
+                                 columns=list(ikey_cols))
+    m = len(next(iter(arrays.values()))) if arrays else 0
+    for i in range(m):
+        ek = tuple(arrays[c][i].item()
+                   if hasattr(arrays[c][i], "item") else arrays[c][i]
+                   for c in ikey_cols)
+        if ek[n_ix:] != new_ekey[n_ix:]:  # a different base row
+            from oceanbase_tpu_torch.tx.errors import DuplicateKey
+
+            raise DuplicateKey(
+                f"duplicate entry {prefix} for unique index {ix.name}")
