@@ -54,6 +54,15 @@ Phases, each printing its own lines:
    between two sessions), a checkpoint, more commits, and a reopen from
    the same directory without ``close()`` that replays the WAL tail and
    must read back every committed row, Q1 and Q6;
+8c. load: the eight tables written as ``|``-delimited files and loaded
+   by LOAD DATA INFILE (the native CSV tokenizer) into a fresh
+   ``Database`` whose lineitem and orders are RANGE-partitioned on the
+   order key into 8 partitions, ANALYZEd, the 22 queries against
+   SQLite, then a refused duplicate INSERT, REPLACE, a partition-moving
+   UPDATE, AUTO_INCREMENT and a sequence, SAVEPOINT over lineitem, ALTER
+   TABLE ADD/DROP COLUMN, LOCK TABLES between two sessions and an XA
+   branch left prepared, and a reopen without ``close()`` that commits
+   the branch and reads all of it back with Q1 and Q6;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
    and printed after it: the stream, spill and SQL paths, like the JAX
@@ -93,6 +102,10 @@ DB_POINT_OPS = 200
 DB_SEED = 11
 # the TPC-H queries its spill tier runs with lineitem streamed, and those
 # it refuses (NotDistributable)
+# phase load: RANGE partitions of lineitem and orders on the order key,
+# and the autocommit INSERTs of new orders keys it times
+LOAD_PARTITIONS = 8
+LOAD_POINT_INSERTS = 50
 SPILL_QUERIES = (1, 3, 5, 6, 7, 8, 9, 10, 12, 14, 19)
 SPILL_REFUSED = (4, 13, 15, 17, 18, 20, 21, 22)
 J1_PARTITIONS = 16
@@ -891,6 +904,302 @@ def phase_db(torch, dev, tables, types, card, want):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _order_row(k, price="123.45", note="load phase") -> str:
+    return (f"({k}, 1, 'O', {price}, '1998-01-01', '1-URGENT', "
+            f"'Clerk#000000001', 0, '{note}')")
+
+
+def phase_load(torch, dev, tables, types, card, want):
+    """Phase load: TPC-H as OceanBase's users load it — ``|``-delimited
+    files, ``lineitem`` and ``orders`` RANGE-partitioned on the order key
+    (``LOAD_PARTITIONS`` partitions of equal key width), LOAD DATA INFILE
+    through the native tokenizer into a fresh ``Database`` on the card,
+    ANALYZE, the 22 queries against SQLite; then the statement surface on
+    the loaded data (the duplicate-key check, REPLACE, a partition-moving
+    UPDATE, AUTO_INCREMENT and a sequence, SAVEPOINT, ALTER TABLE, LOCK
+    TABLES, an XA branch left prepared) and a reopen without ``close()``
+    that recovers all of it."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+
+    from oceanbase_tpu_torch.bench.tbl import create_table_sql, write_tbl
+    from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.server.database import Database
+    from oceanbase_tpu_torch.tx.errors import DuplicateKey, WriteConflict
+
+    root = tempfile.mkdtemp(prefix="ob_load_")
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+        print(f"[load] step {name}: {steps[name]:.3f} s", flush=True)
+
+    try:
+        t0 = time.perf_counter()
+        files = {}
+        for name, arrays in tables.items():
+            files[name] = os.path.join(root, f"{name}.tbl")
+            write_tbl(files[name], arrays,
+                      {k: v for k, v in types.items() if k in arrays})
+        step("write .tbl files", t0)
+        torch.cuda.reset_peak_memory_stats()
+        db = Database(os.path.join(root, "db"), device=dev)
+        sess = db.session()
+        od = tables["orders"]
+        top = int(od["o_orderkey"].max()) + 1
+        bounds = [top * i // LOAD_PARTITIONS
+                  for i in range(1, LOAD_PARTITIONS)]
+        t0 = time.perf_counter()
+        for name, arrays in tables.items():
+            part = None
+            if name in ("orders", "lineitem"):
+                part = (name[0] + "_orderkey", bounds)
+            sess.execute(create_table_sql(
+                name, arrays, {k: v for k, v in types.items()
+                               if k in arrays},
+                TPCH_PRIMARY_KEYS[name], part))
+            nbytes = os.path.getsize(files[name])
+            t1 = time.perf_counter()
+            res = sess.execute(f"load data infile '{files[name]}' into "
+                               f"table {name} fields terminated by '|'")
+            secs = time.perf_counter() - t1
+            n = len(next(iter(arrays.values())))
+            if res.rowcount != n or sess.last_load["route"] != "native":
+                raise AssertionError(f"LOAD DATA {name}: {res.rowcount} "
+                                     f"rows of {n}, {sess.last_load}")
+            print(f"[load] {name}: {n} rows, {nbytes} bytes in "
+                  f"{secs:.3f} s ({nbytes / secs / 1e6:.1f} MB/s), native "
+                  f"tokenizer{', ' + str(LOAD_PARTITIONS) + ' partitions' if part else ''}",
+                  flush=True)
+        step("LOAD DATA of 8 tables", t0)
+        for name in ("orders", "lineitem"):
+            parts = db.engine.tables[name].tablet.partitions
+            print(f"[load] {name} rows per partition: "
+                  f"{[sum(sg.n_rows for sg in p.segments) for p in parts]}")
+        t0 = time.perf_counter()
+        for name in tables:
+            sess.execute(f"analyze table {name}")
+        torch.cuda.synchronize()
+        step("ANALYZE", t0)
+        for name in tables:
+            rel = db.catalog.table_data(name)
+            if rel.device.type != dev.type:
+                raise AssertionError(f"{name}'s relation is on {rel.device}")
+        print(f"[load] table_data relations of all {len(tables)} tables on "
+              f"{dev}")
+
+        t0 = time.perf_counter()
+        got, total_ms, n_spilled = {}, 0.0, 0
+        for q, sql in sorted(QUERIES.items()):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = sess.execute(sql)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            got[q] = res.rows()
+            total_ms += ms
+            st = sess.last_spill
+            n_spilled += st is not None
+            route = f"spilled ({_stats_text(st)})" if st is not None \
+                else f"in memory (retries={sess.last_retries})"
+            print(f"[load] q{q}: {ms:.3f} ms (one run), rows={len(got[q])},"
+                  f" {route}; {card}", flush=True)
+        check_tpch(got, want, " (load)")
+        print(f"[load] all 22 queries match SQLite, {n_spilled} through "
+              f"the spill route over the chained partitions; "
+              f"{total_ms:.3f} ms in all")
+        step("22 queries", t0)
+
+        # -- the statement surface on the loaded data ---------------------
+        t0 = time.perf_counter()
+        n_ord = len(od["o_orderkey"])
+        dup = int(od["o_orderkey"][n_ord // 3])
+        try:
+            sess.execute(f"insert into orders values {_order_row(dup)}")
+        except DuplicateKey as e:
+            print(f"[load] INSERT of loaded key {dup} refused: {e}")
+        else:
+            raise AssertionError("a duplicate INSERT over the loaded "
+                                 "baseline committed")
+        ins_ms = []
+        fresh = [top + 10 + i for i in range(LOAD_POINT_INSERTS)]
+        for k in fresh:
+            t1 = time.perf_counter()
+            sess.execute(f"insert into orders values {_order_row(k)}")
+            ins_ms.append((time.perf_counter() - t1) * 1e3)
+        print(f"[load] {LOAD_POINT_INSERTS} autocommit INSERTs of new "
+              f"orders keys (the duplicate check over memtables and "
+              f"segments): p50 {_pct(ins_ms, 50):.3f} ms p99 "
+              f"{_pct(ins_ms, 99):.3f} ms; {card}")
+        rep_old = int(od["o_orderkey"][n_ord // 2])
+        rep_new = top + 5
+        sess.execute(f"replace into orders values "
+                     f"{_order_row(rep_old, '7.77', 'replaced')}, "
+                     f"{_order_row(rep_new, '8.88', 'replaced')}")
+        for k, p in ((rep_old, 7.77), (rep_new, 8.88)):
+            rows = sess.execute(f"select o_totalprice, o_comment from "
+                                f"orders where o_orderkey = {k}").rows()
+            if rows != [(p, "replaced")]:
+                raise AssertionError(f"REPLACE of {k} reads {rows}")
+        mv_old = int(od["o_orderkey"][5])          # partition 0
+        mv_new = top + 1                            # the last partition
+        n = sess.execute(f"update orders set o_orderkey = {mv_new} where "
+                         f"o_orderkey = {mv_old}").rowcount
+        moved = sess.execute(f"select count(*) from orders where "
+                             f"o_orderkey in ({mv_old}, {mv_new})").rows()
+        a = sess.execute(f"select o_custkey from orders where o_orderkey = "
+                         f"{mv_new}").rows()
+        if n != 1 or moved != [(1,)] or \
+                a != [(int(od["o_custkey"][5]),)]:
+            raise AssertionError(f"partition-moving UPDATE: {n}, {moved}, "
+                                 f"{a}")
+        n_orders = n_ord + LOAD_POINT_INSERTS + 1   # + fresh + rep_new
+        print(f"[load] REPLACE of an existing and a new key, and the "
+              f"partition-moving UPDATE of {mv_old} -> {mv_new} read back")
+
+        sess.execute("create table ev (id int primary key auto_increment, "
+                     "okey int, note varchar(16))")
+        sess.execute("create sequence seq start 1000 increment 10")
+        sess.execute(f"insert into ev (okey, note) values ({mv_new}, "
+                     f"'moved'), ({rep_new}, 'replaced')")
+        sess.execute("insert into ev values (nextval('seq'), 0, 'seq')")
+        ev_rows = sess.execute("select id, okey, note from ev order by "
+                               "id").rows()
+        if [r[0] for r in ev_rows] != [1, 2, 1000]:
+            raise AssertionError(f"AUTO_INCREMENT/sequence ids {ev_rows}")
+        sess.execute("alter table ev add column tag varchar(8)")
+
+        lk = (int(tables["lineitem"]["l_orderkey"][7]),
+              int(tables["lineitem"]["l_linenumber"][7]))
+        where = f"l_orderkey = {lk[0]} and l_linenumber = {lk[1]}"
+        sess.execute("begin")
+        sess.execute(f"update lineitem set l_comment = 'kept' where {where}")
+        sess.execute("savepoint sp")
+        sess.execute(f"delete from lineitem where {where}")
+        sess.execute("rollback to savepoint sp")
+        sess.execute("commit")
+        rows = sess.execute(f"select l_comment from lineitem where "
+                            f"{where}").rows()
+        if rows != [("kept",)]:
+            raise AssertionError(f"SAVEPOINT over lineitem reads {rows}")
+        print("[load] AUTO_INCREMENT ids 1, 2 and nextval 1000; SAVEPOINT "
+              "/ ROLLBACK TO in a transaction writing lineitem kept the "
+              "update and undid the delete")
+
+        sess.execute("alter table orders add column o_note varchar(16)")
+        sess.execute(f"update orders set o_note = 'moved' where "
+                     f"o_orderkey = {mv_new}")
+        notes = sess.execute("select o_note, count(*) from orders group by "
+                             "o_note order by o_note").rows()
+        if notes != [(None, n_orders - 1), ("moved", 1)]:
+            raise AssertionError(f"ADD COLUMN reads {notes}")
+        sess.execute("alter table orders drop column o_note")
+        if "o_note" in [c.name for c in db.catalog.table_def(
+                "orders").columns]:
+            raise AssertionError("DROP COLUMN left o_note")
+        print(f"[load] ALTER TABLE orders ADD COLUMN reads NULL for the "
+              f"{n_orders - 1} loaded rows and the set value, then DROP "
+              f"COLUMN")
+
+        s2 = db.session()
+        sess.execute("set global lock_wait_timeout_s = 0.5")
+        sess.execute("lock tables orders write")
+        try:
+            s2.execute(f"insert into orders values {_order_row(top + 2)}")
+        except WriteConflict as e:
+            print(f"[load] a second session's INSERT under LOCK TABLES "
+                  f"orders WRITE timed out: {e}")
+        else:
+            raise AssertionError("a write under another session's LOCK "
+                                 "TABLES WRITE did not wait")
+        sess.execute("set global lock_wait_timeout_s = 60")
+        done = {}
+
+        def blocked_write():
+            s2.execute(f"insert into orders values {_order_row(top + 2)}")
+            done["at"] = time.perf_counter()
+
+        th = threading.Thread(target=blocked_write, daemon=True)
+        th.start()
+        time.sleep(0.5)
+        if done:
+            raise AssertionError("the write did not wait for UNLOCK")
+        released = time.perf_counter()
+        sess.execute("unlock tables")
+        th.join(timeout=60)
+        if "at" not in done:
+            raise AssertionError("the write did not proceed after UNLOCK")
+        n_orders += 1
+        print(f"[load] after UNLOCK TABLES the waiting INSERT went on in "
+              f"{(done['at'] - released) * 1e3:.3f} ms")
+
+        s3 = db.session()
+        xa_key = top + 3
+        for sql in ("xa start 'load-x1'",
+                    f"insert into orders values {_order_row(xa_key)}",
+                    "xa end 'load-x1'", "xa prepare 'load-x1'"):
+            s3.execute(sql)
+        if sess.execute("xa recover").rows() != [("load-x1",)]:
+            raise AssertionError("XA RECOVER misses the prepared branch")
+        step("statement surface", t0)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[load] peak device memory {peak} B; {_dir_bytes(root)} "
+              f"bytes on disk")
+
+        # -- drop without close() and reopen ------------------------------
+        del sess, s2, s3, db
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        db = Database(os.path.join(root, "db"), device=dev)
+        print(f"[load] reopen {time.perf_counter() - t0:.3f} s, replayed "
+              f"{db.tenant().replayed_entries} WAL entries")
+        sess = db.session()
+        if sess.execute("xa recover").rows() != [("load-x1",)]:
+            raise AssertionError("reopened: XA RECOVER misses the branch")
+        sess.execute("xa commit 'load-x1'")
+        n_orders += 1
+        checks = {
+            "select count(*) from orders": [(n_orders,)],
+            f"select count(*) from orders where o_orderkey in ({mv_old}, "
+            f"{dup})": [(1,)],
+            f"select o_custkey from orders where o_orderkey = {mv_new}":
+                [(int(od["o_custkey"][5]),)],
+            f"select o_totalprice from orders where o_orderkey = "
+            f"{rep_old}": [(7.77,)],
+            f"select count(*) from orders where o_orderkey = {xa_key}":
+                [(1,)],
+            f"select l_comment from lineitem where {where}": [("kept",)],
+        }
+        for sql, rows in checks.items():
+            got_rows = sess.execute(sql).rows()
+            if got_rows != rows:
+                raise AssertionError(f"reopened: {sql} -> {got_rows}, "
+                                     f"want {rows}")
+        sess.execute("insert into ev (okey, note, tag) values (0, 'after', "
+                     "'reopen')")
+        ev_rows = sess.execute("select id, tag from ev order by id").rows()
+        if ev_rows != [(1, None), (2, None), (1000, None),
+                       (1001, "reopen")]:
+            raise AssertionError(f"reopened: ev reads {ev_rows}")
+        reread = {}
+        for q in (1, 6):
+            reread[q] = sess.execute(QUERIES[q]).rows()
+        check_tpch(reread, want, " (reopened load)")
+        print(f"[load] the reopened database reads back every committed "
+              f"row ({n_orders} orders), commits the prepared XA branch, "
+              f"keeps ev's added column and AUTO_INCREMENT counter (next "
+              f"id 1001), and Q1 and Q6 equal SQLite; {card}")
+        db.close()
+        print(f"[load] steps: " + ", ".join(f"{k} {v:.3f} s"
+                                            for k, v in steps.items()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -974,6 +1283,10 @@ def main() -> int:
     _, counts = timed_phase("db", phase_db, torch, dev, tables, types, card,
                             want)
     print(f"[db] kernel launches: {counts}")
+    torch.cuda.empty_cache()
+    _, counts = timed_phase("load", phase_load, torch, dev, tables, types,
+                            card, want)
+    print(f"[load] kernel launches: {counts}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -685,7 +685,8 @@ def segment_chunk_provider(tablet, snapshot: int):
     visible part are read first, ``segment.key_ids`` numbers the key
     tuples, and ``np.unique(..., return_index=True)`` over the parts in
     LSM order finds each key's first appearance.  The parts' other
-    columns are decoded afterwards, one part at a time.  Zone-map
+    columns are decoded afterwards, one part at a time; a column a
+    segment predates (ALTER TABLE ADD COLUMN) reads as NULL.  Zone-map
     ``bounds`` prune only columns whose stored values share the integer
     literal's domain: the reference also prunes DECIMAL columns by the
     unscaled literal and drops the chunks that match (ROADMAP Queue 3
@@ -742,6 +743,16 @@ def segment_chunk_provider(tablet, snapshot: int):
                     arrays = {k: x[vis] for k, x in arrays.items()}
                     valids = {k: (x[vis] if x is not None else None)
                               for k, x in valids.items()}
+                # a column added after this segment was written (ALTER
+                # TABLE ADD COLUMN rewrites nothing) reads as NULL
+                n = len(next(iter(arrays.values()))) if arrays else 0
+                for c in tablet.columns:
+                    if c not in arrays:
+                        t = tablet.types[c]
+                        arrays[c] = (np.full(n, "", dtype=object)
+                                     if t.is_string
+                                     else np.zeros(n, dtype=t.np_dtype))
+                        valids[c] = np.zeros(n, dtype=bool)
                 return arrays, valids
 
             parts.append(([ka[k] for k in key_cols], ka.get("__deleted__"),

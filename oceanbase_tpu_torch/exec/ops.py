@@ -503,9 +503,15 @@ def _lowcard_groupby(rel, group_by, aggs, out_capacity, n, m):
 
 def _count_distinct(minor_to_major, key_cols, rel, spec, n):
     """COUNT(DISTINCT arg) per group: re-sort by (group keys, arg) and
-    count first-occurrence flags per group."""
+    count first-occurrence flags per group.  NULL lanes sort behind the
+    valid ones of their group, so a NULL whose payload equals a value
+    cannot hide that value's first occurrence (the reference sorts by
+    the raw payload alone and can miss it: ROADMAP Queue 3 #5)."""
     ac = eval_expr(spec.arg, rel)
-    order2 = lexsort([ac.data] + list(minor_to_major))
+    mm = [ac.data]
+    if ac.valid is not None:
+        mm.append((~ac.valid).to(torch.int8))
+    order2 = lexsort(mm + list(minor_to_major))
     m = rel.mask_or_true()
     l2 = take(m, order2)
     d2 = take(ac.data, order2)
@@ -548,7 +554,9 @@ def scalar_agg(rel: Relation, aggs: Sequence[AggSpec]) -> Relation:
             out[spec.name] = Column(cnt.reshape(1), None, SqlType.int_())
             continue
         if spec.fn == "count_distinct":
-            order = _sort_stable(ac.data)
+            # counted lanes first, then by value: a NULL or dead lane
+            # with a value's payload cannot hide it (ROADMAP Queue 3 #5)
+            order = lexsort([ac.data, (~weight).to(torch.int8)])
             newval = _neq_prev(take(ac.data, order))
             v = (newval & take(weight, order)).to(torch.int64).sum()
             out[spec.name] = Column(v.reshape(1), None, SqlType.int_())

@@ -1,0 +1,131 @@
+"""OBKV-style table API: key-value access bypassing the SQL compiler.
+
+Port of ``oceanbase_tpu/kv.py`` (host only), plus ``live_keys``: the
+batched existence test REPLACE INTO reads through (one zone-map-pruned
+decode per segment for a whole statement, ``storage/lookup.py``).
+
+Reference analog: src/libtable + src/observer/table — a typed put/get/
+delete/scan API over the same tablets and transactions as SQL, skipping
+parse/resolve/optimize for point operations.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from oceanbase_tpu_torch.storage.lookup import live_keys, point_lookup
+
+
+class KvTable:
+    """Point/range access to one table through the tx plane."""
+
+    def __init__(self, tenant, table: str):
+        self.tenant = tenant
+        self.table = table
+        self.ts = tenant.engine.tables[table]
+
+    def _key_of(self, key) -> tuple:
+        if isinstance(key, tuple):
+            return key
+        return (key,)
+
+    # ------------------------------------------------------------------
+    def put(self, values: dict, tx=None) -> None:
+        """Insert-or-update by primary key (≙ table api INSERT_OR_UPDATE)."""
+        tablet = self.ts.tablet
+        full = {c: values.get(c) for c in tablet.columns
+                if c != "__rowid__"}
+        key = tablet.make_key(dict(values))
+        # copy allocated key columns (hidden rowids) back into the stored
+        # row — otherwise every keyless put persists a NULL rowid and
+        # newest-wins dedup collapses all rows into one
+        for kc, kv in zip(tablet.key_cols, key):
+            full[kc] = kv
+        svc = self.tenant.tx
+        own = tx is None
+        if own:
+            tx = svc.begin()
+        try:
+            # full LSM lookup (memtables AND segments): the redo/CDC op
+            # kind must reflect whether the key truly exists
+            exists = self.get(key, snapshot=tx.snapshot) is not None
+            svc.write(tx, self.table, tablet, key,
+                      "update" if exists else "insert", full)
+        except Exception:
+            if own:
+                svc.rollback(tx)
+            raise
+        if own:
+            svc.commit(tx)
+        self.tenant.catalog.invalidate(self.table)
+
+    def get(self, key, columns: Optional[list] = None,
+            snapshot: int | None = None, tx_id: int = 0) -> Optional[dict]:
+        """Point lookup riding the index-aware LSM read path
+        (storage/lookup.py): memtables newest-first, then key-sorted
+        segments with zone-map chunk pruning — O(chunks-holding-key)
+        decode, not a whole-segment scan.  ``tx_id`` makes the
+        transaction's own uncommitted writes visible."""
+        tablet = self.ts.tablet
+        key = self._key_of(key)
+        snap = snapshot if snapshot is not None else \
+            self.tenant.tx.gts.current()
+        best = point_lookup(tablet, key, snap, tx_id)
+        if best is None:
+            return None
+        best.pop("__rowid__", None)
+        return {c: best.get(c) for c in (columns or best)}
+
+    def live_keys(self, keys, snapshot: int | None = None,
+                  tx_id: int = 0) -> set:
+        """The keys among ``keys`` a ``get`` would find, in one batch."""
+        snap = snapshot if snapshot is not None else \
+            self.tenant.tx.gts.current()
+        return live_keys(self.ts.tablet, [self._key_of(k) for k in keys],
+                         snap, tx_id)
+
+    def delete(self, key, tx=None) -> bool:
+        tablet = self.ts.tablet
+        key = self._key_of(key)
+        existing = self.get(key)
+        if existing is None:
+            return False
+        svc = self.tenant.tx
+        own = tx is None
+        if own:
+            tx = svc.begin()
+        try:
+            values = dict(existing)
+            for kc, kv in zip(tablet.key_cols, key):
+                values[kc] = kv
+            svc.write(tx, self.table, tablet, key, "delete", values)
+        except Exception:
+            if own:
+                svc.rollback(tx)
+            raise
+        if own:
+            svc.commit(tx)
+        self.tenant.catalog.invalidate(self.table)
+        return True
+
+    def scan(self, limit: int | None = None, snapshot: int | None = None):
+        """Full scan returning row dicts (range scans refine later)."""
+        tablet = self.ts.tablet
+        snap = snapshot if snapshot is not None else \
+            self.tenant.tx.gts.current()
+        arrays, valids = tablet.snapshot_arrays(snap)
+        n = len(next(iter(arrays.values()))) if arrays else 0
+        out = []
+        for i in range(n):
+            if limit is not None and len(out) >= limit:
+                break
+            row = {}
+            for c in tablet.columns:
+                if c == "__rowid__":
+                    continue
+                vd = valids.get(c)
+                x = arrays[c][i]
+                row[c] = (None if vd is not None and not vd[i]
+                          else x.item() if hasattr(x, "item") else x)
+            out.append(row)
+        return out

@@ -3,8 +3,11 @@
 Port of ``oceanbase_tpu/native.py`` for the codecs the storage and WAL
 planes use: ``crc64`` (WAL entries, segment chunks, manifest and slog
 records), the delta + zigzag + varint integer codec (segment payloads)
-and the run-length scan.  The CSV tokenizer and field parsers wait for
-LOAD DATA (ROADMAP Queue 1 item 5b).
+the run-length scan, and the CSV tokenizer and field parsers LOAD DATA
+runs on (``csv_tokenize``, ``parse_int64_fields``, ``field_strings``).
+``field_strings`` reads ASCII fields through a fixed-width byte view in
+numpy, where the reference decodes one field at a time; the strings are
+the same.
 
 The library is compiled from ``native/obtpu_native.cpp`` with the host
 C++ compiler into ``oceanbase_tpu_torch/_build/`` at first use, under a
@@ -22,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+from decimal import Decimal
 from pathlib import Path
 
 import numpy as np
@@ -102,6 +106,15 @@ def _load():
         lib.obtpu_rle_runs_i64.restype = ctypes.c_uint64
         lib.obtpu_rle_runs_i64.argtypes = [
             i64p, ctypes.c_uint64, u64p, ctypes.c_uint64]
+        u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        lib.obtpu_csv_tokenize.restype = ctypes.c_uint64
+        lib.obtpu_csv_tokenize.argtypes = [
+            u8p, ctypes.c_uint64, ctypes.c_uint8, ctypes.c_uint64,
+            u64p, u32p, ctypes.c_uint64,
+            ctypes.POINTER(ctypes.c_uint64)]
+        lib.obtpu_parse_int64_fields.restype = ctypes.c_uint64
+        lib.obtpu_parse_int64_fields.argtypes = [
+            u8p, u64p, u32p, ctypes.c_uint64, ctypes.c_int64, i64p, u8p]
         _lib = lib
         return _lib
 
@@ -235,5 +248,123 @@ def rle_run_starts(values: np.ndarray, use_native: bool = True
     return np.nonzero(change)[0]
 
 
-__all__ = ["build", "crc64", "delta_varint_decode", "delta_varint_encode",
-           "library_path", "native_available", "rle_run_starts"]
+# ---------------------------------------------------------------------------
+# CSV tokenizer + field parsers (direct-load fast path; the python csv
+# module remains the fallback and the oracle for quoting semantics)
+# ---------------------------------------------------------------------------
+
+
+def csv_tokenize(data: bytes, n_cols: int, delimiter: str = ",",
+                 use_native: bool = True):
+    """-> (buf, offsets[n_rows*n_cols], lengths, n_rows) or None when the
+    native library is unavailable or the file is ragged (caller falls
+    back to the python csv module)."""
+    lib = _load() if use_native else None
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, dtype=np.uint8)
+    # upper bound on rows: every row ends with \n or a lone \r (counting
+    # \r\n twice only over-allocates)
+    approx_rows = data.count(b"\n") + data.count(b"\r") + 2
+    offsets = np.empty(approx_rows * n_cols, dtype=np.uint64)
+    lengths = np.empty(approx_rows * n_cols, dtype=np.uint32)
+    err = ctypes.c_uint64(0)
+    n_rows = int(lib.obtpu_csv_tokenize(
+        np.ascontiguousarray(buf), len(buf), ord(delimiter), n_cols,
+        offsets, lengths, approx_rows, ctypes.byref(err)))
+    if n_rows == 0 and err.value:
+        return None
+    return buf, offsets[:n_rows * n_cols], lengths[:n_rows * n_cols], n_rows
+
+
+def parse_int64_fields(buf: np.ndarray, offsets, lengths, scale: int = 0,
+                       use_native: bool = True):
+    """Batch-parse tokenized fields into scaled int64 + validity."""
+    lib = _load() if use_native else None
+    n = len(offsets)
+    out = np.empty(n, dtype=np.int64)
+    valid = np.empty(n, dtype=np.uint8)
+    if lib is None:
+        for i in range(n):
+            ln = int(lengths[i]) & 0x7FFFFFFF
+            s = bytes(buf[int(offsets[i]):int(offsets[i]) + ln]).decode()
+            try:
+                if scale:
+                    out[i] = int(Decimal(s).scaleb(scale))
+                else:
+                    out[i] = int(s)
+                valid[i] = 1
+            except Exception:  # noqa: BLE001
+                out[i] = 0
+                valid[i] = 0
+        return out, valid.astype(bool)
+    lib.obtpu_parse_int64_fields(
+        np.ascontiguousarray(buf), np.ascontiguousarray(offsets),
+        np.ascontiguousarray(lengths), n, 10 ** scale, out, valid)
+    return out, valid.astype(bool)
+
+
+def field_bytes(buf, offsets, lengths):
+    """Tokenized fields as a fixed-width bytes (``S``) array, or None
+    when a field is quoted with ``""`` escapes, holds a NUL or a
+    non-ASCII byte (``field_strings`` then decodes them one by one).
+
+    The buffer is viewed as one ``S<w>`` string starting at every byte
+    (a stride-1 view, no copy), so gathering the fields is one fancy
+    index; the bytes past each field's length are then zeroed."""
+    lengths = np.asarray(lengths)
+    if (lengths & 0x80000000).any():
+        return None
+    lens = (lengths & 0x7FFFFFFF).astype(np.int64)
+    n = len(lens)
+    w = int(lens.max()) if n else 0
+    if w == 0:
+        return np.zeros(n, dtype="S1")
+    data = bytes(buf) if not isinstance(buf, (bytes, bytearray)) else buf
+    if len(data) < w:
+        data = data + b"\0" * w  # a tiny buffer: pad it
+    m = len(data) - w + 1  # windows that fit inside the buffer
+    windows = np.ndarray(shape=(m,), dtype=f"S{w}", buffer=data,
+                         strides=(1,))
+    offs = np.asarray(offsets).astype(np.int64)
+    out = windows[np.minimum(offs, m - 1)]
+    for i in np.nonzero(offs >= m)[0]:
+        # a field in the buffer's last w bytes: copied on its own
+        o = int(offs[i])
+        out[i] = data[o:o + int(lens[i])]
+    mat = out.view(np.uint8).reshape(n, w)
+    cols = np.arange(w, dtype=np.int64)
+    step = max(1, (1 << 24) // w)  # rows per block: ~16M bytes checked
+    for s in range(0, n, step):
+        e = min(s + step, n)
+        tail = cols[None, :] >= lens[s:e, None]
+        block = mat[s:e]
+        block[tail] = 0
+        if (block >= 0x80).any() or ((block == 0) & ~tail).any():
+            return None
+    return out
+
+
+def field_strings(buf, offsets, lengths) -> np.ndarray:
+    """Materialize tokenized fields as python strings (unescaping the rare
+    quoted-quote fields flagged in the length high bit).  ``buf`` may be
+    the original bytes object (no copy) or a uint8 array."""
+    fixed = field_bytes(buf, offsets, lengths)
+    if fixed is not None:
+        return fixed.astype("U").astype(object)
+    out = np.empty(len(offsets), dtype=object)
+    data = buf if isinstance(buf, (bytes, bytearray)) else buf.tobytes()
+    for i in range(len(offsets)):
+        ln = int(lengths[i])
+        esc = bool(ln & 0x80000000)
+        ln &= 0x7FFFFFFF
+        o = int(offsets[i])
+        s = data[o:o + ln].decode(errors="replace")
+        out[i] = s.replace('""', '"') if esc else s
+    return out
+
+
+__all__ = ["build", "crc64", "csv_tokenize", "delta_varint_decode",
+           "delta_varint_encode", "field_bytes", "field_strings",
+           "library_path", "native_available", "parse_int64_fields",
+           "rle_run_starts"]

@@ -69,6 +69,16 @@ DEF("memstore_limit_rows", 1_000_000, "int",
 DEF("minor_compact_trigger", 4, "int",
     "L0 segment count triggering minor compaction (≙ minor_compact_trigger)",
     _pos)
+# parallel DML (sql/session.py::_pdml_write) on the tenant worker pool
+DEF("pdml_min_rows", 8192, "int",
+    "parallel-DML threshold: statements writing at least this many rows "
+    "fan the write phase out over tenant workers (≙ enable_parallel_dml "
+    "+ the PDML DFO split, src/sql/engine/pdml)", _pos)
+DEF("pdml_dop", 4, "int", "parallel-DML worker count", _pos)
+DEF("tenant_cpu_quota", 4, "int", "worker threads per tenant unit", _pos)
+# table locks (tx/tablelock.py)
+DEF("lock_wait_timeout_s", 5.0, "float",
+    "implicit DML table-lock wait budget (≙ lock_wait_timeout)", _pos)
 # device-relation cache (server/tenant.py)
 DEF("kv_cache_limit_bytes", 2 << 30, "cap",
     "device-relation (block) cache budget per tenant "

@@ -7,11 +7,13 @@ WAL (an in-process ``PalfCluster``), its ``TransService`` and its
 ``StorageCatalog`` on the tenant's device, replays the WAL tail at boot
 and checkpoints.
 
-What the reference's tenant also wires and the port's does not, each
-waiting for ROADMAP Queue 1 item 5b: the multi-node ``NetPalf`` log,
-sequences, the table-lock manager, the KV and CDC front ends, the
-memstore write throttle and the disk manager; the worker pool and PX
-admission wait for item 7, the trace spans for item 9.
+It also wires the sequences (``share/sequence.py``), the table-lock
+manager (``tx/tablelock.py``), the KV front end (``kv.py``) and the
+worker pool parallel DML submits to.  What the reference's tenant also
+wires and the port's does not: the multi-node ``NetPalf`` log (ROADMAP
+Queue 1 item 5b, sub-item 14), the memstore write throttle and the disk
+manager (sub-item 10), the CDC pump (item 10), PX admission (item 7)
+and the trace spans (item 9).
 """
 
 from __future__ import annotations
@@ -19,12 +21,16 @@ from __future__ import annotations
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+from oceanbase_tpu_torch.kv import KvTable
 from oceanbase_tpu_torch.palf.cluster import PalfCluster
 from oceanbase_tpu_torch.server.config import Config
+from oceanbase_tpu_torch.share.sequence import SequenceManager
 from oceanbase_tpu_torch.storage.engine import StorageCatalog, StorageEngine
 from oceanbase_tpu_torch.storage.recovery import RecoveryState
 from oceanbase_tpu_torch.tx.service import TransService
+from oceanbase_tpu_torch.tx.tablelock import LockTable
 
 
 class Tenant:
@@ -69,7 +75,7 @@ class Tenant:
                 elapsed_s=time.monotonic() - m0,
                 note=f"commits={stats.get('commits', 0)}")
         # durable XA: branches prepared before the crash reconstruct
-        # into PREPARE state (the XA statements wait for item 5b)
+        # into PREPARE state (XA RECOVER lists them)
         restored = self.tx.restore_prepared()
         if restored:
             self.recovery.record(
@@ -92,8 +98,17 @@ class Tenant:
                                       config=self.config, device=device)
         self.catalog._cache.resize(int(self.config["kv_cache_limit_bytes"]))
 
+        # satellites: sequences, table locks (the KV front end is kv())
+        self.sequences = SequenceManager(self.engine)
+        self.locks = LockTable()
+        self.tx.lock_table = self.locks
+        self.tx.lock_wait_timeout_s = float(
+            self.config["lock_wait_timeout_s"])
+
         def _on_cfg(k, v):
-            if k == "kv_cache_limit_bytes":
+            if k == "lock_wait_timeout_s":
+                self.tx.lock_wait_timeout_s = float(v)
+            elif k == "kv_cache_limit_bytes":
                 self.catalog._cache.resize(int(v))
             elif k in ("enable_shape_buckets", "shape_bucket_growth",
                        "shape_bucket_floor"):
@@ -104,6 +119,19 @@ class Tenant:
         # hot-reload from the tenant overlay AND the cluster config
         self.config.watch(_on_cfg)
         cluster_config.watch(_on_cfg)
+
+        # CPU quota = bounded worker pool (≙ tenant unit min/max cpu)
+        self._pool = ThreadPoolExecutor(
+            max_workers=int(self.config["tenant_cpu_quota"]),
+            thread_name_prefix=f"tnt-{name}")
+
+    def kv(self, table: str) -> KvTable:
+        """OBKV-style table API handle (≙ src/libtable client)."""
+        return KvTable(self, table)
+
+    def submit(self, fn, *args, **kwargs):
+        """Queue work onto this tenant's workers (≙ tenant request queue)."""
+        return self._pool.submit(fn, *args, **kwargs)
 
     def checkpoint(self):
         with self._ckpt_lock:
@@ -136,4 +164,5 @@ class Tenant:
             note=f"clamped={clamp is not None}")
 
     def close(self):
+        self._pool.shutdown(wait=False)
         self.wal.close()

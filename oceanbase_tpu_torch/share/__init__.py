@@ -1,1 +1,2 @@
-"""Shared services of the port (``kvcache``: the device-relation cache)."""
+"""Shared services of the port (``kvcache``: the device-relation cache;
+``sequence``: sequences and AUTO_INCREMENT counters)."""

@@ -1,8 +1,8 @@
 """Index-aware access-path selection.
 
-Port of ``oceanbase_tpu/sql/access_path.py`` for unpartitioned tablets:
-host-side numpy, as in the reference; the candidate rows it returns
-become a small device relation in the session.
+Port of ``oceanbase_tpu/sql/access_path.py``: host-side numpy, as in
+the reference; the candidate rows it returns become a small device
+relation in the session.
 
 Reference analog: the optimizer's access-path choice over base/index
 paths (src/sql/optimizer/ob_join_order.h AccessPath, cost-compared per
@@ -199,6 +199,7 @@ def choose_path(engine, table: str, ranges: dict):
     if ts is None or not ranges:
         return None
     tablet = ts.tablet
+    part_col = getattr(tablet, "part_col", None)
     total = max(1, tablet.row_count_estimate())
     budget = min(ABS_ROW_CAP, int(total * FRACTION))
     best = None
@@ -222,9 +223,11 @@ def choose_path(engine, table: str, ranges: dict):
         return est
 
     # primary path: prunable columns are the tablet key columns (sound
-    # for version chains)
-    kc = tablet.key_cols
-    prim = {c: ranges[c] for c in ranges if c in kc}
+    # for version chains) plus the partition column (partition routing)
+    kc = (tablet.partitions[0].key_cols
+          if hasattr(tablet, "partitions") else tablet.key_cols)
+    prim = {c: ranges[c] for c in ranges
+            if c in kc or c == part_col}
     if prim:
         est = estimate_rows_in_ranges(tablet, prim)
         est = _card_refine(est, prim, [c for c in kc

@@ -5,13 +5,14 @@ Port of ``oceanbase_tpu/storage/engine.py``: the same slog records,
 manifest format, crc checks, segment files and recovery order.  The
 ``StorageCatalog`` materializes tablet snapshots as the port's device
 relations on its device (``cuda`` unless the caller passes ``"cpu"``).
-Left out, each waiting for ROADMAP Queue 1 item 5b: partitioned tables
-(refused with ``NotImplementedError``), ALTER TABLE, the scrub and
-repair hooks, external and transient (``gv$``) tables, vector and
-fulltext index specs, the disk-fault plane and the disk manager's typed
-errors (a failed write unwinds and raises its ``OSError``), the ERRSIM
-fault point of ``freeze_and_flush`` and the memstore throttle's flush
-listener.
+Range-partitioned tables (``storage/partition.py``) and ALTER TABLE
+ADD/DROP COLUMN come with it.  Left out, each waiting for a sub-item of
+ROADMAP Queue 1 item 5b: the scrub and repair hooks (12), external and
+transient (``gv$``) tables (9), the disk-fault plane and the disk
+manager's typed errors (10; a failed write unwinds and raises its
+``OSError``), the ERRSIM fault point of ``freeze_and_flush`` (11) and
+the memstore throttle's flush listener (10); vector and fulltext index
+specs wait for Queue 1 items 4 and 8.
 
 Reference analog:
 - slog + slog_ckpt (src/storage/slog, ob_server_checkpoint_slog_handler.h):
@@ -53,6 +54,7 @@ from oceanbase_tpu_torch.share.kvcache import KvCache, relation_bytes
 from oceanbase_tpu_torch.storage.integrity import CorruptionError
 from oceanbase_tpu_torch.storage.lookup import range_rows
 from oceanbase_tpu_torch.storage.memtable import MemTable
+from oceanbase_tpu_torch.storage.partition import PartitionedTablet
 from oceanbase_tpu_torch.storage.segment import Segment, sort_rows_by_keys
 from oceanbase_tpu_torch.storage.tablet import Tablet
 from oceanbase_tpu_torch.tx.errors import DuplicateKey
@@ -62,9 +64,6 @@ from oceanbase_tpu_torch.vector.column import (
     DEFAULT_BUCKET_GROWTH,
     bucket_capacity,
 )
-
-_PARTITIONS = ("partitioned tables wait for ROADMAP Queue 1 item 5b "
-               "(the storage plane's second half)")
 
 log = logging.getLogger("oceanbase_tpu_torch.storage.engine")
 
@@ -189,6 +188,13 @@ class StorageEngine:
             # crc, but the NEXT append would land mid-line)
             self._unwind_slog(pre_off)
             raise
+
+    def log_sequence(self, name: str, state: dict | None):
+        """Slog a sequence's definition and high-water mark (None: the
+        sequence was dropped); replay restores ``meta["sequences"]``."""
+        with self._lock:
+            self._log_meta({"op": "sequence", "name": name,
+                            "state": state})
 
     def _unwind_slog(self, pre_off: int):
         """Truncate the slog back to its pre-append offset after a
@@ -388,7 +394,28 @@ class StorageEngine:
                 path = self._segment_file(op["table"], op["segment_id"])
                 if os.path.exists(path):
                     self._load_segment(op["table"], op.get("part"), path)
+        elif kind == "sequence":
+            seqs = self.meta.setdefault("sequences", {})
+            if op["state"] is None:
+                seqs.pop(op["name"], None)
+            else:
+                seqs[op["name"]] = op["state"]
+        elif kind == "alter_add":
+            n, k, p, s, nl = op["column"]
+            if op["table"] in self.tables:
+                self.alter_table(op["table"], "add_column",
+                                 (n, SqlType(TypeKind(k), p, s), nl),
+                                 log=False)
+        elif kind == "alter_drop":
+            if op["table"] in self.tables:
+                try:
+                    self.alter_table(op["table"], "drop_column",
+                                     op["column"], log=False)
+                except KeyError:
+                    pass
         else:
+            # records of planes not ported yet (aux indexes, segment
+            # repair) name their ROADMAP item
             raise NotImplementedError(
                 f"slog record {kind!r} waits for ROADMAP Queue 1 item 5b")
 
@@ -429,8 +456,12 @@ class StorageEngine:
             types["__rowid__"] = SqlType.int_()
             key_cols = ["__rowid__"]
         if tdef.partition is not None:
-            raise NotImplementedError(_PARTITIONS)
-        tablet = Tablet(len(self.tables) + 1, columns, types, key_cols)
+            part_col, bounds = tdef.partition
+            tablet = PartitionedTablet(len(self.tables) + 1, columns,
+                                       types, key_cols, part_col,
+                                       list(bounds))
+        else:
+            tablet = Tablet(len(self.tables) + 1, columns, types, key_cols)
         self.tables[tdef.name] = TableStore(tdef, tablet)
         if log:
             try:
@@ -456,9 +487,97 @@ class StorageEngine:
         with self._lock:
             if tdef.name in self.tables:
                 raise ValueError(f"table {tdef.name} exists")
-            if tdef.partition is not None:
-                raise NotImplementedError(_PARTITIONS)
+            if tdef.partition is not None and tdef.primary_key and \
+                    tdef.partition[0] not in tdef.primary_key:
+                # MySQL/OceanBase rule: every unique key (incl. the PK)
+                # must contain all partitioning columns — otherwise
+                # uniqueness could only be checked across partitions
+                raise ValueError(
+                    "a PRIMARY KEY must include all columns in the "
+                    "table's partitioning function")
             self._install_table(tdef)
+
+    def alter_table(self, name: str, action: str, column, log=True):
+        """Online schema change: ADD COLUMN (old segments serve NULLs for
+        it — no rewrite) / DROP COLUMN (segments holding the column are
+        rewritten without it).  ≙ the instant-DDL subset of ObDDLService
+        column changes."""
+        with self._lock:
+            ts = self.tables[name]
+            tdef = ts.tdef
+            tab = ts.tablet
+            tablets = getattr(tab, "partitions", [tab])
+            if action == "add_column":
+                cname, dtype, nullable = column
+                if any(c.name == cname for c in tdef.columns):
+                    raise ValueError(f"column {cname!r} exists")
+                tdef.columns.append(ColumnDef(cname, dtype, nullable))
+                for t in tablets:
+                    t.columns.append(cname)
+                    t.types[cname] = dtype
+                if hasattr(tab, "part_col"):
+                    tab.columns.append(cname)
+                    tab.types[cname] = dtype
+                if log:
+                    self._log_meta({
+                        "op": "alter_add", "table": name, "column":
+                        [cname, dtype.kind.value, dtype.precision,
+                         dtype.scale, nullable]})
+            elif action == "drop_column":
+                cname = column
+                if cname in tdef.primary_key:
+                    raise ValueError("cannot drop a primary-key column")
+                for ix in tdef.indexes:
+                    if cname in ix.columns:
+                        raise ValueError(
+                            f"cannot drop column {cname!r}: used by "
+                            f"index {ix.name} (drop the index first)")
+                if getattr(tab, "part_col", None) == cname:
+                    raise ValueError("cannot drop the partition column")
+                if not any(c.name == cname for c in tdef.columns):
+                    raise KeyError(f"unknown column {cname!r}")
+                tdef.columns = [c for c in tdef.columns if c.name != cname]
+                for t in tablets:
+                    if cname in t.columns:
+                        t.columns.remove(cname)
+                    t.types.pop(cname, None)
+                if hasattr(tab, "part_col"):
+                    if cname in tab.columns:
+                        tab.columns.remove(cname)
+                    tab.types.pop(cname, None)
+                # purge stored values so a later ADD COLUMN of the same
+                # name cannot resurrect them (no column-identity ids yet)
+                for t in tablets:
+                    for mt in [t.active] + t.frozen:
+                        with mt._lock:
+                            for head in mt._rows.values():
+                                v = head
+                                while v is not None:
+                                    v.values.pop(cname, None)
+                                    v = v.prev
+                    for i, seg in enumerate(list(t.segments)):
+                        if cname not in seg.columns:
+                            continue
+                        a, vv = seg.decode()
+                        a.pop(cname, None)
+                        vv.pop(cname, None)
+                        stypes = {k: v for k, v in seg.types.items()
+                                  if k != cname}
+                        new = Segment.build(
+                            seg.segment_id, seg.level, a, stypes,
+                            {k: x for k, x in vv.items() if x is not None},
+                            min_version=seg.min_version,
+                            max_version=seg.max_version)
+                        t.segments[i] = new
+                        if self.root is not None:
+                            self._save_segment(name, new)
+                if log:
+                    self._log_meta({"op": "alter_drop", "table": name,
+                                    "column": cname})
+            else:
+                raise ValueError(action)
+            for t in tablets:
+                t.data_version += 1
 
     # ------------------------------------------------------------------
     # secondary indexes (≙ index tables, src/share/schema index DDL +
@@ -660,10 +779,11 @@ class StorageEngine:
             ts = self.tables.get(name)
             if ts is None:
                 return
-            t = ts.tablet
-            t.active = MemTable(next(t._next_mt))
-            t.frozen = []
-            t.data_version += 1
+            tab = ts.tablet
+            for t in getattr(tab, "partitions", [tab]):
+                t.active = MemTable(next(t._next_mt))
+                t.frozen = []
+                t.data_version += 1
 
     def drop_table(self, name: str):
         with self._lock:
@@ -686,8 +806,17 @@ class StorageEngine:
                 arrays = dict(arrays)
                 arrays["__rowid__"] = np.arange(base, base + n,
                                                 dtype=np.int64)
-            for part_idx, pa, pv in [(None, arrays, valids or {})]:
-                tab = ts.tablet
+            if isinstance(ts.tablet, PartitionedTablet):
+                parts = ts.tablet.split_arrays_by_partition(arrays)
+                targets = [(i, pa,
+                            {k: v[sel] for k, v in (valids or {}).items()
+                             if v is not None})
+                           for i, pa, sel in parts]
+            else:
+                targets = [(None, arrays, valids or {})]
+            for part_idx, pa, pv in targets:
+                tab = (ts.tablet.partitions[part_idx]
+                       if part_idx is not None else ts.tablet)
                 if tab.key_cols != ["__rowid__"]:
                     pa, pv = sort_rows_by_keys(pa, dict(pv or {}),
                                                tab.key_cols)

@@ -1,13 +1,13 @@
 """Transaction service: MVCC transactions with WAL + two-phase commit.
 
-Port of ``oceanbase_tpu/tx/service.py``.  Left out: the table-lock,
-memstore-throttle and disk-manager hooks of ``write`` and the ERRSIM
-fault point of ``commit`` (ROADMAP Queue 1 item 5b).  The XA methods
-and ``restore_prepared`` come with the class (tenant boot calls
-``restore_prepared``); the XA statements wait for item 5b.  The WAL
-takes plain JSON: ``_jsonable`` turns numpy scalars into Python values
-and refuses a torch tensor, which the session must read back before it
-writes.
+Port of ``oceanbase_tpu/tx/service.py``, with the XA methods,
+``restore_prepared`` and the table-lock hooks (the implicit IX lock in
+``write``, the release at transaction end).  Left out: the
+memstore-throttle and disk-manager hooks of ``write`` (ROADMAP Queue 1
+item 5b, sub-item 10) and the ERRSIM fault point of ``commit``
+(sub-item 11).  The WAL takes plain JSON: ``_jsonable`` turns numpy
+scalars into Python values and refuses a torch tensor, which the
+session must read back before it writes.
 
 Reference analog: ObTransService (src/storage/tx/ob_trans_service.h:173)
 with per-participant ObPartTransCtx (ob_trans_part_ctx.h:148) and the
@@ -119,6 +119,8 @@ class TransService:
         # unique-index rowkey locks held across duplicate checks
         # (≙ index rowkey locking; see storage/indexes.IndexKeyLocks)
         self.index_locks = IndexKeyLocks()
+        self.lock_table = None    # tx/tablelock.LockTable when attached
+        self.lock_wait_timeout_s = 5.0
         self._next_tx_id = 0
         self._live: dict[int, Transaction] = {}
         self._lock = threading.RLock()
@@ -180,6 +182,11 @@ class TransService:
               op: str, values: dict):
         if tx.state != TxState.ACTIVE:
             raise TxAborted(f"tx {tx.tx_id} is {tx.state.value}")
+        if self.lock_table is not None:
+            # implicit intent-exclusive table lock: honors LOCK TABLES
+            # READ/WRITE held by other transactions (released at tx end)
+            self.lock_table.acquire(table, "IX", tx.tx_id,
+                                    timeout=self.lock_wait_timeout_s)
         if self.engine is not None:
             # secondary indexes update in the SAME transaction, before
             # the base write (pre-image must still be the old row);
@@ -393,6 +400,8 @@ class TransService:
     # ------------------------------------------------------------------
     def _release_locks(self, tx: Transaction):
         self.index_locks.release_all(tx.tx_id)
+        if self.lock_table is not None:
+            self.lock_table.release_all(tx.tx_id)
 
     def _log(self, record: dict) -> int:
         if self.wal is not None:

@@ -216,15 +216,29 @@ def test_truncate_with_open_tx_crash_safe(tmp_path):
 
 
 def test_truncate_refuses_a_table_another_tx_wrote(tmp_path):
+    """TRUNCATE of a table another live transaction wrote does not run
+    beside it: it waits on the table's exclusive lock (the writer holds
+    an intent lock) and truncates after the writer commits, so the
+    committed row is truncated too, as in the reference."""
     db = Database(str(tmp_path / "db"), device="cpu")
     s1, s2 = db.session(), db.session()
     s1.execute("create table t (k int primary key, v int)")
     s1.execute("begin")
     s1.execute("insert into t values (1, 1)")
-    with pytest.raises(WriteConflict, match="live transaction"):
+    done = {}
+
+    def truncate():
         s2.execute("truncate table t")
+        done["at"] = time.monotonic()
+
+    th = threading.Thread(target=truncate, daemon=True)
+    th.start()
+    time.sleep(0.3)
+    assert "at" not in done  # waiting on the writer's lock
+    committed = time.monotonic()
     s1.execute("commit")
-    s2.execute("truncate table t")
+    th.join(timeout=20)
+    assert done["at"] >= committed
     assert s1.execute("select count(*) from t").rows() == [(0,)]
     db.close()
 
@@ -478,17 +492,17 @@ def test_point_update_takes_the_primary_key_path(tmp_path):
 
 
 @pytest.mark.parametrize("sql,item", [
-    ("savepoint s1", "item 5b"), ("xa start 'x'", "item 5b"),
-    ("load data infile '/x.csv' into table t", "item 5b"),
-    ("alter table t add column z int", "item 5b"),
-    ("replace into t values (1, 1)", "item 5b"),
-    ("lock tables t write", "item 5b"), ("create sequence sq", "item 5b"),
-    ("create table a (id int primary key auto_increment)", "item 5b"),
-    ("create table p (k int primary key) partition by range (k) "
-     "(partition p0 values less than (10), "
-     "partition p1 values less than maxvalue)", "item 5b"),
-    ("kill 3", "item 5b"), ("profile select 1", "item 9"),
-    ("alter system calibrate", "item 9"),
+    ("kill 3", "item 5b, sub-item 8"),
+    ("create procedure p() begin select 1; end", "item 5b, sub-item 8"),
+    ("call p()", "item 5b, sub-item 8"),
+    ("create tenant tt", "item 5b, sub-item 8"),
+    ("create user u identified by 'p'", "item 5b, sub-item 8"),
+    ("show processlist", "item 5b, sub-item 8"),
+    ("create external table e (a int) location '/x.csv'",
+     "item 5b, sub-item 9"),
+    ("profile select 1", "item 9"), ("alter system calibrate", "item 9"),
+    ("analyze workload report", "item 9"), ("show trace", "item 9"),
+    ("explain analyze select 1", "item 9"),
 ])
 def test_unported_statements_raise_with_a_database(tmp_path, sql, item):
     db = Database(str(tmp_path / "db"), device="cpu")
@@ -515,7 +529,9 @@ def test_unported_knobs_are_refused(tmp_path):
     assert names == {"sql_work_area_rows", "enable_sql_spill",
                      "enable_shape_buckets", "shape_bucket_growth",
                      "shape_bucket_floor", "memstore_limit_rows",
-                     "minor_compact_trigger", "kv_cache_limit_bytes"}
+                     "minor_compact_trigger", "kv_cache_limit_bytes",
+                     "pdml_min_rows", "pdml_dop", "tenant_cpu_quota",
+                     "lock_wait_timeout_s"}
     db.close()
     db2 = Database(str(tmp_path / "db"), device="cpu")  # persisted
     assert db2.config["sql_work_area_rows"] == 4096

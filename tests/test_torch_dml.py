@@ -11,6 +11,7 @@ import sqlite3
 
 import numpy as np
 import pytest
+import torch
 
 import oceanbase_tpu.exec.ops as jops
 import oceanbase_tpu.server.calibrate as jcalibrate
@@ -29,6 +30,11 @@ from oceanbase_tpu_torch.sql import Session as TSession
 from oceanbase_tpu_torch.vector import column as tcol
 from test_torch_ops import _load
 from test_torch_sql_frontend import align_colids
+
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
 
 
 def _outcome(s, sql, params=None):
@@ -266,7 +272,11 @@ def test_concat_matches(same_dict):
 _NEEDS_A_DATABASE = {
     "truncate table t", "alter system set enable_plan_cache = 1",
     "create table c2 as select 1 as a",
-    "create table c3 (a int, index ia (a))"}
+    "create table c3 (a int, index ia (a))",
+    "load data infile '/x.csv' into table t",
+    "alter table t add column z int", "xa start 'x'", "savepoint s1",
+    "create sequence sq", "lock tables t write",
+    "replace into t values (1)"}
 
 
 @pytest.mark.parametrize("sql", [
@@ -284,7 +294,7 @@ _NEEDS_A_DATABASE = {
 def test_storage_plane_statements_raise(sql):
     """A catalog-only session refuses what the port's ``Database`` runs
     (naming it) and what still waits for the storage plane's second
-    half (naming ROADMAP Queue 1 item 5b)."""
+    half (naming ROADMAP Queue 1 item 5b and its sub-item)."""
     ts = TSession(device="cpu")
     ts.execute("create table t (a int)")
     match = ("needs a Database" if sql in _NEEDS_A_DATABASE

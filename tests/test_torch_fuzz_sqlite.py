@@ -9,9 +9,15 @@ import sqlite3
 
 import numpy as np
 import pytest
+import torch
 
 from oceanbase_tpu_torch.sql import Session
 from test_fuzz_sqlite import N_QUERIES, _gen_query, _normalize, _oracle_sql
+
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,11 @@ from oceanbase_tpu_torch.px import planner as tplanner
 from oceanbase_tpu_torch.vector.column import to_numpy as tto_numpy
 from test_torch_spill_tpch import check_spilled_query, tpch_env
 
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
+
 SF = 0.01
 CHUNK = 16_384  # 60,175 lineitem rows: 4 granules, the last 11,023 live
 Q_COLS = ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",

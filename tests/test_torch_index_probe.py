@@ -9,6 +9,7 @@ sidecar.  Both optimizers price with the uncalibrated cost units."""
 
 import numpy as np
 import pytest
+import torch
 
 import oceanbase_tpu.exec.plan as jplan
 import oceanbase_tpu.expr.ir as jir
@@ -29,6 +30,11 @@ from oceanbase_tpu_torch.sql import Session as TSession
 from oceanbase_tpu_torch.sql.parser import parse_sql as tparse
 from oceanbase_tpu_torch.vector import column as tcol
 from test_torch_ops import _load
+
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
 
 
 @pytest.fixture(autouse=True)

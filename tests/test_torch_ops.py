@@ -3,6 +3,8 @@
 exact-key joins of every kind with capacity padding and overflow, and
 the torch counterparts of lexsort / repeat."""
 
+import sqlite3
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +23,13 @@ from oceanbase_tpu.exec.diag import CapacityOverflow as JOverflow
 from oceanbase_tpu.vector import column as jcol
 from oceanbase_tpu_torch import bridge
 from oceanbase_tpu_torch.exec.diag import CapacityOverflow as TOverflow
+from oceanbase_tpu_torch.expr.compile import eval_expr
 from oceanbase_tpu_torch.vector import column as tcol
+
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
 
 JAX = (jir, jdt, jops, jplan)
 TORCH = (tir, tdt, tops, tplan)
@@ -154,7 +162,12 @@ def test_scalar_agg_matches(facts, live):
                                             jir.col("k"))]
     taggs = _aggs(tir, tops) + [tops.AggSpec("nd", "count_distinct",
                                              tir.col("k"))]
-    _assert_same(tops.scalar_agg(trel, taggs), jops.scalar_agg(jrel, aggs))
+    # COUNT(DISTINCT k) over a nullable k with dead lanes: SQLite's
+    # count (ROADMAP Queue 3 #5), every other aggregate the reference's
+    tout = tops.scalar_agg(trel, taggs)
+    _assert_same_except(tout, jops.scalar_agg(jrel, aggs), ["nd"])
+    assert tcol.to_numpy(tout)["nd"].tolist() == \
+        [_distinct_oracle(trel, {}, tir.col("k"))[()]]
 
 
 SORTS = {
@@ -533,9 +546,87 @@ def test_count_distinct_matches(facts, name):
     jout = jops.hash_groupby(jrel, keys(jir), aggs(jir, jops))
     tout = tops.hash_groupby(trel, keys(tir), aggs(tir, tops))
     assert tout.capacity == jout.capacity
-    _assert_same(tout, jout)
-    _assert_same(tops.scalar_agg(trel, aggs(tir, tops)),
-                 jops.scalar_agg(jrel, aggs(jir, jops)))
+    # v and g hold NULLs with real payloads: their COUNT(DISTINCT) is
+    # SQLite's (ROADMAP Queue 3 #5), everything else the reference's
+    nulls = ["nd_v", "nd_g"]
+    _assert_same_except(tout, jout, nulls)
+    out = tcol.to_numpy(tout)
+    gk = list(keys(tir))
+    for nd, arg in (("nd_v", "v"), ("nd_g", "g")):
+        want = _distinct_oracle(trel, keys(tir), tir.col(arg))
+        got = {tuple(None if out.get("__valid__" + k) is not None
+                     and not out["__valid__" + k][i] else out[k][i]
+                     for k in gk): out[nd][i]
+               for i in range(len(out[nd]))}
+        assert got == want, nd
+    # without groups the dead lanes hide values the same way (the
+    # reference sorts them among the live ones): all four are SQLite's
+    distinct = ["nd_v", "nd_dt", "nd_g", "nd_b"]
+    _assert_same_except(tops.scalar_agg(trel, aggs(tir, tops)),
+                        jops.scalar_agg(jrel, aggs(jir, jops)), distinct)
+    scalar = tcol.to_numpy(tops.scalar_agg(trel, aggs(tir, tops)))
+    for nd in distinct:
+        assert scalar[nd].tolist() == \
+            [_distinct_oracle(trel, {}, tir.col(nd[3:]))[()]], nd
+
+
+def test_count_distinct_null_behind_a_value():
+    """ROADMAP Queue 3 #5: a NULL lane whose payload equals a value and
+    sorts first hides that value in the reference; the port counts
+    SQLite's 2 distinct values."""
+    arrays = {"g": np.array([1, 1, 1]), "x": np.array([5, 5, 7])}
+    valids = {"x": np.array([False, True, True])}
+    jrel, trel = _load(arrays, {}, valids, 0, pad=False)
+    jn = jcol.to_numpy(jops.hash_groupby(
+        jrel, {"g": jir.col("g")},
+        [jops.AggSpec("n", "count_distinct", jir.col("x"))]))
+    tn = tcol.to_numpy(tops.hash_groupby(
+        trel, {"g": tir.col("g")},
+        [tops.AggSpec("n", "count_distinct", tir.col("x"))]))
+    conn = sqlite3.connect(":memory:")
+    conn.execute("create table t (g int, x int)")
+    conn.executemany("insert into t values (?, ?)",
+                     [(1, None), (1, 5), (1, 7)])
+    want = conn.execute(
+        "select count(distinct x) from t group by g").fetchall()
+    assert want == [(2,)]
+    assert tn["n"].tolist() == [2] and jn["n"].tolist() == [1]
+    js = jcol.to_numpy(jops.scalar_agg(
+        jrel, [jops.AggSpec("n", "count_distinct", jir.col("x"))]))
+    ts = tcol.to_numpy(tops.scalar_agg(
+        trel, [tops.AggSpec("n", "count_distinct", tir.col("x"))]))
+    assert ts["n"].tolist() == [2] and js["n"].tolist() == [1]
+
+
+def _assert_same_except(trel, jrel, skip):
+    """``_assert_same`` over every output column but ``skip``."""
+    keep = [c for c in jrel.columns if c not in skip]
+    _assert_same(tcol.Relation({c: trel.columns[c] for c in keep},
+                               trel.mask),
+                 jcol.Relation({c: jrel.columns[c] for c in keep},
+                               jrel.mask))
+
+
+def _distinct_oracle(trel, group_by: dict, arg) -> dict:
+    """{group key tuple (None for NULL): number of distinct non-NULL
+    ``arg`` values} over the live lanes: what SQLite counts."""
+    live = trel.mask_or_true().numpy()
+    a = eval_expr(arg, trel)
+    av = a.valid_or_true().numpy()
+    ad = a.data.numpy()
+    keys = [eval_expr(e, trel) for e in group_by.values()]
+    kd = [(k.data.numpy() if k.sdict is None
+           else k.sdict.values[np.clip(k.data.numpy(), 0, k.sdict.size - 1)],
+           k.valid_or_true().numpy()) for k in keys]
+    out: dict = {}
+    for i in np.nonzero(live)[0]:
+        g = tuple((d[i].item() if hasattr(d[i], "item") else d[i])
+                  if v[i] else None for d, v in kd)
+        vals = out.setdefault(g, set())
+        if av[i]:
+            vals.add(ad[i].item())
+    return {g: len(v) for g, v in out.items()} if group_by or out \
+        else {(): 0}
 
 
 def _residual(ir, kind):

@@ -32,6 +32,11 @@ from oceanbase_tpu_torch.px import dist_ops as tdist
 from oceanbase_tpu_torch.storage.tmpfile import TempFileStore
 from test_torch_spill_tpch import check_spilled_query, tpch_env
 
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
+
 
 def _chunks(arrays, valids=None, chunk=1000):
     n = len(next(iter(arrays.values())))

@@ -25,6 +25,11 @@ from oceanbase_tpu_torch.px.planner import NotDistributable
 from oceanbase_tpu_torch.sql.parser import parse_sql as tparse
 from test_torch_tpch22 import load_sessions
 
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
+
 BUDGET = 4096
 GRANULE = 8192
 

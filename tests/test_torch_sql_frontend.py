@@ -213,14 +213,13 @@ def test_session_select_only_and_device(monkeypatch):
     assert s.device.type == "cpu"
     assert s.execute("select 1 + 2 as x").rows() == [(3,)]
     # the catalog-only statements run (tests/test_torch_dml.py); what
-    # needs a Database says so, and what waits for the storage plane's
-    # second half still raises naming its ROADMAP item
+    # needs a Database says so
     s.execute("create table t (a int)")
     assert s.execute("insert into t values (1)").rowcount == 1
     assert s.catalog.table_data("t").device.type == "cpu"
     with pytest.raises(NotImplementedError, match="needs a Database"):
         s.execute("truncate table t")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5b"):
+    with pytest.raises(NotImplementedError, match="needs a Database"):
         s.execute("load data infile '/x.csv' into table t")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -11,6 +11,7 @@ rows."""
 
 import numpy as np
 import pytest
+import torch
 
 from oceanbase_tpu.datatypes import SqlType as JSqlType
 from oceanbase_tpu.exec.granule import \
@@ -22,6 +23,11 @@ from oceanbase_tpu_torch.exec.granule import segment_chunk_provider
 from oceanbase_tpu_torch.server.database import Database
 from oceanbase_tpu_torch.storage.segment import Segment
 from oceanbase_tpu_torch.storage.tablet import Tablet
+
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
 
 N = 12_000  # rows; the budget drops to 1024 so these are ~10x over it
 

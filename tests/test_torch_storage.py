@@ -314,12 +314,23 @@ def test_engine_persistence_and_recovery(tmp_path):
 
 
 def test_engine_refuses_partitioned_tables(tmp_path):
-    eng = StorageEngine(str(tmp_path / "db"))
-    tdef = _tdef(TableDef, ColumnDef, SqlType)
-    tdef.partition = ("k", [10])
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    """A RANGE-partitioned table whose primary key lacks the partition
+    column is refused by both engines (uniqueness could only be checked
+    across partitions); one whose key holds it is created, one tablet
+    per partition."""
+    for eng, (tc, cc, st) in (
+            (StorageEngine(str(tmp_path / "t")),
+             (TableDef, ColumnDef, SqlType)),
+            (JEngine(str(tmp_path / "j")),
+             (JTableDef, JColumnDef, JSqlType))):
+        tdef = _tdef(tc, cc, st)
+        tdef.partition = ("v", [10])
+        with pytest.raises(ValueError, match="partitioning function"):
+            eng.create_table(tdef)
+        assert "t" not in eng.tables
+        tdef.partition = ("k", [10, 20])
         eng.create_table(tdef)
-    assert "t" not in eng.tables
+        assert len(eng.tables["t"].tablet.partitions) == 3
 
 
 def test_storage_catalog_executor_integration():

@@ -9,6 +9,7 @@ reference does.  Both optimizers price with the uncalibrated cost units.
 ``--dist loadfile`` spreads the two halves over two workers."""
 
 import pytest
+import torch
 
 import oceanbase_tpu.server.calibrate as jcalibrate
 import oceanbase_tpu.sql.session as jsession
@@ -18,6 +19,11 @@ from oceanbase_tpu.bench.tpch_queries import QUERIES
 from oceanbase_tpu_torch.bench.tpch import gen_tpch as tgen_tpch
 from oceanbase_tpu_torch.exec.diag import CapacityOverflow
 from oceanbase_tpu_torch.sql import Session as TSession
+
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
 
 SF = 0.01
 FIRST_HALF = [q for q in sorted(QUERIES) if q <= 11]

@@ -24,6 +24,11 @@ from oceanbase_tpu_torch.exec.plan import execute_plan as texec
 from oceanbase_tpu_torch.ops import q6_filter_sum
 from oceanbase_tpu_torch.vector import column as tcol
 
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parent.parent
 SF = 0.01
 LINEITEM_COLS = ["l_returnflag", "l_linestatus", "l_quantity",

@@ -24,6 +24,11 @@ from oceanbase_tpu_torch.sql import Session as TSession
 from oceanbase_tpu_torch.vector import column as tcol
 from test_torch_ops import _load
 
+# the tier-1 run puts several test processes on one host: two intra-op
+# threads each keep torch from oversubscribing the cores the
+# reference's subprocess-cluster tests time their elections on
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def rels():
