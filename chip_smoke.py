@@ -32,8 +32,9 @@ Phases, each printing its own lines:
    tier runs, through ``exec/spill_exec.py::execute_spilled`` with
    lineitem streamed from the host, held against SQLite; the 8 queries
    it refuses raise ``NotDistributable``; the S1 external sort against
-   SQLite and the J1 co-partitioned disk join against numpy; each with
-   its ``SpillStats`` and peak device memory;
+   SQLite and the J1 co-partitioned disk join against numpy (one timed
+   run each after the warm-up); each with its ``SpillStats`` and peak
+   device memory;
 7. sql-index: on the same catalog, a secondary index on every ``*key``
    column (the JAX package's SF1 parity configuration,
    ``scripts/sf_parity.py``), each sorted sidecar built and timed, then
@@ -45,15 +46,16 @@ Phases, each printing its own lines:
 8b. db: the port's ``Database`` (LSM storage, the PALF WAL, MVCC
    transactions) in a temporary directory on the card at its defaults:
    the eight tables direct-loaded through ``catalog.load_numpy`` and
-   ANALYZEd, the 22 TPC-H queries through ``db.session()`` held against
-   SQLite (lineitem's rows exceed the 2^22-row work area, so its queries
-   stream from the LSM through the spill tier, each printed with its
-   route), an OLTP mix on ``orders`` (autocommit primary-key point
-   UPDATEs and SELECTs with statement and WAL-commit latencies, a
-   multi-statement transaction, a rolled-back one, a write conflict
-   between two sessions), a checkpoint, more commits, and a reopen from
-   the same directory without ``close()`` that replays the WAL tail and
-   must read back every committed row, Q1 and Q6;
+   ANALYZEd, 13 TPC-H queries through ``db.session()`` held against
+   SQLite (the 11 that run in memory, and Q1 and Q6: lineitem's rows
+   exceed the 2^22-row work area, so they stream from the LSM through
+   the spill tier; phases load and server run all 22 that way), each
+   printed with its route, an OLTP mix on ``orders`` (autocommit
+   primary-key point UPDATEs and SELECTs with statement and WAL-commit
+   latencies, a multi-statement transaction, a rolled-back one, a write
+   conflict between two sessions), a checkpoint, more commits, and a
+   reopen from the same directory without ``close()`` that replays the
+   WAL tail and must read back every committed row, Q1 and Q6;
 8c. load: the eight tables written as ``|``-delimited files and loaded
    by LOAD DATA INFILE (the native CSV tokenizer) into a fresh
    ``Database`` whose lineitem and orders are RANGE-partitioned on the
@@ -62,11 +64,26 @@ Phases, each printing its own lines:
    UPDATE, AUTO_INCREMENT and a sequence, SAVEPOINT over lineitem, ALTER
    TABLE ADD/DROP COLUMN, LOCK TABLES between two sessions and an XA
    branch left prepared, and a reopen without ``close()`` that commits
-   the branch and reads all of it back with Q1 and Q6;
+   the branch and reads all of it back with Q1 and Q6; the rows those
+   statements changed are then put back as loaded;
+8d. server: phase load's database behind the port's ``MySQLServer`` on
+   127.0.0.1, driven by this script's own 4.1 client (``WireClient``):
+   the 22 queries as root against SQLite, each DECIMAL cell's text
+   equal to the in-process scaled int with its scale; the 11 in-memory
+   queries again (plan-cache hits) and with the plan cache off; 200
+   prepared point SELECTs on orders; CREATE USER and a refused wrong
+   password; four connections at once; admission with 2 slots (QUEUED
+   and RUNNING in SHOW PROCESSLIST, then ServerBusy at a queue limit
+   of 1); KILL QUERY by the greeting's connection id during a spilled
+   Q1 and a plain KILL; a 0.5 s statement timeout; a procedure CALLed
+   over the wire; a second tenant loading four tables for Q11; a DBMS
+   job; and a restart without a checkpoint that keeps the tenant, the
+   user and the procedure;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
-   and printed after it: the stream, spill and SQL paths, like the JAX
-   package's, reach no hand-written kernel), and each phase's seconds;
+   and printed after it: the stream, spill, SQL and server paths, like
+   the JAX package's, reach no hand-written kernel), and each phase's
+   seconds;
 10. the card's name and power limit, then the result line.
 
 Any mismatch or error exits nonzero before the result line.  Without a
@@ -89,6 +106,10 @@ PLAN_RUNS = 5
 SQL_RUNS = 3                     # timed runs per query, after a warm-up
 STREAM_RUNS = 5                  # timed streamed runs, after a warm-up
 SPILL_RUNS = 3                   # timed spilled runs, after a warm-up
+# the spilled S1 sort and J1 join (about 23 and 12 s a run) time one run
+# after the warm-up: with phase "server" the whole run has to stay inside
+# its limit
+SPILL_LONG_RUNS = 1
 # bench.py's BENCH_MODE=stream: its granule size and the columns it streams
 STREAM_CHUNK_ROWS = 1 << 21
 STREAM_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
@@ -108,6 +129,11 @@ LOAD_PARTITIONS = 8
 LOAD_POINT_INSERTS = 50
 SPILL_QUERIES = (1, 3, 5, 6, 7, 8, 9, 10, 12, 14, 19)
 SPILL_REFUSED = (4, 13, 15, 17, 18, 20, 21, 22)
+# phase db runs Q1 and Q6 of the spilled queries and the 11 that run in
+# memory: phases "load" and "server" run all 22 through the LSM, and the
+# whole run has to stay inside its limit
+DB_QUERIES = tuple(q for q in range(1, 23)
+                   if q not in SPILL_QUERIES or q in (1, 6))
 J1_PARTITIONS = 16
 
 
@@ -414,17 +440,17 @@ def phase_spill(torch, dev, sess, tables, card, sql_stats, want):
                 chunk_rows=STREAM_CHUNK_ROWS, device=dev)
         return spilled_result(arrays, valids, dtypes, outputs), st
 
-    def statement(name, sql, ordered, mem_ms):
+    def statement(name, sql, ordered, mem_ms, runs=SPILL_RUNS):
         label = f"q{name}" if isinstance(name, int) else name
         sess.execute(sql)  # the plan phase "sql" ran, re-plans included
         plan, outputs = sess.last_plan, sess.last_outputs
         (res, st), ms, peak = _timed_spill(
-            torch, lambda: spilled(plan, outputs), SPILL_RUNS)
+            torch, lambda: spilled(plan, outputs), runs)
         ok, why = rows_match(res.rows(), want[name][0], ordered=ordered)
         if not ok:
             raise AssertionError(f"spilled {label} differs from SQLite: "
                                  f"{why}")
-        print(f"[spill] {label}: {ms:.3f} ms/query (median of {SPILL_RUNS}), "
+        print(f"[spill] {label}: {ms:.3f} ms/query (median of {runs}), "
               f"rows={len(res.rows())} equal SQLite, {_stats_text(st)}, "
               f"peak_mem={peak} B; in memory {mem_ms}; {card}", flush=True)
         return ms
@@ -447,7 +473,8 @@ def phase_spill(torch, dev, sess, tables, card, sql_stats, want):
         raise AssertionError(f"the spill tier ran Q{q}, which the JAX "
                              f"package's refuses")
     _res, s1_ms, _retries, _peak = timed_statement(sess, S1, SQL_RUNS)
-    statement("S1", S1, True, f"{s1_ms:.3f} ms (median of {SQL_RUNS})")
+    statement("S1", S1, True, f"{s1_ms:.3f} ms (median of {SQL_RUNS})",
+              runs=SPILL_LONG_RUNS)
 
     # J1: lineitem ⋈ orders co-partitioned through disk
     li, od = tables["lineitem"], tables["orders"]
@@ -472,14 +499,14 @@ def phase_spill(torch, dev, sess, tables, card, sql_stats, want):
             st.runs, st.bytes = store._next, store.bytes_written
         return rows, price, st
 
-    (rows, price, st), ms, peak = _timed_spill(torch, j1, SPILL_RUNS)
+    (rows, price, st), ms, peak = _timed_spill(torch, j1, SPILL_LONG_RUNS)
     hit = np.isin(li["l_orderkey"], od["o_orderkey"])
     want_rows, want_price = int(hit.sum()), int(li["l_extendedprice"][hit].sum())
     if (rows, price) != (want_rows, want_price):
         raise AssertionError(f"J1 ({rows}, {price}) != numpy ({want_rows}, "
                              f"{want_price})")
-    print(f"[spill] J1: {ms:.3f} ms (median of {SPILL_RUNS}), {rows} rows, "
-          f"sum(l_extendedprice)={price} equal numpy, {_stats_text(st)}, "
+    print(f"[spill] J1: {ms:.3f} ms (median of {SPILL_LONG_RUNS}), {rows} "
+          f"rows, sum(l_extendedprice)={price} equal numpy, {_stats_text(st)}, "
           f"peak_mem={peak} B; {card}", flush=True)
 
 
@@ -748,10 +775,10 @@ def phase_db(torch, dev, tables, types, card, want):
               f"{dev}")
 
         got, total_ms, n_spilled = {}, 0.0, 0
-        for q, sql in sorted(QUERIES.items()):
+        for q in DB_QUERIES:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            res = sess.execute(sql)
+            res = sess.execute(QUERIES[q])
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t1) * 1e3
             got[q] = res.rows()
@@ -763,8 +790,8 @@ def phase_db(torch, dev, tables, types, card, want):
             print(f"[db] q{q}: {ms:.3f} ms (one run), rows={len(got[q])}, "
                   f"{route}; {card}", flush=True)
         check_tpch(got, want, " (db)")
-        print(f"[db] all 22 queries match SQLite, {n_spilled} through the "
-              f"spill route; {total_ms:.3f} ms in all")
+        print(f"[db] all {len(got)} queries match SQLite, {n_spilled} "
+              f"through the spill route; {total_ms:.3f} ms in all")
 
         # -- OLTP on orders ----------------------------------------------
         od = tables["orders"]
@@ -909,7 +936,7 @@ def _order_row(k, price="123.45", note="load phase") -> str:
             f"'Clerk#000000001', 0, '{note}')")
 
 
-def phase_load(torch, dev, tables, types, card, want):
+def phase_load(torch, dev, tables, types, card, want, root):
     """Phase load: TPC-H as OceanBase's users load it — ``|``-delimited
     files, ``lineitem`` and ``orders`` RANGE-partitioned on the order key
     (``LOAD_PARTITIONS`` partitions of equal key width), LOAD DATA INFILE
@@ -918,10 +945,11 @@ def phase_load(torch, dev, tables, types, card, want):
     the loaded data (the duplicate-key check, REPLACE, a partition-moving
     UPDATE, AUTO_INCREMENT and a sequence, SAVEPOINT, ALTER TABLE, LOCK
     TABLES, an XA branch left prepared) and a reopen without ``close()``
-    that recovers all of it."""
+    that recovers all of it.  Last, the rows the statement surface
+    changed are put back as loaded, and the open database, its ``.tbl``
+    files (under ``root``) and the 22 in-process results go on to phase
+    server."""
     import gc
-    import shutil
-    import tempfile
     import threading
 
     from oceanbase_tpu_torch.bench.tbl import create_table_sql, write_tbl
@@ -930,274 +958,1000 @@ def phase_load(torch, dev, tables, types, card, want):
     from oceanbase_tpu_torch.server.database import Database
     from oceanbase_tpu_torch.tx.errors import DuplicateKey, WriteConflict
 
-    root = tempfile.mkdtemp(prefix="ob_load_")
     steps = {}
 
     def step(name, t0):
         steps[name] = time.perf_counter() - t0
         print(f"[load] step {name}: {steps[name]:.3f} s", flush=True)
 
-    try:
-        t0 = time.perf_counter()
-        files = {}
-        for name, arrays in tables.items():
-            files[name] = os.path.join(root, f"{name}.tbl")
-            write_tbl(files[name], arrays,
-                      {k: v for k, v in types.items() if k in arrays})
-        step("write .tbl files", t0)
-        torch.cuda.reset_peak_memory_stats()
-        db = Database(os.path.join(root, "db"), device=dev)
-        sess = db.session()
-        od = tables["orders"]
-        top = int(od["o_orderkey"].max()) + 1
-        bounds = [top * i // LOAD_PARTITIONS
-                  for i in range(1, LOAD_PARTITIONS)]
-        t0 = time.perf_counter()
-        for name, arrays in tables.items():
-            part = None
-            if name in ("orders", "lineitem"):
-                part = (name[0] + "_orderkey", bounds)
-            sess.execute(create_table_sql(
-                name, arrays, {k: v for k, v in types.items()
-                               if k in arrays},
-                TPCH_PRIMARY_KEYS[name], part))
-            nbytes = os.path.getsize(files[name])
-            t1 = time.perf_counter()
-            res = sess.execute(f"load data infile '{files[name]}' into "
-                               f"table {name} fields terminated by '|'")
-            secs = time.perf_counter() - t1
-            n = len(next(iter(arrays.values())))
-            if res.rowcount != n or sess.last_load["route"] != "native":
-                raise AssertionError(f"LOAD DATA {name}: {res.rowcount} "
-                                     f"rows of {n}, {sess.last_load}")
-            print(f"[load] {name}: {n} rows, {nbytes} bytes in "
-                  f"{secs:.3f} s ({nbytes / secs / 1e6:.1f} MB/s), native "
-                  f"tokenizer{', ' + str(LOAD_PARTITIONS) + ' partitions' if part else ''}",
-                  flush=True)
-        step("LOAD DATA of 8 tables", t0)
-        for name in ("orders", "lineitem"):
-            parts = db.engine.tables[name].tablet.partitions
-            print(f"[load] {name} rows per partition: "
-                  f"{[sum(sg.n_rows for sg in p.segments) for p in parts]}")
-        t0 = time.perf_counter()
-        for name in tables:
-            sess.execute(f"analyze table {name}")
+    t0 = time.perf_counter()
+    files = {}
+    for name, arrays in tables.items():
+        files[name] = os.path.join(root, f"{name}.tbl")
+        write_tbl(files[name], arrays,
+                  {k: v for k, v in types.items() if k in arrays})
+    step("write .tbl files", t0)
+    torch.cuda.reset_peak_memory_stats()
+    db = Database(os.path.join(root, "db"), device=dev)
+    sess = db.session()
+    od = tables["orders"]
+    top = int(od["o_orderkey"].max()) + 1
+    bounds = [top * i // LOAD_PARTITIONS
+              for i in range(1, LOAD_PARTITIONS)]
+    t0 = time.perf_counter()
+    for name, arrays in tables.items():
+        part = None
+        if name in ("orders", "lineitem"):
+            part = (name[0] + "_orderkey", bounds)
+        sess.execute(create_table_sql(
+            name, arrays, {k: v for k, v in types.items()
+                           if k in arrays},
+            TPCH_PRIMARY_KEYS[name], part))
+        nbytes = os.path.getsize(files[name])
+        t1 = time.perf_counter()
+        res = sess.execute(f"load data infile '{files[name]}' into "
+                           f"table {name} fields terminated by '|'")
+        secs = time.perf_counter() - t1
+        n = len(next(iter(arrays.values())))
+        if res.rowcount != n or sess.last_load["route"] != "native":
+            raise AssertionError(f"LOAD DATA {name}: {res.rowcount} "
+                                 f"rows of {n}, {sess.last_load}")
+        print(f"[load] {name}: {n} rows, {nbytes} bytes in "
+              f"{secs:.3f} s ({nbytes / secs / 1e6:.1f} MB/s), native "
+              f"tokenizer{', ' + str(LOAD_PARTITIONS) + ' partitions' if part else ''}",
+              flush=True)
+    step("LOAD DATA of 8 tables", t0)
+    for name in ("orders", "lineitem"):
+        parts = db.engine.tables[name].tablet.partitions
+        print(f"[load] {name} rows per partition: "
+              f"{[sum(sg.n_rows for sg in p.segments) for p in parts]}")
+    t0 = time.perf_counter()
+    for name in tables:
+        sess.execute(f"analyze table {name}")
+    torch.cuda.synchronize()
+    step("ANALYZE", t0)
+    for name in tables:
+        rel = db.catalog.table_data(name)
+        if rel.device.type != dev.type:
+            raise AssertionError(f"{name}'s relation is on {rel.device}")
+    print(f"[load] table_data relations of all {len(tables)} tables on "
+          f"{dev}")
+
+    t0 = time.perf_counter()
+    got, total_ms, n_spilled = {}, 0.0, 0
+    results, load_ms, spill_stats = {}, {}, {}
+    for q, sql in sorted(QUERIES.items()):
         torch.cuda.synchronize()
-        step("ANALYZE", t0)
+        t1 = time.perf_counter()
+        res = sess.execute(sql)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got[q] = res.rows()
+        results[q], load_ms[q] = res, ms
+        total_ms += ms
+        st = sess.last_spill
+        spill_stats[q] = st
+        n_spilled += st is not None
+        route = f"spilled ({_stats_text(st)})" if st is not None \
+            else f"in memory (retries={sess.last_retries})"
+        print(f"[load] q{q}: {ms:.3f} ms (one run), rows={len(got[q])},"
+              f" {route}; {card}", flush=True)
+    check_tpch(got, want, " (load)")
+    print(f"[load] all 22 queries match SQLite, {n_spilled} through "
+          f"the spill route over the chained partitions; "
+          f"{total_ms:.3f} ms in all")
+    step("22 queries", t0)
+
+    # -- the statement surface on the loaded data ---------------------
+    t0 = time.perf_counter()
+    n_ord = len(od["o_orderkey"])
+    dup = int(od["o_orderkey"][n_ord // 3])
+    try:
+        sess.execute(f"insert into orders values {_order_row(dup)}")
+    except DuplicateKey as e:
+        print(f"[load] INSERT of loaded key {dup} refused: {e}")
+    else:
+        raise AssertionError("a duplicate INSERT over the loaded "
+                             "baseline committed")
+    ins_ms = []
+    fresh = [top + 10 + i for i in range(LOAD_POINT_INSERTS)]
+    for k in fresh:
+        t1 = time.perf_counter()
+        sess.execute(f"insert into orders values {_order_row(k)}")
+        ins_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"[load] {LOAD_POINT_INSERTS} autocommit INSERTs of new "
+          f"orders keys (the duplicate check over memtables and "
+          f"segments): p50 {_pct(ins_ms, 50):.3f} ms p99 "
+          f"{_pct(ins_ms, 99):.3f} ms; {card}")
+    rep_old = int(od["o_orderkey"][n_ord // 2])
+    rep_new = top + 5
+    sess.execute(f"replace into orders values "
+                 f"{_order_row(rep_old, '7.77', 'replaced')}, "
+                 f"{_order_row(rep_new, '8.88', 'replaced')}")
+    for k, p in ((rep_old, 7.77), (rep_new, 8.88)):
+        rows = sess.execute(f"select o_totalprice, o_comment from "
+                            f"orders where o_orderkey = {k}").rows()
+        if rows != [(p, "replaced")]:
+            raise AssertionError(f"REPLACE of {k} reads {rows}")
+    mv_old = int(od["o_orderkey"][5])          # partition 0
+    mv_new = top + 1                            # the last partition
+    n = sess.execute(f"update orders set o_orderkey = {mv_new} where "
+                     f"o_orderkey = {mv_old}").rowcount
+    moved = sess.execute(f"select count(*) from orders where "
+                         f"o_orderkey in ({mv_old}, {mv_new})").rows()
+    a = sess.execute(f"select o_custkey from orders where o_orderkey = "
+                     f"{mv_new}").rows()
+    if n != 1 or moved != [(1,)] or \
+            a != [(int(od["o_custkey"][5]),)]:
+        raise AssertionError(f"partition-moving UPDATE: {n}, {moved}, "
+                             f"{a}")
+    n_orders = n_ord + LOAD_POINT_INSERTS + 1   # + fresh + rep_new
+    print(f"[load] REPLACE of an existing and a new key, and the "
+          f"partition-moving UPDATE of {mv_old} -> {mv_new} read back")
+
+    sess.execute("create table ev (id int primary key auto_increment, "
+                 "okey int, note varchar(16))")
+    sess.execute("create sequence seq start 1000 increment 10")
+    sess.execute(f"insert into ev (okey, note) values ({mv_new}, "
+                 f"'moved'), ({rep_new}, 'replaced')")
+    sess.execute("insert into ev values (nextval('seq'), 0, 'seq')")
+    ev_rows = sess.execute("select id, okey, note from ev order by "
+                           "id").rows()
+    if [r[0] for r in ev_rows] != [1, 2, 1000]:
+        raise AssertionError(f"AUTO_INCREMENT/sequence ids {ev_rows}")
+    sess.execute("alter table ev add column tag varchar(8)")
+
+    lk = (int(tables["lineitem"]["l_orderkey"][7]),
+          int(tables["lineitem"]["l_linenumber"][7]))
+    where = f"l_orderkey = {lk[0]} and l_linenumber = {lk[1]}"
+    sess.execute("begin")
+    sess.execute(f"update lineitem set l_comment = 'kept' where {where}")
+    sess.execute("savepoint sp")
+    sess.execute(f"delete from lineitem where {where}")
+    sess.execute("rollback to savepoint sp")
+    sess.execute("commit")
+    rows = sess.execute(f"select l_comment from lineitem where "
+                        f"{where}").rows()
+    if rows != [("kept",)]:
+        raise AssertionError(f"SAVEPOINT over lineitem reads {rows}")
+    print("[load] AUTO_INCREMENT ids 1, 2 and nextval 1000; SAVEPOINT "
+          "/ ROLLBACK TO in a transaction writing lineitem kept the "
+          "update and undid the delete")
+
+    sess.execute("alter table orders add column o_note varchar(16)")
+    sess.execute(f"update orders set o_note = 'moved' where "
+                 f"o_orderkey = {mv_new}")
+    notes = sess.execute("select o_note, count(*) from orders group by "
+                         "o_note order by o_note").rows()
+    if notes != [(None, n_orders - 1), ("moved", 1)]:
+        raise AssertionError(f"ADD COLUMN reads {notes}")
+    sess.execute("alter table orders drop column o_note")
+    if "o_note" in [c.name for c in db.catalog.table_def(
+            "orders").columns]:
+        raise AssertionError("DROP COLUMN left o_note")
+    print(f"[load] ALTER TABLE orders ADD COLUMN reads NULL for the "
+          f"{n_orders - 1} loaded rows and the set value, then DROP "
+          f"COLUMN")
+
+    s2 = db.session()
+    sess.execute("set global lock_wait_timeout_s = 0.5")
+    sess.execute("lock tables orders write")
+    try:
+        s2.execute(f"insert into orders values {_order_row(top + 2)}")
+    except WriteConflict as e:
+        print(f"[load] a second session's INSERT under LOCK TABLES "
+              f"orders WRITE timed out: {e}")
+    else:
+        raise AssertionError("a write under another session's LOCK "
+                             "TABLES WRITE did not wait")
+    sess.execute("set global lock_wait_timeout_s = 60")
+    done = {}
+
+    def blocked_write():
+        s2.execute(f"insert into orders values {_order_row(top + 2)}")
+        done["at"] = time.perf_counter()
+
+    th = threading.Thread(target=blocked_write, daemon=True)
+    th.start()
+    time.sleep(0.5)
+    if done:
+        raise AssertionError("the write did not wait for UNLOCK")
+    released = time.perf_counter()
+    sess.execute("unlock tables")
+    th.join(timeout=60)
+    if "at" not in done:
+        raise AssertionError("the write did not proceed after UNLOCK")
+    n_orders += 1
+    print(f"[load] after UNLOCK TABLES the waiting INSERT went on in "
+          f"{(done['at'] - released) * 1e3:.3f} ms")
+
+    s3 = db.session()
+    xa_key = top + 3
+    for sql in ("xa start 'load-x1'",
+                f"insert into orders values {_order_row(xa_key)}",
+                "xa end 'load-x1'", "xa prepare 'load-x1'"):
+        s3.execute(sql)
+    if sess.execute("xa recover").rows() != [("load-x1",)]:
+        raise AssertionError("XA RECOVER misses the prepared branch")
+    step("statement surface", t0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[load] peak device memory {peak} B; {_dir_bytes(root)} "
+          f"bytes on disk")
+
+    # -- drop without close() and reopen ------------------------------
+    del sess, s2, s3, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    db = Database(os.path.join(root, "db"), device=dev)
+    print(f"[load] reopen {time.perf_counter() - t0:.3f} s, replayed "
+          f"{db.tenant().replayed_entries} WAL entries")
+    sess = db.session()
+    if sess.execute("xa recover").rows() != [("load-x1",)]:
+        raise AssertionError("reopened: XA RECOVER misses the branch")
+    sess.execute("xa commit 'load-x1'")
+    n_orders += 1
+    checks = {
+        "select count(*) from orders": [(n_orders,)],
+        f"select count(*) from orders where o_orderkey in ({mv_old}, "
+        f"{dup})": [(1,)],
+        f"select o_custkey from orders where o_orderkey = {mv_new}":
+            [(int(od["o_custkey"][5]),)],
+        f"select o_totalprice from orders where o_orderkey = "
+        f"{rep_old}": [(7.77,)],
+        f"select count(*) from orders where o_orderkey = {xa_key}":
+            [(1,)],
+        f"select l_comment from lineitem where {where}": [("kept",)],
+    }
+    for sql, rows in checks.items():
+        got_rows = sess.execute(sql).rows()
+        if got_rows != rows:
+            raise AssertionError(f"reopened: {sql} -> {got_rows}, "
+                                 f"want {rows}")
+    sess.execute("insert into ev (okey, note, tag) values (0, 'after', "
+                 "'reopen')")
+    ev_rows = sess.execute("select id, tag from ev order by id").rows()
+    if ev_rows != [(1, None), (2, None), (1000, None),
+                   (1001, "reopen")]:
+        raise AssertionError(f"reopened: ev reads {ev_rows}")
+    reread = {}
+    for q in (1, 6):
+        reread[q] = sess.execute(QUERIES[q]).rows()
+    check_tpch(reread, want, " (reopened load)")
+    print(f"[load] the reopened database reads back every committed "
+          f"row ({n_orders} orders), commits the prepared XA branch, "
+          f"keeps ev's added column and AUTO_INCREMENT counter (next "
+          f"id 1001), and Q1 and Q6 equal SQLite; {card}")
+
+    # -- put back the rows the statement surface changed ---------------
+    t0 = time.perf_counter()
+    sess.execute(f"update orders set o_orderkey = {mv_old} where "
+                 f"o_orderkey = {mv_new}")
+    sess.execute(f"delete from orders where o_orderkey >= {top}")
+    sess.execute(f"replace into orders values "
+                 f"{_loaded_row(od, types, n_ord // 2)}")
+    comment = tables["lineitem"]["l_comment"][7].replace("'", "''")
+    sess.execute(f"update lineitem set l_comment = '{comment}' where "
+                 f"{where}")
+    back = sess.execute("select count(*) from orders").rows()
+    if back != [(n_ord,)]:
+        raise AssertionError(f"restored orders count {back}")
+    sess.close()
+    step("restore the loaded rows", t0)
+    print(f"[load] steps: " + ", ".join(f"{k} {v:.3f} s"
+                                        for k, v in steps.items()))
+    return {"db": db, "files": files, "results": results,
+            "load_ms": load_ms, "spill": spill_stats, "top": top}
+
+
+def _loaded_row(arrays, types, i) -> str:
+    """Row ``i`` of a generated table as a VALUES tuple (DECIMAL from
+    its scaled int, DATE as text, strings quoted)."""
+    from oceanbase_tpu_torch.datatypes import TypeKind, days_to_date
+    from oceanbase_tpu_torch.server.mysql_protocol import format_decimal
+
+    out = []
+    for c, a in arrays.items():
+        t = types.get(c)
+        x = a[i]
+        if t is not None and t.kind == TypeKind.DECIMAL:
+            out.append(format_decimal(int(x), t.scale))
+        elif t is not None and t.kind == TypeKind.DATE:
+            out.append(f"'{days_to_date(int(x))}'")
+        elif isinstance(x, str):
+            out.append("'" + x.replace("'", "''") + "'")
+        else:
+            out.append(str(int(x)))
+    return "(" + ", ".join(out) + ")"
+
+
+# ---------------------------------------------------------------------------
+# phase server: the MySQL wire protocol over phase load's Database
+# ---------------------------------------------------------------------------
+
+# column types of the text protocol's column definitions
+_MYSQL_INT, _MYSQL_DOUBLE, _MYSQL_NEWDECIMAL = 8, 5, 246
+SERVER_PREPARED = 200            # prepared point SELECTs on orders
+SERVER_CONNS = 4                 # concurrent connections, step 5
+SERVER_ADMISSION_CONNS = 6       # Q6 senders per admission round
+
+
+class WireError(RuntimeError):
+    """An ERR packet: its code and message."""
+
+
+class WireClient:
+    """A minimal MySQL 4.1 client over a raw socket: handshake with
+    mysql_native_password, COM_QUERY (text rows), COM_STMT_PREPARE /
+    EXECUTE with one LONGLONG parameter (binary rows), COM_QUIT."""
+
+    def __init__(self, host, port, user="root", password=""):
+        import hashlib
+        import socket
+        import struct
+
+        self._struct = struct
+        self.sock = socket.create_connection((host, port), timeout=600)
+        # buffered reads: a result set is many small packets, and a
+        # system call per packet header would time the client, not the
+        # server
+        self._rf = self.sock.makefile("rb")
+        self.seq = 0
+        greeting = self._read()
+        end = greeting.index(b"\x00", 1)
+        self.connection_id = struct.unpack_from("<I", greeting, end + 1)[0]
+        p = end + 5
+        salt = greeting[p:p + 8]
+        rest = greeting[p + 8 + 1 + 2 + 1 + 2 + 2 + 1 + 10:]
+        salt += rest[:rest.index(b"\x00")]
+        token = b""
+        if password:
+            sha = hashlib.sha1(password.encode()).digest()
+            mask = hashlib.sha1(salt[:20] +
+                                hashlib.sha1(sha).digest()).digest()
+            token = bytes(a ^ b for a, b in zip(sha, mask))
+        self._send(struct.pack("<IIB", 0x0200 | 0x8000, 1 << 24, 0x21) +
+                   b"\x00" * 23 + user.encode() + b"\x00" +
+                   bytes([len(token)]) + token)
+        ok = self._read()
+        if ok[0] != 0x00:
+            raise PermissionError(f"login of {user!r} refused: "
+                                  f"{ok[9:].decode(errors='replace')}")
+
+    def _read_n(self, n):
+        buf = self._rf.read(n)
+        if len(buf) < n:
+            raise ConnectionError("server closed the connection")
+        return buf
+
+    def _read(self):
+        hdr = self._read_n(4)
+        (ln,) = self._struct.unpack("<I", hdr[:3] + b"\x00")
+        self.seq = hdr[3] + 1
+        return self._read_n(ln)
+
+    def _send(self, payload):
+        self.sock.sendall(self._struct.pack("<I", len(payload))[:3] +
+                          bytes([self.seq & 0xFF]) + payload)
+        self.seq += 1
+
+    @staticmethod
+    def _lenenc(buf, pos):
+        import struct
+
+        c = buf[pos]
+        if c < 251:
+            return c, pos + 1
+        if c == 0xFC:
+            return struct.unpack_from("<H", buf, pos + 1)[0], pos + 3
+        if c == 0xFD:
+            return struct.unpack("<I", buf[pos + 1:pos + 4] + b"\x00")[0], \
+                pos + 4
+        return struct.unpack_from("<Q", buf, pos + 1)[0], pos + 9
+
+    def _result(self, binary=False):
+        """-> (columns [(name, type, decimals)], rows of text or None),
+        or the affected rows of an OK packet."""
+        first = self._read()
+        if first[0] == 0xFF:
+            raise WireError(first[9:].decode(errors="replace"))
+        if first[0] == 0x00:
+            return self._lenenc(first, 1)[0]
+        ncols, _ = self._lenenc(first, 0)
+        cols = []
+        for _ in range(ncols):
+            pkt, pos, strs = self._read(), 0, []
+            for _ in range(6):
+                ln, pos = self._lenenc(pkt, pos)
+                strs.append(pkt[pos:pos + ln].decode())
+                pos += ln
+            cols.append((strs[4], pkt[pos + 7], pkt[pos + 10]))
+        self._read()  # EOF
+        rows = []
+        while True:
+            pkt = self._read()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                return cols, rows
+            rows.append(self._binary_row(pkt, cols) if binary
+                        else self._text_row(pkt))
+
+    def _text_row(self, pkt):
+        pos, row = 0, []
+        while pos < len(pkt):
+            if pkt[pos] == 0xFB:
+                row.append(None)
+                pos += 1
+            else:
+                ln, pos = self._lenenc(pkt, pos)
+                row.append(pkt[pos:pos + ln].decode())
+                pos += ln
+        return row
+
+    def _binary_row(self, pkt, cols):
+        nulls = pkt[1:1 + (len(cols) + 9) // 8]
+        pos, row = 1 + len(nulls), []
+        for i, (_n, mtype, _d) in enumerate(cols):
+            if nulls[(i + 2) // 8] & (1 << ((i + 2) % 8)):
+                row.append(None)
+            elif mtype == _MYSQL_INT:
+                row.append(self._struct.unpack_from("<q", pkt, pos)[0])
+                pos += 8
+            elif mtype == _MYSQL_DOUBLE:
+                row.append(self._struct.unpack_from("<d", pkt, pos)[0])
+                pos += 8
+            else:
+                ln, pos = self._lenenc(pkt, pos)
+                row.append(pkt[pos:pos + ln].decode())
+                pos += ln
+        return row
+
+    def query(self, sql):
+        self.seq = 0
+        self._send(b"\x03" + sql.encode())
+        return self._result()
+
+    def prepare(self, sql) -> int:
+        self.seq = 0
+        self._send(b"\x16" + sql.encode())
+        ok = self._read()
+        if ok[0] != 0x00:
+            raise WireError(ok[9:].decode(errors="replace"))
+        stmt_id, _ncols, nparams = self._struct.unpack_from("<IHH", ok, 1)
+        for _ in range(nparams + (1 if nparams else 0)):
+            self._read()  # parameter definitions, EOF
+        return stmt_id
+
+    def execute(self, stmt_id, value: int):
+        self.seq = 0
+        self._send(b"\x17" + self._struct.pack("<IBI", stmt_id, 0, 1) +
+                   b"\x00\x01" + self._struct.pack("<Hq", 8, value))
+        return self._result(binary=True)
+
+    def close(self):
+        try:
+            self.seq = 0
+            self._send(b"\x01")
+        except OSError:
+            pass
+        self._rf.close()
+        self.sock.close()
+
+
+def _wire_values(cols, rows):
+    """Text rows -> Python values by column type, for the SQLite check
+    (DECIMAL as float, as ``Result.rows()`` gives it)."""
+    conv = []
+    for _name, mtype, _dec in cols:
+        conv.append(int if mtype == _MYSQL_INT else
+                    float if mtype in (_MYSQL_DOUBLE, _MYSQL_NEWDECIMAL)
+                    else str)
+    return [tuple(None if v is None else f(v) for f, v in zip(conv, r))
+            for r in rows]
+
+
+def _decimal_cells_exact(cols, rows, res, q):
+    """Every DECIMAL cell's text on the wire equals the in-process
+    scaled int formatted with its scale (ROADMAP Queue 3 #16) -> the
+    number of cells checked."""
+    from oceanbase_tpu_torch.datatypes import TypeKind
+    from oceanbase_tpu_torch.server.mysql_protocol import format_decimal
+
+    n = 0
+    for j, name in enumerate(res.names):
+        t = res.dtypes.get(name)
+        if t is None or t.kind != TypeKind.DECIMAL:
+            continue
+        if cols[j][1] != _MYSQL_NEWDECIMAL or cols[j][2] != t.scale:
+            raise AssertionError(f"Q{q} column {name}: {cols[j]} on the "
+                                 f"wire for {t}")
+        valid = res.valids.get(name)
+        want = sorted(format_decimal(int(x), t.scale)
+                      for i, x in enumerate(res.arrays[name])
+                      if valid is None or valid[i])
+        got = sorted(r[j] for r in rows if r[j] is not None)
+        if got != want:
+            raise AssertionError(f"Q{q} column {name}: DECIMAL text on the "
+                                 f"wire differs from the scaled ints")
+        n += len(got)
+    return n
+
+
+def _in_threads(fns):
+    """Run each callable on its own thread, all started together ->
+    their results (an exception is a result)."""
+    import threading
+
+    out = [None] * len(fns)
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except Exception as e:  # noqa: BLE001 — checked by the caller
+            out[i] = e
+
+    ths = [threading.Thread(target=run, args=(i, fn), daemon=True)
+           for i, fn in enumerate(fns)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(600)
+        if th.is_alive():
+            raise AssertionError("a wire client thread did not finish")
+    return out
+
+
+def _wire_worker(host, port, stmts, barrier, queue):
+    """One client process of the concurrency step: connect, wait for
+    the others, run ``stmts`` [(key, sql)] -> queue.put((start, end,
+    {key: (cols, rows, ms)})).  The clients run outside the server's
+    process, so their reading does not share its interpreter lock."""
+    c = WireClient(host, port)
+    barrier.wait(timeout=600)
+    out = {}
+    start = time.perf_counter()
+    for key, sql in stmts:
+        t1 = time.perf_counter()
+        cols, rows = c.query(sql)
+        out[key] = (cols, rows, (time.perf_counter() - t1) * 1e3)
+    end = time.perf_counter()
+    c.close()
+    queue.put((start, end, out))
+
+
+def _poll(cond, what, timeout_s=120.0):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def phase_server(torch, dev, tables, types, card, want, loaded):
+    """Phase server: phase load's SF1 ``Database`` behind the port's
+    ``MySQLServer`` on 127.0.0.1, driven by ``WireClient`` connections:
+    the 22 queries as root (SQLite answers, exact DECIMAL text), the
+    plan cache, prepared point SELECTs, a user, four concurrent
+    connections, admission (QUEUED rows, ServerBusy), KILL QUERY by the
+    greeting's connection id, a statement timeout, a procedure, a second
+    tenant, a DBMS job, and a restart without a checkpoint."""
+    from oceanbase_tpu_torch.bench.oracle import rows_match
+    from oceanbase_tpu_torch.bench.tbl import create_table_sql
+    from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.server.database import Database
+    from oceanbase_tpu_torch.server.mysql_protocol import MySQLServer
+
+    db, top = loaded["db"], loaded["top"]
+    steps = {}
+    ordered = {q: "order by" in QUERIES[q].lower() and q not in (2, 18, 21)
+               for q in QUERIES}
+    in_memory = [q for q in sorted(QUERIES) if loaded["spill"][q] is None]
+    if len(in_memory) != 11:
+        raise AssertionError(f"phase load ran {in_memory} in memory")
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+        print(f"[server] step {name}: {steps[name]:.3f} s", flush=True)
+
+    def check(q, cols, rows, tag):
+        ok, why = rows_match(_wire_values(cols, rows), want[q][0],
+                             ordered=ordered[q])
+        if not ok:
+            raise AssertionError(f"Q{q}{tag} over the wire differs from "
+                                 f"SQLite: {why}")
+
+    def timed(c, sql):
+        t1 = time.perf_counter()
+        out = c.query(sql)
+        return out, (time.perf_counter() - t1) * 1e3
+
+    # phase load's reopen left the tables without optimizer statistics
+    # (ANALYZE results are not persisted); gather them again, as after
+    # the load
+    t0 = time.perf_counter()
+    sess = db.session()
+    for name in tables:
+        sess.execute(f"analyze table {name}")
+    sess.close()
+    torch.cuda.synchronize()
+    step("ANALYZE", t0)
+    srv = MySQLServer(db, host="127.0.0.1", port=0).start()
+    print(f"[server] MySQLServer on {srv.host}:{srv.port} over phase "
+          f"load's database (tenants {sorted(db.tenants)}, device "
+          f"{db.device})")
+    try:
+        # 1. the 22 queries over the wire -----------------------------------
+        t0 = time.perf_counter()
+        c = WireClient(srv.host, srv.port)
+        wire_ms, n_dec = {}, 0
+        for q, sql in sorted(QUERIES.items()):
+            (cols, rows), ms = timed(c, sql)
+            wire_ms[q] = ms
+            check(q, cols, rows, "")
+            n_dec += _decimal_cells_exact(cols, rows, loaded["results"][q],
+                                          q)
+            route = "spilled" if loaded["spill"][q] is not None \
+                else "in memory"
+            print(f"[server] q{q}: {ms:.3f} ms over the wire (one run, "
+                  f"{route}), in-process {loaded['load_ms'][q]:.3f} ms "
+                  f"(phase load), rows={len(rows)}; {card}", flush=True)
         for name in tables:
             rel = db.catalog.table_data(name)
             if rel.device.type != dev.type:
-                raise AssertionError(f"{name}'s relation is on {rel.device}")
-        print(f"[load] table_data relations of all {len(tables)} tables on "
+                raise AssertionError(f"{name}'s relation is on "
+                                     f"{rel.device}")
+        print(f"[server] all 22 queries over the wire match SQLite; "
+              f"{n_dec} DECIMAL cells equal the in-process scaled ints "
+              f"with their scale; {sum(wire_ms.values()):.3f} ms over the "
+              f"wire against {sum(loaded['load_ms'].values()):.3f} ms "
+              f"in-process; relations of all {len(tables)} tables on "
               f"{dev}")
+        step("22 queries over the wire", t0)
 
+        # 2. the plan cache --------------------------------------------------
         t0 = time.perf_counter()
-        got, total_ms, n_spilled = {}, 0.0, 0
-        for q, sql in sorted(QUERIES.items()):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            res = sess.execute(sql)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t1) * 1e3
-            got[q] = res.rows()
-            total_ms += ms
-            st = sess.last_spill
-            n_spilled += st is not None
-            route = f"spilled ({_stats_text(st)})" if st is not None \
-                else f"in memory (retries={sess.last_retries})"
-            print(f"[load] q{q}: {ms:.3f} ms (one run), rows={len(got[q])},"
-                  f" {route}; {card}", flush=True)
-        check_tpch(got, want, " (load)")
-        print(f"[load] all 22 queries match SQLite, {n_spilled} through "
-              f"the spill route over the chained partitions; "
-              f"{total_ms:.3f} ms in all")
-        step("22 queries", t0)
+        sess = srv.session(c.connection_id)
+        cache0 = db.catalog._cache.stats()
+        hit_ms, off_ms, hit = {}, {}, {}
+        for q in in_memory:
+            h0 = sess.plan_cache_stats["hits"]
+            (cols, rows), hit_ms[q] = timed(c, QUERIES[q])
+            hit[q] = sess.plan_cache_stats["hits"] - h0
+            check(q, cols, rows, " (second run)")
+        hits = sum(hit.values())
+        cache1 = db.catalog._cache.stats()
+        if hits < 1:
+            raise AssertionError("no plan-cache hit on the second run")
+        db.config.set("enable_plan_cache", False)
+        for q in in_memory:
+            (cols, rows), off_ms[q] = timed(c, QUERIES[q])
+            check(q, cols, rows, " (plan cache off)")
+        db.config.set("enable_plan_cache", True)
+        for q in in_memory:
+            kind = "hit" if hit[q] else "miss (a plan that folded a " \
+                "subquery's value at bind time is never cached)"
+            print(f"[server] plan cache q{q}: first {wire_ms[q]:.3f} ms, "
+                  f"second {hit_ms[q]:.3f} ms ({kind}), cache off "
+                  f"{off_ms[q]:.3f} ms")
+        first_ms = sum(wire_ms[q] for q in in_memory)
+        print(f"[server] plan cache: {hits} hits of {len(in_memory)} on the "
+              f"second run; sums first {first_ms:.3f} ms, second "
+              f"{sum(hit_ms.values()):.3f} ms (relation cache "
+              f"{cache1['misses'] - cache0['misses']} misses), off "
+              f"{sum(off_ms.values()):.3f} ms; {card}")
+        step("plan cache", t0)
 
-        # -- the statement surface on the loaded data ---------------------
+        # 3. prepared point SELECTs ------------------------------------------
         t0 = time.perf_counter()
-        n_ord = len(od["o_orderkey"])
-        dup = int(od["o_orderkey"][n_ord // 3])
-        try:
-            sess.execute(f"insert into orders values {_order_row(dup)}")
-        except DuplicateKey as e:
-            print(f"[load] INSERT of loaded key {dup} refused: {e}")
-        else:
-            raise AssertionError("a duplicate INSERT over the loaded "
-                                 "baseline committed")
-        ins_ms = []
-        fresh = [top + 10 + i for i in range(LOAD_POINT_INSERTS)]
-        for k in fresh:
+        od = tables["orders"]
+        keys = np.random.default_rng(DB_SEED).choice(
+            od["o_orderkey"], SERVER_PREPARED, replace=False)
+        psql = ("select o_orderkey, o_custkey, o_totalprice, o_orderdate, "
+                "o_orderstatus from orders where o_orderkey = ?")
+        stmt_id = c.prepare(psql)
+        lat, got_rows = [], []
+        for k in keys:
             t1 = time.perf_counter()
-            sess.execute(f"insert into orders values {_order_row(k)}")
-            ins_ms.append((time.perf_counter() - t1) * 1e3)
-        print(f"[load] {LOAD_POINT_INSERTS} autocommit INSERTs of new "
-              f"orders keys (the duplicate check over memtables and "
-              f"segments): p50 {_pct(ins_ms, 50):.3f} ms p99 "
-              f"{_pct(ins_ms, 99):.3f} ms; {card}")
-        rep_old = int(od["o_orderkey"][n_ord // 2])
-        rep_new = top + 5
-        sess.execute(f"replace into orders values "
-                     f"{_order_row(rep_old, '7.77', 'replaced')}, "
-                     f"{_order_row(rep_new, '8.88', 'replaced')}")
-        for k, p in ((rep_old, 7.77), (rep_new, 8.88)):
-            rows = sess.execute(f"select o_totalprice, o_comment from "
-                                f"orders where o_orderkey = {k}").rows()
-            if rows != [(p, "replaced")]:
-                raise AssertionError(f"REPLACE of {k} reads {rows}")
-        mv_old = int(od["o_orderkey"][5])          # partition 0
-        mv_new = top + 1                            # the last partition
-        n = sess.execute(f"update orders set o_orderkey = {mv_new} where "
-                         f"o_orderkey = {mv_old}").rowcount
-        moved = sess.execute(f"select count(*) from orders where "
-                             f"o_orderkey in ({mv_old}, {mv_new})").rows()
-        a = sess.execute(f"select o_custkey from orders where o_orderkey = "
-                         f"{mv_new}").rows()
-        if n != 1 or moved != [(1,)] or \
-                a != [(int(od["o_custkey"][5]),)]:
-            raise AssertionError(f"partition-moving UPDATE: {n}, {moved}, "
-                                 f"{a}")
-        n_orders = n_ord + LOAD_POINT_INSERTS + 1   # + fresh + rep_new
-        print(f"[load] REPLACE of an existing and a new key, and the "
-              f"partition-moving UPDATE of {mv_old} -> {mv_new} read back")
+            _cols, rows = c.execute(stmt_id, int(k))
+            lat.append((time.perf_counter() - t1) * 1e3)
+            got_rows.append(rows)
+        ins = db.session()
+        for k, rows in zip(keys, got_rows):
+            ref = ins.execute(psql.replace("?", str(int(k)))).rows()
+            wire = [(r[0], r[1], float(r[2]), r[3], r[4]) for r in rows]
+            if wire != ref:
+                raise AssertionError(f"prepared SELECT of {k}: {wire} != "
+                                     f"{ref}")
+        ins.close()
+        print(f"[server] {SERVER_PREPARED} COM_STMT_EXECUTEs of a prepared "
+              f"point SELECT on orders (keys from seed {DB_SEED}): p50 "
+              f"{_pct(lat, 50):.3f} ms p99 {_pct(lat, 99):.3f} ms, rows "
+              f"equal the in-process answers; {card}")
+        step("prepared statements", t0)
 
-        sess.execute("create table ev (id int primary key auto_increment, "
-                     "okey int, note varchar(16))")
-        sess.execute("create sequence seq start 1000 increment 10")
-        sess.execute(f"insert into ev (okey, note) values ({mv_new}, "
-                     f"'moved'), ({rep_new}, 'replaced')")
-        sess.execute("insert into ev values (nextval('seq'), 0, 'seq')")
-        ev_rows = sess.execute("select id, okey, note from ev order by "
-                               "id").rows()
-        if [r[0] for r in ev_rows] != [1, 2, 1000]:
-            raise AssertionError(f"AUTO_INCREMENT/sequence ids {ev_rows}")
-        sess.execute("alter table ev add column tag varchar(8)")
-
-        lk = (int(tables["lineitem"]["l_orderkey"][7]),
-              int(tables["lineitem"]["l_linenumber"][7]))
-        where = f"l_orderkey = {lk[0]} and l_linenumber = {lk[1]}"
-        sess.execute("begin")
-        sess.execute(f"update lineitem set l_comment = 'kept' where {where}")
-        sess.execute("savepoint sp")
-        sess.execute(f"delete from lineitem where {where}")
-        sess.execute("rollback to savepoint sp")
-        sess.execute("commit")
-        rows = sess.execute(f"select l_comment from lineitem where "
-                            f"{where}").rows()
-        if rows != [("kept",)]:
-            raise AssertionError(f"SAVEPOINT over lineitem reads {rows}")
-        print("[load] AUTO_INCREMENT ids 1, 2 and nextval 1000; SAVEPOINT "
-              "/ ROLLBACK TO in a transaction writing lineitem kept the "
-              "update and undid the delete")
-
-        sess.execute("alter table orders add column o_note varchar(16)")
-        sess.execute(f"update orders set o_note = 'moved' where "
-                     f"o_orderkey = {mv_new}")
-        notes = sess.execute("select o_note, count(*) from orders group by "
-                             "o_note order by o_note").rows()
-        if notes != [(None, n_orders - 1), ("moved", 1)]:
-            raise AssertionError(f"ADD COLUMN reads {notes}")
-        sess.execute("alter table orders drop column o_note")
-        if "o_note" in [c.name for c in db.catalog.table_def(
-                "orders").columns]:
-            raise AssertionError("DROP COLUMN left o_note")
-        print(f"[load] ALTER TABLE orders ADD COLUMN reads NULL for the "
-              f"{n_orders - 1} loaded rows and the set value, then DROP "
-              f"COLUMN")
-
-        s2 = db.session()
-        sess.execute("set global lock_wait_timeout_s = 0.5")
-        sess.execute("lock tables orders write")
+        # 4. users --------------------------------------------------------------
+        t0 = time.perf_counter()
+        c.query("create user smoke identified by 'smoke-pw'")
+        u = WireClient(srv.host, srv.port, user="smoke", password="smoke-pw")
+        if u.query("select count(*) from region")[1] != [["5"]]:
+            raise AssertionError("the new user's SELECT")
+        u.close()
         try:
-            s2.execute(f"insert into orders values {_order_row(top + 2)}")
-        except WriteConflict as e:
-            print(f"[load] a second session's INSERT under LOCK TABLES "
-                  f"orders WRITE timed out: {e}")
+            WireClient(srv.host, srv.port, user="smoke", password="wrong")
+        except PermissionError as e:
+            print(f"[server] user smoke connects with its password; a "
+                  f"wrong password is refused: {e}")
         else:
-            raise AssertionError("a write under another session's LOCK "
-                                 "TABLES WRITE did not wait")
-        sess.execute("set global lock_wait_timeout_s = 60")
-        done = {}
+            raise AssertionError("a wrong password was accepted")
+        step("users", t0)
 
-        def blocked_write():
-            s2.execute(f"insert into orders values {_order_row(top + 2)}")
-            done["at"] = time.perf_counter()
+        # 5. concurrent connections ---------------------------------------------
+        t0 = time.perf_counter()
+        import multiprocessing as mp
 
-        th = threading.Thread(target=blocked_write, daemon=True)
+        orders = [in_memory[i:] + in_memory[:i] if i % 2 == 0 else
+                  (in_memory[i:] + in_memory[:i])[::-1]
+                  for i in range(SERVER_CONNS)]
+        ctx = mp.get_context("spawn")
+        barrier, queue = ctx.Barrier(SERVER_CONNS), ctx.Queue()
+        procs = [ctx.Process(target=_wire_worker, daemon=True, args=(
+            srv.host, srv.port, [(q, QUERIES[q]) for q in o], barrier,
+            queue)) for o in orders]
+        cache0 = db.catalog._cache.stats()
+        for pr in procs:
+            pr.start()
+        outs = [queue.get(timeout=600) for _ in procs]
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.exitcode != 0:
+                raise AssertionError(f"a client process exited "
+                                     f"{pr.exitcode}")
+        cache1 = db.catalog._cache.stats()
+        wall = max(o[1] for o in outs) - min(o[0] for o in outs)
+        slowest = (0.0, 0)
+        for _start, _end, out in outs:
+            for q, (cols, rows, ms) in out.items():
+                check(q, cols, rows, " (concurrent)")
+                slowest = max(slowest, (ms, q))
+        serial = SERVER_CONNS * sum(hit_ms.values()) / 1e3
+        print(f"[server] {SERVER_CONNS} connections (a client process "
+              f"each) x {len(in_memory)} in-memory queries at once, in "
+              f"different orders: all match SQLite; {wall:.3f} s wall "
+              f"against {serial:.3f} s serial "
+              f"({SERVER_CONNS} x the second run's sum); slowest statement "
+              f"q{slowest[1]} {slowest[0]:.3f} ms; relation cache "
+              f"{cache1['misses'] - cache0['misses']} misses, "
+              f"{cache1['evictions'] - cache0['evictions']} evictions "
+              f"({cache1['bytes']} of {cache1['limit_bytes']} B); {card}")
+        step("concurrency", t0)
+
+        # 6. admission --------------------------------------------------------
+        t0 = time.perf_counter()
+        q6 = QUERIES[6]
+        seen = set()
+
+        def watch(obs, stop):
+            while not stop.is_set():
+                for _id, state, info in obs.query("show processlist")[1]:
+                    if info == q6[:120]:  # the list shows 120 chars
+                        seen.add(state)
+                time.sleep(0.005)
+
+        def admission_round(queue_limit):
+            import threading
+
+            db.config.set("admission_slots", 2)
+            db.config.set("admission_queue_limit", queue_limit)
+            db.config.set("admission_queue_timeout_s", 120.0)
+            seen.clear()
+            senders = [WireClient(srv.host, srv.port)
+                       for _ in range(SERVER_ADMISSION_CONNS)]
+            obs = WireClient(srv.host, srv.port)
+            stop = threading.Event()
+            wt = threading.Thread(target=watch, args=(obs, stop),
+                                  daemon=True)
+            wt.start()
+            t1 = time.perf_counter()
+            outs = _in_threads([lambda cc=cc: cc.query(q6)
+                                for cc in senders])
+            secs = time.perf_counter() - t1
+            stop.set()
+            wt.join(60)
+            for cc in senders + [obs]:
+                cc.close()
+            db.config.set("admission_slots", 32)
+            db.config.set("admission_queue_limit", 64)
+            db.config.set("admission_queue_timeout_s", 10.0)
+            busy = [o for o in outs if isinstance(o, WireError)
+                    and "ServerBusy" in str(o)]
+            fine = [o for o in outs if not isinstance(o, Exception)]
+            if len(busy) + len(fine) != len(outs):
+                raise AssertionError(f"admission round: {outs}")
+            for cols, rows in fine:
+                check(6, cols, rows, " (admission)")
+            return secs, fine, busy
+
+        secs, fine, busy = admission_round(64)
+        if busy or not {"QUEUED", "RUNNING"} <= seen:
+            raise AssertionError(f"admission round 1: {len(busy)} "
+                                 f"ServerBusy, states seen {seen}")
+        print(f"[server] admission_slots=2: {len(fine)} Q6 (spilled) from "
+              f"{SERVER_ADMISSION_CONNS} connections at once all match "
+              f"SQLite in {secs:.3f} s; SHOW PROCESSLIST showed "
+              f"{sorted(seen)}; {card}")
+        secs, fine, busy = admission_round(1)
+        if len(fine) != 3 or len(busy) != 3 or "QUEUED" not in seen:
+            raise AssertionError(f"admission round 2: {len(fine)} admitted, "
+                                 f"{len(busy)} ServerBusy, seen {seen}")
+        print(f"[server] admission_slots=2, admission_queue_limit=1: 2 ran "
+              f"and 1 queued ({len(fine)} answers match SQLite), "
+              f"{len(busy)} got ServerBusy: {str(busy[0])[:120]}; "
+              f"{secs:.3f} s")
+        step("admission", t0)
+
+        # 7. KILL QUERY by the greeting's connection id ---------------------
+        t0 = time.perf_counter()
+        a = WireClient(srv.host, srv.port)
+        b = WireClient(srv.host, srv.port)
+        q1 = QUERIES[1]
+        res = {}
+
+        def victim():
+            try:
+                res["out"] = a.query(q1)
+            except WireError as e:
+                res["err"] = e
+            res["at"] = time.perf_counter()
+
+        import threading
+
+        th = threading.Thread(target=victim, daemon=True)
         th.start()
-        time.sleep(0.5)
-        if done:
-            raise AssertionError("the write did not wait for UNLOCK")
-        released = time.perf_counter()
-        sess.execute("unlock tables")
-        th.join(timeout=60)
-        if "at" not in done:
-            raise AssertionError("the write did not proceed after UNLOCK")
-        n_orders += 1
-        print(f"[load] after UNLOCK TABLES the waiting INSERT went on in "
-              f"{(done['at'] - released) * 1e3:.3f} ms")
+        _poll(lambda: [str(a.connection_id), "RUNNING", q1[:120]] in
+              b.query("show processlist")[1], "A RUNNING")
+        time.sleep(0.5)  # inside the spill tier's batches
+        t_kill = time.perf_counter()
+        b.query(f"kill query {a.connection_id}")
+        th.join(600)
+        if "QueryKilled" not in str(res.get("err")):
+            raise AssertionError(f"KILL QUERY: A got {res}")
+        kill_ms = (res["at"] - t_kill) * 1e3
+        st = loaded["spill"][1]
+        bps = st.batches / (loaded["load_ms"][1] / 1e3)
+        print(f"[server] KILL QUERY {a.connection_id} (A's greeting id) "
+              f"-> A's ERR in {kill_ms:.3f} ms: {str(res['err'])[:100]}; "
+              f"Q1 takes {wire_ms[1]:.3f} ms over the wire, the spill tier "
+              f"{st.batches} batches in {loaded['load_ms'][1]:.3f} ms "
+              f"({bps:.3f} batches/s); {card}")
+        cols, rows = a.query(q6)
+        check(6, cols, rows, " (after KILL QUERY)")
+        b.query(f"kill {a.connection_id}")
+        try:
+            a.query("select 1")
+        except WireError as e:
+            print(f"[server] A runs Q6 correctly after the KILL QUERY; a "
+                  f"plain KILL evicts A's session: {str(e)[:100]}")
+        else:
+            raise AssertionError("A's statement ran after a plain KILL")
+        a.close()
+        step("KILL", t0)
 
-        s3 = db.session()
-        xa_key = top + 3
-        for sql in ("xa start 'load-x1'",
-                    f"insert into orders values {_order_row(xa_key)}",
-                    "xa end 'load-x1'", "xa prepare 'load-x1'"):
-            s3.execute(sql)
-        if sess.execute("xa recover").rows() != [("load-x1",)]:
-            raise AssertionError("XA RECOVER misses the prepared branch")
-        step("statement surface", t0)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"[load] peak device memory {peak} B; {_dir_bytes(root)} "
-              f"bytes on disk")
-
-        # -- drop without close() and reopen ------------------------------
-        del sess, s2, s3, db
-        gc.collect()
-        torch.cuda.empty_cache()
+        # 8. statement timeout ------------------------------------------------
         t0 = time.perf_counter()
-        db = Database(os.path.join(root, "db"), device=dev)
-        print(f"[load] reopen {time.perf_counter() - t0:.3f} s, replayed "
-              f"{db.tenant().replayed_entries} WAL entries")
-        sess = db.session()
-        if sess.execute("xa recover").rows() != [("load-x1",)]:
-            raise AssertionError("reopened: XA RECOVER misses the branch")
-        sess.execute("xa commit 'load-x1'")
-        n_orders += 1
-        checks = {
-            "select count(*) from orders": [(n_orders,)],
-            f"select count(*) from orders where o_orderkey in ({mv_old}, "
-            f"{dup})": [(1,)],
-            f"select o_custkey from orders where o_orderkey = {mv_new}":
-                [(int(od["o_custkey"][5]),)],
-            f"select o_totalprice from orders where o_orderkey = "
-            f"{rep_old}": [(7.77,)],
-            f"select count(*) from orders where o_orderkey = {xa_key}":
-                [(1,)],
-            f"select l_comment from lineitem where {where}": [("kept",)],
-        }
-        for sql, rows in checks.items():
-            got_rows = sess.execute(sql).rows()
-            if got_rows != rows:
-                raise AssertionError(f"reopened: {sql} -> {got_rows}, "
-                                     f"want {rows}")
-        sess.execute("insert into ev (okey, note, tag) values (0, 'after', "
-                     "'reopen')")
-        ev_rows = sess.execute("select id, tag from ev order by id").rows()
-        if ev_rows != [(1, None), (2, None), (1000, None),
-                       (1001, "reopen")]:
-            raise AssertionError(f"reopened: ev reads {ev_rows}")
-        reread = {}
-        for q in (1, 6):
-            reread[q] = sess.execute(QUERIES[q]).rows()
-        check_tpch(reread, want, " (reopened load)")
-        print(f"[load] the reopened database reads back every committed "
-              f"row ({n_orders} orders), commits the prepared XA branch, "
-              f"keeps ev's added column and AUTO_INCREMENT counter (next "
-              f"id 1001), and Q1 and Q6 equal SQLite; {card}")
-        db.close()
-        print(f"[load] steps: " + ", ".join(f"{k} {v:.3f} s"
-                                            for k, v in steps.items()))
+        b.query("set query_timeout_s = 0.5")
+        t1 = time.perf_counter()
+        try:
+            b.query(q1)
+        except WireError as e:
+            if "QueryTimeout" not in str(e):
+                raise
+            print(f"[server] SET query_timeout_s = 0.5: Q1 -> "
+                  f"{str(e)[:100]} after {time.perf_counter() - t1:.3f} s")
+        else:
+            raise AssertionError("Q1 finished under a 0.5 s timeout")
+        b.query("set query_timeout_s = 3600")
+        step("timeout", t0)
+
+        # 9. a procedure ----------------------------------------------------------
+        t0 = time.perf_counter()
+        base = top + 1000
+        b.query("create procedure add_orders(in base int, in n int) begin "
+                "declare i int default 0; while i < n do insert into orders "
+                "values (base + i, 1, 'O', 1.00, '1998-01-01', '1-URGENT', "
+                "'Clerk#000000001', 0, 'proc'); set i = i + 1; end while; "
+                "select count(*) from orders where o_orderkey >= base; end")
+        if b.query(f"call add_orders({base}, 5)")[1] != [["5"]]:
+            raise AssertionError("CALL add_orders")
+        rows = c.query(f"select o_orderkey, o_comment from orders where "
+                       f"o_orderkey >= {base} order by o_orderkey")[1]
+        if rows != [[str(base + i), "proc"] for i in range(5)]:
+            raise AssertionError(f"the procedure's rows read {rows}")
+        print(f"[server] CALL add_orders over the wire inserted 5 orders "
+              f"keys from {base}, visible to another connection")
+        step("procedure", t0)
+        b.close()
+
+        # 10. a second tenant ------------------------------------------------
+        t0 = time.perf_counter()
+        c.query("create tenant t2")
+        ts2 = db.session(tenant="t2")
+        for name in ("nation", "region", "supplier", "partsupp"):
+            arrays = tables[name]
+            ts2.execute(create_table_sql(
+                name, arrays, {k: v for k, v in types.items()
+                               if k in arrays}, TPCH_PRIMARY_KEYS[name]))
+            ts2.execute(f"load data infile '{loaded['files'][name]}' into "
+                        f"table {name} fields terminated by '|'")
+            ts2.execute(f"analyze table {name}")
+            if db.tenant("t2").catalog.table_data(name).device.type != \
+                    dev.type:
+                raise AssertionError(f"t2's {name} is not on {dev}")
+        res11 = ts2.execute(QUERIES[11]).rows()
+        ok, why = rows_match(res11, want[11][0], ordered=ordered[11])
+        if not ok:
+            raise AssertionError(f"Q11 in t2 differs from SQLite: {why}")
+        try:
+            ts2.execute("select count(*) from lineitem")
+        except KeyError as e:
+            isolated = str(e)
+        else:
+            raise AssertionError("tenant t2 sees sys's lineitem")
+        ts2.close()
+        print(f"[server] tenant t2: LOAD DATA of nation, region, supplier "
+              f"and partsupp, Q11 ({len(res11)} rows) equals SQLite, and "
+              f"t2 cannot see lineitem ({isolated}); {card}")
+        step("tenant", t0)
+
+        # 11. a DBMS job ---------------------------------------------------------
+        t0 = time.perf_counter()
+        db.jobs.schedule("smoke_analyze", 1.0, "analyze table nation")
+        db.jobs.start()
+        _poll(lambda: db.jobs.jobs["smoke_analyze"]["runs"] >= 1,
+              "the analyze job", timeout_s=10.0)
+        db.jobs.stop()
+        runs = [h for h in db.jobs.history if h["job"] == "smoke_analyze"]
+        if not all(h["ok"] for h in runs):
+            raise AssertionError(f"the analyze job failed: {runs}")
+        print(f"[server] job smoke_analyze (analyze table nation, every "
+              f"1 s) ran {len(runs)} time(s) within "
+              f"{time.perf_counter() - t0:.3f} s, then the scheduler "
+              f"stopped")
+        step("job", t0)
+        c.close()
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        srv.stop()
+
+    # 12. restart without a checkpoint ----------------------------------------
+    t0 = time.perf_counter()
+    db_root = db.root
+    db.close()
+    del db, loaded["db"]
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    db = Database(db_root, device=dev)
+    print(f"[server] reopen {time.perf_counter() - t1:.3f} s: tenants "
+          f"{sorted(db.tenants)}, users {sorted(db.users)}")
+    if set(db.tenants) != {"sys", "t2"} or "smoke" not in db.users:
+        raise AssertionError("tenant t2 or user smoke lost in the restart")
+    srv = MySQLServer(db, host="127.0.0.1", port=0).start()
+    try:
+        u = WireClient(srv.host, srv.port, user="smoke", password="smoke-pw")
+        if u.query(f"call add_orders({top + 2000}, 2)")[1] != [["2"]]:
+            raise AssertionError("CALL after the restart")
+        cols, rows = u.query(QUERIES[6])
+        check(6, cols, rows, " (after the restart)")
+        u.close()
+    finally:
+        srv.stop()
+    db.close()
+    print(f"[server] after the restart: user smoke connects, CALL "
+          f"add_orders works, Q6 over the wire equals SQLite; {card}")
+    step("restart", t0)
+    print(f"[server] steps: " + ", ".join(f"{k} {v:.3f} s"
+                                          for k, v in steps.items()))
 
 
 def main() -> int:
@@ -1284,9 +2038,19 @@ def main() -> int:
                             want)
     print(f"[db] kernel launches: {counts}")
     torch.cuda.empty_cache()
-    _, counts = timed_phase("load", phase_load, torch, dev, tables, types,
-                            card, want)
-    print(f"[load] kernel launches: {counts}")
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="ob_load_")
+    try:
+        loaded, counts = timed_phase("load", phase_load, torch, dev, tables,
+                                     types, card, want, root)
+        print(f"[load] kernel launches: {counts}")
+        _, counts = timed_phase("server", phase_server, torch, dev, tables,
+                                types, card, want, loaded)
+        print(f"[server] kernel launches: {counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

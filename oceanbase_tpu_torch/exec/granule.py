@@ -326,6 +326,17 @@ class GranuleUploader:
             stats.copy_events.append((start, done))
         return out
 
+    def drain(self):
+        """Wait for every copy still reading a pinned slot, so the ring
+        can be released or dropped (a stream that unwinds on a KILL or a
+        timeout calls this before its buffers go)."""
+        if not self.cuda:
+            return
+        for i, ev in enumerate(self._done):
+            if ev is not None:
+                ev.synchronize()
+                self._done[i] = None
+
 
 # ---------------------------------------------------------------------------
 # entry points

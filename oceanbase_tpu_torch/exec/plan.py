@@ -12,9 +12,11 @@ The plan-quality metadata the binder and optimizer use is copied as it
 is (``logical_hash``, ``propagate_estimates``, ``monitored_op``), so a
 plan bound by the port hashes like the JAX package's.
 
-There is no jit counterpart: torch runs eagerly.  The XLA executable
-cache, the metrics/trace/admission hooks and the plan-monitor lanes are
-not ported yet (ROADMAP Queue 1 item 9).  ``prepare_index_probes``
+There is no jit counterpart: torch runs eagerly.  ``execute_plan``
+observes the statement's cancel/deadline checkpoint
+(``server/admission.py``) at entry and at close.  The XLA executable
+cache, the metrics/trace hooks and the plan-monitor lanes are not
+ported yet (ROADMAP Queue 1 item 9).  ``prepare_index_probes``
 builds the sorted sidecar an ``IndexProbe`` reads on the base table's
 device and caches it on the catalog.
 """
@@ -33,6 +35,7 @@ from oceanbase_tpu_torch.datatypes import SqlType
 from oceanbase_tpu_torch.exec import diag, ops
 from oceanbase_tpu_torch.exec.window import window as window_op
 from oceanbase_tpu_torch.expr import ir
+from oceanbase_tpu_torch.server import admission as qadmission
 from oceanbase_tpu_torch.vector.column import (
     Column,
     Relation,
@@ -496,7 +499,12 @@ def execute_plan(plan: PlanNode, tables: dict[str, Relation]) -> Relation:
     caller re-plans with larger budgets.  The overflow check is the one
     host read of an execution.  IndexProbe sidecars must already be in
     ``tables`` (``prepare_index_probes``).
+
+    A statement's cancel/deadline checkpoint (``server/admission.py``)
+    runs at entry and after the overflow check: a flag and a clock read
+    on the host, no device sync.
     """
+    qadmission.checkpoint()
     needed = referenced_tables(plan)
     # sidecars are injected relations, not catalog tables, so
     # referenced_tables leaves them out; keep them past the filter below
@@ -505,6 +513,9 @@ def execute_plan(plan: PlanNode, tables: dict[str, Relation]) -> Relation:
     with diag.collect() as entries:
         out = _lower(plan, {k: v for k, v in tables.items() if k in needed})
     check_overflow(entries)
+    # operator-close checkpoint: a killed or expired statement unwinds at
+    # the result boundary
+    qadmission.checkpoint()
     return out
 
 

@@ -36,10 +36,13 @@ every granule program run under ``execute_plan``'s overflow check (the
 reference lowers them without a collector, so an overflow there would
 vanish); ``prune_scans`` drops the scanned columns no operator reads
 before anything streams; and final aggregates merged on the host keep
-their partial's type (ROADMAP Queue 3 #10).  Waiting for other slices: the trace spans and
-metrics (ROADMAP Queue 1 item 9), the per-batch admission checkpoint
-(item 7), and the disk-budget, fault and label hooks of the temp-file
-store (item 5).
+their partial's type (ROADMAP Queue 3 #10).  Every host batch passes the
+statement's cancel/deadline checkpoint (``server/admission.py``), as
+in the reference, and a granule stream that unwinds waits for its
+in-flight host-to-device copies before its pinned buffers go.  Waiting
+for other slices: the trace spans and metrics (ROADMAP Queue 1 item 9)
+and the disk-budget, fault and label hooks of the temp-file store
+(item 5).
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ from oceanbase_tpu_torch.exec.spill import partitioned_join_spilled
 from oceanbase_tpu_torch.expr import ir
 from oceanbase_tpu_torch.px.dist_ops import split_aggs
 from oceanbase_tpu_torch.px.planner import NotDistributable, split_top
+from oceanbase_tpu_torch.server import admission as qadmission
 from oceanbase_tpu_torch.storage.tmpfile import TempFileStore
 from oceanbase_tpu_torch.vector.column import Relation, from_numpy, to_numpy
 
@@ -338,20 +342,25 @@ def _scan_batches(ctx: _Ctx, subtree: pp.PlanNode, table: str):
     chunk_plan = pp.Compact(subtree)
 
     def gen():
-        probe = _dead_granule(types, gdicts, chunk_rows, uploader)
-        if probe is not None:
-            ctx.record_dtypes(ctx.checked(chunk_plan, {table: probe}))
-        for arrays, valids in prefetch_iter(
-                provider(table, chunk_rows, bounds)):
-            n = len(next(iter(arrays.values()))) if arrays else 0
-            if n == 0:
-                continue
-            rel = _chunk_to_relation(_pick(arrays, cols),
-                                     _pick(valids, cols), types, gdicts,
-                                     chunk_rows, n, uploader)
-            out = ctx.checked(chunk_plan, {table: rel})
-            ctx.record_dtypes(out)
-            yield from _host_batch(ctx, out)
+        try:
+            probe = _dead_granule(types, gdicts, chunk_rows, uploader)
+            if probe is not None:
+                ctx.record_dtypes(ctx.checked(chunk_plan, {table: probe}))
+            for arrays, valids in prefetch_iter(
+                    provider(table, chunk_rows, bounds)):
+                n = len(next(iter(arrays.values()))) if arrays else 0
+                if n == 0:
+                    continue
+                rel = _chunk_to_relation(_pick(arrays, cols),
+                                         _pick(valids, cols), types,
+                                         gdicts, chunk_rows, n, uploader)
+                out = ctx.checked(chunk_plan, {table: rel})
+                ctx.record_dtypes(out)
+                yield from _host_batch(ctx, out)
+        finally:
+            # a KILL or timeout unwinds here too: no pinned buffer is
+            # released while a copy into the card still reads it
+            uploader.drain()
 
     ctx.note("scan-stream", table)
     return gen()
@@ -378,7 +387,9 @@ def _dead_granule(types: dict, gdicts: dict, chunk_rows: int,
 
 def _host_batch(ctx: _Ctx, rel: Relation):
     """Device relation -> one host (arrays, valids) batch (live rows).
-    Every produced batch funnels through here: one host read each."""
+    Every produced batch funnels through here: one host read each, and
+    the spill tier's per-batch cancel/deadline checkpoint."""
+    qadmission.checkpoint()
     ctx.stats.host_reads += 1
     host = to_numpy(rel)
     cols = [c for c in host if not c.startswith("__valid__")]

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -27,6 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# one build and load at a time: a server's connection threads can reach
+# a kernel's first use together (≙ native.py's _lib_lock)
+_LIBS_LOCK = threading.Lock()
 
 _LAUNCHES: dict[str, int] = {}
 
@@ -93,8 +97,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel source ``name`` (built first
     when missing or stale)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build(name)
-        lib = ctypes.CDLL(str(library_path(name)[1]))
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LIBS_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build(name)
+            lib = ctypes.CDLL(str(library_path(name)[1]))
+            _LIBS[name] = lib
     return lib

@@ -5,8 +5,8 @@ src/share/parameter/ob_parameter_seed.ipp, runtime-settable via ALTER
 SYSTEM SET, persisted, with per-tenant overlays): the same ``Config``
 (typed, validated, persisted to ``config.json``, ``watch`` hooks, tenant
 overlays) over only the knobs the ported modules read.  Every other
-knob of the reference (metrics, profiling, calibration, the plan cache,
-admission, ASH, throttling, disk budgets, ...) raises the reference's
+knob of the reference (metrics, profiling, calibration, ASH, throttling,
+disk budgets, ...) raises the reference's
 ``KeyError("unknown parameter ...")`` on get, set and load: a knob of a
 plane that is not ported is refused, never accepted and ignored.
 """
@@ -39,6 +39,10 @@ def DEF(name, default, ptype, doc, validator=None):
 
 def _pos(v):
     return v > 0
+
+
+def _nonneg(v):
+    return v >= 0
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +87,51 @@ DEF("lock_wait_timeout_s", 5.0, "float",
 DEF("kv_cache_limit_bytes", 2 << 30, "cap",
     "device-relation (block) cache budget per tenant "
     "(≙ ObKVGlobalCache memory limit)", _pos)
+# the session plan cache (sql/session.py::_plan_select_cached)
+DEF("enable_plan_cache", True, "bool",
+    "cache bound physical plans keyed by parameterized SQL text")
+DEF("plan_cache_mem_limit", 512 << 20, "cap",
+    "plan cache memory budget in bytes", _pos)
+# statement deadlines and admission (server/admission.py)
+DEF("query_timeout_s", 3600, "int",
+    "per-statement deadline seconds (settable per session via SET "
+    "query_timeout_s); checked host-side at result-boundary "
+    "checkpoints — plan entry and operator close, spill batch, the "
+    "capacity-retry ladder — raising typed QueryTimeout", _pos)
+DEF("enable_admission", True, "bool",
+    "statement admission control: queries/DML check a per-tenant slot "
+    "out before binding; over-limit statements wait in a bounded "
+    "per-tenant FIFO granted by weighted round-robin across tenants, "
+    "full queues reject fast with typed ServerBusy (≙ the tenant "
+    "worker quota + large query queue)")
+DEF("admission_slots", 32, "int",
+    "process-wide concurrent admitted statements (0 disables "
+    "admission)", _nonneg)
+DEF("admission_tenant_slots", 16, "int",
+    "per-tenant cap on concurrently admitted statements", _pos)
+DEF("admission_queue_limit", 64, "int",
+    "bounded per-tenant admission FIFO depth; statements beyond it "
+    "reject immediately with ServerBusy", _nonneg)
+DEF("admission_queue_timeout_s", 10.0, "float",
+    "queue-wait budget before a queued statement gives up with "
+    "ServerBusy (also clamped to the statement's own deadline)", _pos)
+DEF("admission_tenant_weight", 1, "int",
+    "weighted-round-robin share of this tenant's queue when admission "
+    "slots free up (set on the tenant's config overlay)", _pos)
+DEF("large_query_threshold_s", 5.0, "float",
+    "observed runtime past which a statement yields its normal "
+    "admission slot to the low-priority large-query lane at its next "
+    "checkpoint (point queries stop starving behind scans)", _pos)
+DEF("admission_large_slots", 2, "int",
+    "concurrent statements of the low-priority large-query lane", _pos)
+# DBMS jobs (server/jobs.py)
+DEF("enable_dbms_jobs", False, "bool",
+    "start the DBMS job scheduler thread at boot (stats auto-gather, "
+    "auto compaction — ≙ dbms_scheduler maintenance windows)")
+DEF("stats_gather_interval_s", 600.0, "float",
+    "auto stats gather period", _pos)
+DEF("auto_compact_interval_s", 3600.0, "float",
+    "auto major-compaction period", _pos)
 
 
 def _unknown(name: str) -> KeyError:

@@ -2,18 +2,20 @@
 
 Port of ``oceanbase_tpu/server/tenant.py`` (≙ the omt layer's per-tenant
 module registry, src/observer/omt/ob_multi_tenant.h:71) for the single
-node: the tenant owns its ``StorageEngine`` (own data directory), its
-WAL (an in-process ``PalfCluster``), its ``TransService`` and its
-``StorageCatalog`` on the tenant's device, replays the WAL tail at boot
-and checkpoints.
+node: each tenant (``sys`` and every one CREATE TENANT adds) owns its
+directory ``<root>/tenants/<name>``, a config overlay over the cluster
+config, its ``StorageEngine``, its WAL (an in-process ``PalfCluster``),
+its ``TransService`` and its ``StorageCatalog`` on the database's
+device, replays the WAL tail at boot and checkpoints; ``close()`` stops
+its workers and its WAL.
 
 It also wires the sequences (``share/sequence.py``), the table-lock
 manager (``tx/tablelock.py``), the KV front end (``kv.py``) and the
 worker pool parallel DML submits to.  What the reference's tenant also
 wires and the port's does not: the multi-node ``NetPalf`` log (ROADMAP
 Queue 1 item 5b, sub-item 14), the memstore write throttle and the disk
-manager (sub-item 10), the CDC pump (item 10), PX admission (item 7)
-and the trace spans (item 9).
+manager (sub-item 10), the CDC pump and PX admission (item 10) and the
+trace spans (item 9).
 """
 
 from __future__ import annotations

@@ -41,18 +41,34 @@ checks its keys against the memtables and the segments at the
 statement's snapshot, so a key flushed or bulk-loaded into a segment
 is not overwritten (the reference checks only the active memtable).
 
-There is no plan cache, no parallel or pushed-down query execution and
-no tracing or metrics here.  Statements of planes not yet ported raise
+The server plane, with a ``Database``: a session belongs to a tenant
+(``Database.session(tenant=...)``; its transactions, storage and
+sequences are that tenant's), has a ``session_id`` and a SHOW
+PROCESSLIST slot, and runs each query or DML statement under statement
+admission (``server/admission.py``: a per-tenant slot checked out
+before binding, a deadline from ``query_timeout_s``, a KILL flag, all
+observed host-side at the checkpoints of ``execute_plan``, the spill
+tier's batches and the retry ladder).  KILL [QUERY], SHOW PROCESSLIST,
+CREATE/DROP TENANT, CREATE/DROP USER and SET PASSWORD, stored procedures
+and CALL (persisted in ``procedures.json``), and a per-session LRU plan
+cache of bound SELECT plans keyed by statement text, parameters and
+schema version under ``plan_cache_mem_limit``.
+
+There is no parallel or pushed-down query execution and no tracing or
+metrics here.  Statements of planes not yet ported raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import copy
 import csv
+import json
 import os
 import tempfile
 import time
 import uuid
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
@@ -89,9 +105,10 @@ from oceanbase_tpu_torch.expr.compile import (
     literal_value,
 )
 from oceanbase_tpu_torch.px.planner import NotDistributable
+from oceanbase_tpu_torch.server import admission as qadmission
 from oceanbase_tpu_torch.sql import access_path as ap
 from oceanbase_tpu_torch.sql import ast
-from oceanbase_tpu_torch.sql.binder import Binder, Scope
+from oceanbase_tpu_torch.sql.binder import VIRTUAL_TABLES, Binder, Scope
 from oceanbase_tpu_torch.sql.optimizer import CostModel, scale_capacities
 from oceanbase_tpu_torch.sql.parser import parse_sql
 from oceanbase_tpu_torch.storage.lookup import (
@@ -111,10 +128,6 @@ from oceanbase_tpu_torch.vector import (
 
 _POW10 = [10**i for i in range(38)]
 
-_PROCS = ("ROADMAP Queue 1 item 5b, sub-item 8 (procedures, tenants, "
-          "users, KILL and SHOW PROCESSLIST)")
-_EXTERNAL = ("ROADMAP Queue 1 item 5b, sub-item 9 (external and gv$ "
-             "tables)")
 _MEASURE = "ROADMAP Queue 1 item 9 (the measurement plane)"
 _VECTOR = "ROADMAP Queue 1 items 4 and 8 (VECTOR and side device modules)"
 
@@ -134,12 +147,7 @@ def _needs_db(what: str):
 _UNPORTED = {
     ast.ProfileStmt: ("PROFILE", _MEASURE),
     ast.AnalyzeWorkloadStmt: ("ANALYZE WORKLOAD REPORT", _MEASURE),
-    ast.CreateExternalTableStmt: ("CREATE EXTERNAL TABLE", _EXTERNAL),
-    ast.KillStmt: ("KILL", _PROCS),
-    ast.ProcedureStmt: ("a stored procedure", _PROCS),
-    ast.CallStmt: ("CALL", _PROCS),
-    ast.TenantStmt: ("a tenant", _PROCS),
-    ast.UserStmt: ("a user", _PROCS),
+    ast.CreateExternalTableStmt: ("CREATE EXTERNAL TABLE", VIRTUAL_TABLES),
 }
 
 
@@ -199,16 +207,35 @@ class Session:
     MCV_K = 16  # most-common-values kept per string column
 
     def __init__(self, catalog: Catalog | None = None, device=None,
-                 db=None):
+                 db=None, tenant=None):
+        if tenant is None and db is not None:
+            tenant = db.tenant()
         if catalog is None:
-            catalog = db.catalog if db is not None else Catalog(device)
+            catalog = (tenant.catalog if tenant is not None
+                       else Catalog(device))
         self.catalog = catalog
         #: server.database.Database when backed by the storage/tx plane
         self.db = db
+        #: server.tenant.Tenant whose module stack the session runs on
+        self.tenant = tenant
+        self.session_id = 0
         self.variables: dict[str, object] = {
             "autocommit": 1, "max_capacity_retry": self.MAX_CAPACITY_RETRIES,
         }
+        # LRU plan cache: most-recently-used last; byte-accounted against
+        # plan_cache_mem_limit (≙ ObPlanCache memory-bounded eviction)
+        self.plan_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._plan_cache_bytes: dict[tuple, int] = {}
+        self._plan_cache_total = 0
+        #: plan-cache hits, misses and LRU evictions of this session (the
+        #: reference counts them in its metrics plane)
+        self.plan_cache_stats = {"hits": 0, "misses": 0, "evictions": 0}
         self._tx = None  # active explicit transaction (BEGIN ... COMMIT)
+        #: this session's SHOW PROCESSLIST slot (server/monitor.py)
+        self._ash_state = {"active": False, "sql": "", "state": "idle"}
+        if db is not None:
+            self.session_id = next(db._session_ids)
+            db.ash.register(self.session_id, self._ash_state)
         #: CapacityOverflow re-plans the last statement needed
         self.last_retries = 0
         #: the plan the last SELECT ran (after any capacity re-plans)
@@ -230,31 +257,94 @@ class Session:
     def device(self):
         return self.catalog.device
 
-    @property
-    def tenant(self):
-        return self.db.tenant() if self.db is not None else None
-
+    # the tenant's module stack
     @property
     def _sequences(self):
-        return self.tenant.sequences if self.db is not None else None
+        return self.tenant.sequences if self.tenant is not None else None
 
     @property
     def _txsvc(self):
-        return self.db.tx
+        return self.tenant.tx
 
     @property
     def _engine(self):
-        return self.db.engine
+        return self.tenant.engine
 
     def close(self):
-        """Roll back the session's open transaction, if any."""
+        """Release the session: roll back its open transaction (and with
+        it the table locks the transaction holds), leave the session
+        registry and drop its admission eviction flag."""
         if self._tx is not None and self.db is not None:
             self._txsvc.rollback(self._tx)
             self._tx = None
+        if self.db is not None:
+            self.db.ash.unregister(self.session_id)
+            self.db.admission.forget_session(self.session_id)
+
+    # statement shapes that pay admission (queries + DML + anything that
+    # executes a plan); admin and control statements — SET, SHOW, KILL,
+    # ALTER SYSTEM, transaction verbs — bypass it so an operator can
+    # still steer a saturated server
+    _ADMITTED_STMTS = (ast.SelectStmt, ast.InsertStmt, ast.UpdateStmt,
+                       ast.DeleteStmt, ast.CallStmt, ast.LoadDataStmt)
+
+    def _needs_admission(self, stmt) -> bool:
+        if isinstance(stmt, self._ADMITTED_STMTS):
+            return True
+        if isinstance(stmt, ast.CreateTableStmt) and \
+                stmt.as_select is not None:
+            return True  # CTAS executes its SELECT
+        return False
+
+    def _stmt_timeout_s(self) -> float | None:
+        """Effective per-statement deadline: the session variable wins
+        (SET query_timeout_s = 0.5 works sub-second), then the tenant's
+        config overlay (SET GLOBAL writes there), else the cluster
+        default."""
+        v = self.variables.get("query_timeout_s")
+        if v is None:
+            v = self.tenant.config["query_timeout_s"]
+        try:
+            v = float(v)
+        except (TypeError, ValueError):
+            return None
+        return v if v > 0 else None
 
     def execute(self, sql: str, params: list | None = None) -> Result:
-        """Parse + execute one statement."""
-        return self.execute_stmt(parse_sql(sql), params)
+        """Parse + execute one statement.
+
+        With a ``Database``, a query or DML statement checks a per-tenant
+        admission slot out BEFORE binding (typed ``ServerBusy`` when the
+        bounded queue is full) and runs under a ``StmtCtx`` whose
+        deadline and KILL flag the host-side checkpoints observe; the
+        session's SHOW PROCESSLIST slot says QUEUED, RUNNING or KILLED
+        meanwhile."""
+        self._ash_state.update(active=True, sql=sql, state="executing")
+        admission = self.db.admission if self.db is not None else None
+        ctx: qadmission.StmtCtx | None = None
+        try:
+            if admission is not None:
+                # a session evicted by plain KILL <id> takes no more
+                # statements (typed; the client reconnects)
+                admission.check_session(self.session_id)
+            stmt = parse_sql(sql)
+            if admission is not None and self._needs_admission(stmt):
+                ctx = qadmission.StmtCtx(
+                    session_id=self.session_id, tenant=self.tenant.name,
+                    sql=sql, timeout_s=self._stmt_timeout_s(),
+                    controller=admission, ash_state=self._ash_state)
+                self._ash_state["state"] = "queued"
+                try:
+                    admission.acquire(ctx)
+                finally:
+                    if self._ash_state.get("state") == "queued":
+                        self._ash_state["state"] = "executing"
+            with qadmission.activate(ctx):
+                return self.execute_stmt(stmt, params)
+        finally:
+            if ctx is not None:
+                admission.release(ctx)
+            self._ash_state.update(active=False, state="idle")
 
     def execute_stmt(self, stmt, params=None) -> Result:
         if isinstance(stmt, ast.SelectStmt):
@@ -332,6 +422,30 @@ class Session:
             return self._xa(stmt)
         if isinstance(stmt, ast.LockTableStmt):
             return self._lock_table(stmt)
+        if isinstance(stmt, ast.KillStmt):
+            return self._kill(stmt)
+        if isinstance(stmt, ast.ProcedureStmt):
+            return self._procedure_ddl(stmt)
+        if isinstance(stmt, ast.CallStmt):
+            return self._call_procedure(stmt, params)
+        if isinstance(stmt, ast.TenantStmt):
+            if self.db is None:
+                raise _needs_db("a tenant")
+            if stmt.op == "create":
+                self.db.create_tenant(stmt.name)
+            else:
+                self.db.drop_tenant(stmt.name)
+            return _ok()
+        if isinstance(stmt, ast.UserStmt):
+            if self.db is None:
+                raise _needs_db("a user")
+            if stmt.op == "create":
+                self.db.create_user(stmt.name, stmt.password)
+            elif stmt.op == "drop":
+                self.db.drop_user(stmt.name)
+            else:
+                self.db.set_password(stmt.name, stmt.password)
+            return _ok()
         unported = _UNPORTED.get(type(stmt))
         if unported is not None:
             raise _needs(*unported)
@@ -340,17 +454,77 @@ class Session:
     # ------------------------------------------------------------------
     # SELECT, EXPLAIN
     # ------------------------------------------------------------------
-    def _plan_select(self, stmt: ast.SelectStmt, params):
+    def _binder(self, params) -> Binder:
         binder = Binder(self.catalog, params=params or [],
                         sequences=self._sequences, sysvars=self.variables)
         binder.cost_model = CostModel()
-        return binder.bind_select(stmt)
+        return binder
+
+    def _plan_select(self, stmt: ast.SelectStmt, params):
+        return self._binder(params).bind_select(stmt)
+
+    def _plan_select_cached(self, sql_key: str, stmt, params):
+        """Plan-cache probe (≙ ObPlanCache::get_plan): bound plans keyed
+        by statement text, parameters and schema version; parameter
+        values bind as literals, so parameterized statements share one
+        entry only when identical.  Plans that folded volatile or
+        data-dependent values at bind time (nextval, eagerly-executed
+        scalar subqueries) never cache.  Nothing downstream mutates a
+        plan in place (the retry ladder, the access path, the sidecars
+        and the spill tier build new nodes or fill the tables dict), so
+        a cached plan runs again as it was bound."""
+        key = (sql_key, tuple(params or []), self.catalog.schema_version)
+        hit = self.plan_cache.get(key)
+        if hit is not None:
+            self.plan_cache.move_to_end(key)  # LRU touch
+            self.plan_cache_stats["hits"] += 1
+            return hit
+        self.plan_cache_stats["misses"] += 1
+        binder = self._binder(params)
+        out = binder.bind_select(stmt)
+        if not binder.folded_volatile:
+            self._plan_cache_put(key, out)
+        return out
+
+    # plan-cache sizing, the reference's estimate: ~10 bytes per
+    # character of the key text and the plan fingerprint, plus a fixed
+    # overhead per entry
+    _PLAN_ENTRY_OVERHEAD = 2048
+    _PLAN_BYTES_PER_CHAR = 10
+    _PLAN_CACHE_MAX_ENTRIES = 4096  # backstop against tiny-entry floods
+
+    def _plan_cache_put(self, key, out):
+        """Insert with LRU eviction (oldest first) honoring
+        ``plan_cache_mem_limit`` and an entry-count backstop."""
+        nbytes = self._PLAN_ENTRY_OVERHEAD + self._PLAN_BYTES_PER_CHAR * (
+            len(str(key[0])) + len(out[0].fingerprint()))
+        limit = int(self.db.config["plan_cache_mem_limit"])
+        if nbytes > limit:
+            return  # a single over-budget plan is not cacheable
+        old = self._plan_cache_bytes.pop(key, None)
+        if old is not None:
+            self._plan_cache_total -= old
+            self.plan_cache.pop(key, None)
+        self.plan_cache[key] = out
+        self._plan_cache_bytes[key] = nbytes
+        self._plan_cache_total += nbytes
+        while self.plan_cache and (
+                self._plan_cache_total > limit
+                or len(self.plan_cache) > self._PLAN_CACHE_MAX_ENTRIES):
+            k, _ = self.plan_cache.popitem(last=False)
+            self._plan_cache_total -= self._plan_cache_bytes.pop(k, 0)
+            self.plan_cache_stats["evictions"] += 1
 
     def _execute_select(self, stmt: ast.SelectStmt, params) -> Result:
         self.last_spill = None
         if self.db is None:
             return self._materialize(*self._run_select(stmt, params))
-        plan, outputs, _est = self._plan_select(stmt, params)
+        if bool(self.db.config["enable_plan_cache"]) and \
+                self._ash_state.get("sql"):
+            plan, outputs, _est = self._plan_select_cached(
+                self._ash_state["sql"], stmt, params)
+        else:
+            plan, outputs, _est = self._plan_select(stmt, params)
         # estimate-driven spill route (≙ the SQL memory manager deciding
         # spill from work-area estimates BEFORE execution): over-budget
         # inputs never materialize whole on the device
@@ -386,6 +560,9 @@ class Session:
         factor = 1
         max_retry = int(self.variables["max_capacity_retry"])
         for attempt in range(max_retry + 1):
+            # retry-ladder checkpoint: a killed or expired statement must
+            # not re-plan and re-execute with bigger budgets
+            qadmission.checkpoint()
             try:
                 p = plan if factor == 1 else scale_capacities(plan, factor)
                 rel = execute_plan(p, tables)
@@ -643,6 +820,9 @@ class Session:
         return _ok()
 
     def _describe(self, name: str) -> Result:
+        if name.startswith(("gv$", "v$")) and \
+                not self.catalog.has_table(name):
+            raise _needs(f"the virtual table {name}", VIRTUAL_TABLES)
         if self.catalog.view_def(name) is not None:
             return self._describe_view(name)
         td = self.catalog.table_def(name)
@@ -760,7 +940,7 @@ class Session:
         if stmt.what in ("trace", "metrics", "profile", "workload_report"):
             raise _needs(f"SHOW {stmt.what.upper()}", _MEASURE)
         if stmt.what == "processlist":
-            raise _needs("SHOW PROCESSLIST", _PROCS)
+            return self._show_processlist()
         if self.db is None:
             return _ok()  # SHOW PARAMETERS: no system configuration here
         snap = self.tenant.config.snapshot()
@@ -1741,6 +1921,215 @@ class Session:
                 eng.major_compact(name)
             self.catalog.invalidate(name)
         return _ok()
+
+    # ------------------------------------------------------------------
+    # KILL, SHOW PROCESSLIST (with a Database)
+    # ------------------------------------------------------------------
+    def _kill(self, stmt: ast.KillStmt) -> Result:
+        """KILL [QUERY] <session_id>: flag the target's running (or
+        queued) statement; the victim unwinds with typed QueryKilled at
+        its next host-side checkpoint (plan entry or close, spill batch,
+        retry ladder).  Plain KILL also evicts the session."""
+        if self.db is None:
+            raise _needs_db("KILL")
+        # existence first (MySQL: ER_NO_SUCH_THREAD): plain KILL must
+        # not plant eviction flags for ids that were never sessions
+        known = stmt.session_id in self.db.ash.sessions() or \
+            stmt.session_id == self.session_id
+        if not known:
+            raise KeyError(f"unknown session id {stmt.session_id}")
+        found = self.db.admission.kill(stmt.session_id,
+                                       query_only=(stmt.kind == "query"))
+        return _ok(rowcount=1 if found else 0)
+
+    def _show_processlist(self) -> Result:
+        """One row per live session of the database: QUEUED (waiting for
+        an admission slot), RUNNING, KILLED (flagged, still unwinding)
+        or IDLE, with its current or last statement."""
+        disp = {"executing": "RUNNING", "queued": "QUEUED",
+                "killed": "KILLED", "idle": "IDLE"}
+        rows = []
+        if self.db is not None:
+            for sid, st in self.db.ash.sessions().items():
+                raw = st.get("state", "idle")
+                rows.append((sid, disp.get(raw, raw.upper()),
+                             st.get("sql", "")[:120]))
+        rows.sort()
+        return Result(
+            ["id", "state", "info"],
+            {"id": np.array([r[0] for r in rows], np.int64),
+             "state": _strings(r[1] for r in rows),
+             "info": _strings(r[2] for r in rows)},
+            {}, {}, rowcount=len(rows))
+
+    # ------------------------------------------------------------------
+    # stored procedures (interpreted PL subset; ≙ src/pl — DECLARE/SET/
+    # IF/WHILE over the shared expression engine, SQL via the session)
+    # ------------------------------------------------------------------
+    def _proc_store(self) -> dict:
+        """The database's procedures (loaded from ``procedures.json``
+        at first use), or this catalog-only session's own."""
+        if self.db is not None:
+            if self.db.procedures is None:
+                self.db.procedures = {}
+                self._load_procs()
+            return self.db.procedures
+        if not hasattr(self, "_procs"):
+            self._procs = {}
+        return self._procs
+
+    def _procs_path(self):
+        return (os.path.join(self.db.root, "procedures.json")
+                if self.db is not None and self.db.root else None)
+
+    def _load_procs(self):
+        p = self._procs_path()
+        if p and os.path.exists(p):
+            with open(p) as fh:
+                for name, src in json.load(fh).items():
+                    stmt = parse_sql(src)
+                    stmt.source = src
+                    self.db.procedures[name] = stmt
+
+    def _persist_procs(self):
+        p = self._procs_path()
+        if not p:
+            return
+        store = self._proc_store()
+        tmp = p + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump({n: s.source for n, s in store.items()}, fh)
+        os.replace(tmp, p)
+
+    def _procedure_ddl(self, stmt: ast.ProcedureStmt) -> Result:
+        store = self._proc_store()
+        if stmt.op == "drop":
+            if store.pop(stmt.name, None) is None:
+                raise KeyError(f"unknown procedure {stmt.name}")
+        else:
+            if stmt.name in store:
+                raise ValueError(f"procedure {stmt.name} exists")
+            if not stmt.source:
+                raise ValueError(
+                    "procedure definition lost its source text")
+            store[stmt.name] = stmt
+        self._persist_procs()
+        return _ok()
+
+    def _call_procedure(self, stmt: ast.CallStmt, params) -> Result:
+        proc = self._proc_store().get(stmt.name)
+        if proc is None:
+            raise KeyError(f"unknown procedure {stmt.name}")
+        if len(stmt.args) != len(proc.params):
+            raise ValueError(
+                f"{stmt.name} expects {len(proc.params)} arguments")
+        env: dict = {}
+        for (pname, ptype), arg in zip(proc.params, stmt.args):
+            v, t = literal_value(_as_literal(arg, params, None))
+            env[pname] = _coerce_value(v, t, ptype)
+        out = [None]
+        self._pl_exec(proc.body, env, out, depth=0)
+        return out[0] if out[0] is not None else _ok()
+
+    _PL_MAX_ITERS = 100_000
+
+    def _pl_eval(self, expr, env: dict):
+        """Evaluate a PL expression over the variable environment with
+        the shared expression engine (a 1-row relation of the variables
+        on the session's device)."""
+        arrays, valids = {}, {}
+        for k, v in env.items():
+            if v is None:
+                arrays[k] = np.zeros(1, np.int64)
+                valids[k] = np.zeros(1, bool)
+            elif isinstance(v, str):
+                arrays[k] = np.array([v], dtype=object)
+            elif isinstance(v, float):
+                arrays[k] = np.array([v], np.float64)
+            else:
+                arrays[k] = np.array([int(v)], np.int64)
+        arrays.setdefault("__one__", np.ones(1, np.int64))
+        rel = from_numpy(arrays, valids=valids or None, device=self.device)
+        c = eval_expr(expr, rel)
+        raw = to_numpy(Relation(columns={"r": c}, mask=rel.mask))
+        x = raw["r"][0]
+        vmask = raw.get("__valid__r")
+        if vmask is not None and not vmask[0]:
+            return None
+        return x.item() if hasattr(x, "item") else x
+
+    def _pl_subst(self, node, env: dict):
+        """Deep-substitute PL variables (bare ColumnRefs matching env
+        names) with literals inside a statement AST."""
+        def sub_expr(e):
+            if isinstance(e, ir.ColumnRef) and e.name in env:
+                return ir.Literal(env[e.name])
+            if isinstance(e, ir.Expr):
+                e2 = copy.copy(e)
+                for f, v in vars(e).items():
+                    setattr(e2, f, sub_any(v))
+                return e2
+            return e
+
+        def sub_any(v):
+            if isinstance(v, ir.Expr):
+                return sub_expr(v)
+            if isinstance(v, list):
+                return [sub_any(x) for x in v]
+            if isinstance(v, tuple):
+                return tuple(sub_any(x) for x in v)
+            if hasattr(v, "__dataclass_fields__"):
+                if v.__dataclass_params__.frozen:
+                    # a value type (a literal's SqlType) holds no PL
+                    # variable; the reference's setattr on it raises
+                    # FrozenInstanceError (ROADMAP Queue 3 #18)
+                    return v
+                v2 = copy.copy(v)
+                for f in v.__dataclass_fields__:
+                    setattr(v2, f, sub_any(getattr(v, f)))
+                return v2
+            return v
+
+        return sub_any(node)
+
+    def _pl_exec(self, body: list, env: dict, out: list, depth: int):
+        if depth > 64:
+            raise RecursionError("PL nesting too deep")
+        for item in body:
+            if isinstance(item, ast.PlDeclare):
+                env[item.name] = (self._pl_eval(item.default, env)
+                                  if item.default is not None else None)
+            elif isinstance(item, ast.PlSet):
+                env[item.name] = self._pl_eval(item.expr, env)
+            elif isinstance(item, ast.PlIf):
+                done = False
+                for cond, blk in item.branches:
+                    if bool(self._pl_eval(cond, env)):
+                        self._pl_exec(blk, env, out, depth + 1)
+                        done = True
+                        break
+                if not done and item.else_:
+                    self._pl_exec(item.else_, env, out, depth + 1)
+            elif isinstance(item, ast.PlWhile):
+                iters = 0
+                while bool(self._pl_eval(item.cond, env)):
+                    self._pl_exec(item.body, env, out, depth + 1)
+                    iters += 1
+                    if iters > self._PL_MAX_ITERS:
+                        raise RuntimeError("PL WHILE iteration limit")
+            else:
+                # body statements must NOT hit the plan cache under the
+                # CALL statement's text (its key would collide across
+                # different or iterating SELECTs): blank the key text
+                saved = self._ash_state.get("sql", "")
+                self._ash_state["sql"] = ""
+                try:
+                    res = self.execute_stmt(self._pl_subst(item, env),
+                                            None)
+                finally:
+                    self._ash_state["sql"] = saved
+                if res is not None and res.names:
+                    out[0] = res
 
 
 def _py(x):

@@ -276,20 +276,19 @@ _NEEDS_A_DATABASE = {
     "load data infile '/x.csv' into table t",
     "alter table t add column z int", "xa start 'x'", "savepoint s1",
     "create sequence sq", "lock tables t write",
-    "replace into t values (1)"}
+    "replace into t values (1)", "kill 3", "create tenant tt",
+    "create user u identified by 'p'"}
 
 
 @pytest.mark.parametrize("sql", [
     "truncate table t", "load data infile '/x.csv' into table t",
     "alter table t add column z int", "kill 3", "xa start 'x'",
-    "savepoint s1", "create procedure p() begin select 1; end", "call p()",
-    "create sequence sq", "create tenant tt",
+    "savepoint s1", "create sequence sq", "create tenant tt",
     "create user u identified by 'p'", "lock tables t write",
     "alter system set enable_plan_cache = 1",
     "create external table e (a int) location '/x.csv'",
     "create table c2 as select 1 as a",
     "create table c3 (a int, index ia (a))", "replace into t values (1)",
-    "show processlist",
 ])
 def test_storage_plane_statements_raise(sql):
     """A catalog-only session refuses what the port's ``Database`` runs
@@ -302,6 +301,20 @@ def test_storage_plane_statements_raise(sql):
     with pytest.raises(NotImplementedError, match=match):
         ts.execute(sql)
     assert ts.catalog.tables() == ["t"]  # nothing half-created
+
+
+def test_catalog_only_session_procedures_and_processlist():
+    """As in the reference, a catalog-only session keeps procedures of
+    its own and lists no sessions."""
+    ts = TSession(device="cpu")
+    ts.execute("create table t (a int)")
+    ts.execute("insert into t values (4), (5)")
+    with pytest.raises(KeyError, match="unknown procedure p"):
+        ts.execute("call p()")
+    ts.execute("create procedure p() begin select sum(a) from t; end")
+    assert ts.execute("call p()").rows() == [(9,)]
+    r = ts.execute("show processlist")
+    assert r.names == ["id", "state", "info"] and r.rows() == []
 
 
 @pytest.mark.parametrize("sql", [
