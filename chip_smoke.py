@@ -79,11 +79,31 @@ Phases, each printing its own lines:
    over the wire; a second tenant loading four tables for Q11; a DBMS
    job; and a restart without a checkpoint that keeps the tenant, the
    user and the procedure;
+8e. measure: the measurement plane on the card (at its defaults in
+   every phase above).  The audit ring of phase server's database (a
+   trace id on every statement, device_s on the in-memory queries,
+   queue_s on the admission rounds) and its trace ring; the database
+   phase server restarted, the orders its procedure added deleted and
+   the tables ANALYZEd again (the restart drops statistics), SHOW
+   TRACE after Q3 and the gv$sysstat families; PROFILE of Q1, Q9, Q13
+   and Q18 in memory (a work area over lineitem's rows) and of a
+   spilled Q6, each with the profiler's kernel time against the
+   execution's device_s (a CUDA event pair) and its wall time, and the
+   card's idle share; EXPLAIN ANALYZE of Q3, Q18 and Q6 with the time
+   split on and off, each held against the plan monitor, its root's rows
+   against SQLite's answer and its scans' rows against the tables' row
+   counts; ALTER SYSTEM CALIBRATE with gv$cost_units inside its bounds
+   (the stream peak 30-105% of 3.35 TB/s, the launch floor 2-200 us),
+   the 22 plans' logical hashes before and after it and the 11
+   in-memory queries against SQLite after it; the synchronizing calls
+   of one ``execute_plan`` of Q1, Q6 and Q14 with the plane on and off
+   (equal); the plane's overhead on the 11 in-memory queries (5
+   interleaved pairs); ``q6_filter_sum`` under the profiler;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
-   and printed after it: the stream, spill, SQL and server paths, like
-   the JAX package's, reach no hand-written kernel), and each phase's
-   seconds;
+   and printed after it: the stream, spill, SQL, server and measure
+   paths, like the JAX package's, reach no hand-written kernel but
+   measure's one profiled launch), and each phase's seconds;
 10. the card's name and power limit, then the result line.
 
 Any mismatch or error exits nonzero before the result line.  Without a
@@ -1924,6 +1944,10 @@ def phase_server(torch, dev, tables, types, card, want, loaded):
     # 12. restart without a checkpoint ----------------------------------------
     t0 = time.perf_counter()
     db_root = db.root
+    # the measurement plane's stores of the database that served the wire
+    # statements: phase measure reads them after this database is gone
+    served = {"root": db_root, "in_memory": in_memory, "audit": db.audit,
+              "trace": db.trace_registry, "top": top}
     db.close()
     del db, loaded["db"]
     import gc
@@ -1946,12 +1970,381 @@ def phase_server(torch, dev, tables, types, card, want, loaded):
         u.close()
     finally:
         srv.stop()
-    db.close()
     print(f"[server] after the restart: user smoke connects, CALL "
           f"add_orders works, Q6 over the wire equals SQLite; {card}")
     step("restart", t0)
     print(f"[server] steps: " + ", ".join(f"{k} {v:.3f} s"
                                           for k, v in steps.items()))
+    # phase measure runs on the restarted database, which stays open
+    served["db"] = db
+    return served
+
+
+# phase measure: the queries PROFILE runs in memory, the interleaved
+# pairs of the overhead check, and the card's HBM rate the calibrated
+# stream peak is held against
+MEASURE_PROFILED = (1, 9, 13, 18)
+MEASURE_PAIRS = 5
+MEASURE_WORK_AREA_ROWS = 1 << 23  # over SF1's 6,001,215 lineitem rows
+# the knobs the overhead check turns off, with their "off" values
+MEASURE_PLANE_OFF = {"enable_metrics": False,
+                     "enable_sql_plan_monitor": False,
+                     "enable_profiling": False, "trace_sample_rate": 0.0}
+
+
+def _sync_calls(torch, fn) -> int:
+    """Synchronizing CUDA calls ``fn`` makes, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's own one-time "prototype feature" warning is not a call
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def phase_measure(torch, dev, tables, types, card, want, served):
+    """Phase measure: the measurement plane on the card.  The audit and
+    trace of phase server's wire statements; on phase server's
+    restarted database, ANALYZEd again, PROFILE of Q1, Q9, Q13 and Q18 in memory and of a
+    spilled Q6, each execution's device_s against the profiler's kernel
+    time and the statement's wall time (the card's idle share); EXPLAIN
+    ANALYZE of Q3, Q18 and Q6, with the time split on and off, against
+    the plan monitor, SQLite's row counts and the tables'; ALTER SYSTEM
+    CALIBRATE with gv$cost_units inside its bounds, the 22 plans'
+    logical hashes before and after it and the 11 in-memory queries
+    against SQLite after it; the synchronizing calls of one
+    ``execute_plan`` of Q1, Q6 and Q14 with the plane at its defaults
+    and with it off; the plane's overhead on the 11 in-memory queries;
+    and ``q6_filter_sum`` under the profiler."""
+    from oceanbase_tpu_torch.bench import queries as bq
+    from oceanbase_tpu_torch.bench.oracle import rows_match
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.exec import plan as qplan
+    from oceanbase_tpu_torch.ops import scan_kernels as sk
+    from oceanbase_tpu_torch.server import metrics as qmetrics
+    from oceanbase_tpu_torch.server import profiler as qprofiler
+    from oceanbase_tpu_torch.server import trace as qtrace
+    from oceanbase_tpu_torch.sql.parser import parse_sql
+
+    on_card = dev.type == "cuda"
+    in_memory = served["in_memory"]
+    ordered = {q: "order by" in QUERIES[q].lower() and q not in (2, 18, 21)
+               for q in QUERIES}
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+        print(f"[measure] step {name}: {steps[name]:.3f} s", flush=True)
+
+    def check(q, rows, tag):
+        ok, why = rows_match(rows, want[q][0], ordered=ordered[q])
+        if not ok:
+            raise AssertionError(f"Q{q}{tag} differs from SQLite: {why}")
+
+    # 1. the audit and trace of phase server's wire statements ------------
+    t0 = time.perf_counter()
+    recs = served["audit"].recent(None)
+    # a statement refused before it began (the KILLed session's next
+    # one) opened no span, so it keeps no tree
+    untraced = [r.sql[:60] for r in recs if not r.trace_id and
+                not r.error]
+    if not recs or untraced:
+        raise AssertionError(f"gv$sql_audit of phase server: {len(recs)} "
+                             f"rows, untraced {untraced[:3]}")
+    by_sql: dict = {}
+    for r in recs:
+        by_sql.setdefault(r.sql, []).append(r)
+    dev_s = {q: [r.device_s for r in by_sql.get(QUERIES[q], [])]
+             for q in in_memory}
+    bad = {q: v for q, v in dev_s.items()
+           if not v or (on_card and min(v) <= 0.0)}
+    if bad:
+        raise AssertionError(f"in-memory queries without device_s: {bad}")
+    queued = [r.queue_s for r in by_sql.get(QUERIES[6], [])
+              if r.queue_s > 0.0]
+    if not queued:
+        raise AssertionError("no admission-round Q6 with queue_s > 0")
+    kept = {r.trace_id for r in recs}
+    spans = [sp for sp in served["trace"].recent() if sp.trace_id in kept]
+    names = {sp.name for sp in spans}
+    if not {"statement", "plan.execute", "spill.execute"} <= names or \
+            not any(n.startswith("op.") for n in names):
+        raise AssertionError(f"phase server's trace ring: {sorted(names)}")
+    print(f"[measure] gv$sql_audit of phase server: {len(recs)} statements, "
+          f"{sum(bool(r.trace_id) for r in recs)} with a trace_id (the "
+          f"others failed before they began); the 11 in-memory queries' device_s "
+          f"(median over their {sum(map(len, dev_s.values()))} runs "
+          f"{statistics.median([x for v in dev_s.values() for x in v]):.6f}"
+          f" s); {len(queued)} admission-round Q6 with queue_s > 0 (max "
+          f"{max(queued):.3f} s); {len(spans)} spans in their trees")
+
+    t1 = time.perf_counter()
+    db = served["db"]  # phase server's restarted database, still open
+    s = db.session()
+    # the orders phase server's procedure added: without them every
+    # answer is SQLite's again
+    added = s.execute(f"delete from orders where o_orderkey > "
+                      f"{served['top']}").rowcount
+    # the restart dropped the optimizer statistics (not persisted);
+    # in memory, Q9 over lineitem without them overflows the card
+    for name in tables:
+        s.execute(f"analyze table {name}")
+    print(f"[measure] on phase server's restarted database: the {added} "
+          f"orders its procedure added deleted, {len(tables)} tables "
+          f"ANALYZEd in {time.perf_counter() - t1:.3f} s")
+    # the profiled queries run in memory: a work area over lineitem's rows
+    db.config.set("sql_work_area_rows", MEASURE_WORK_AREA_ROWS)
+    db.config.set("kv_cache_limit_bytes", 16 << 30)
+    res3 = s.execute(QUERIES[3]).rows()
+    check(3, res3, "")
+    tree = s.execute("show trace").rows()
+    ops = [op.strip() for op, *_ in tree]
+    if not tree or ops[0] != "statement" or "plan.execute" not in ops or \
+            not any(o.startswith("op.") for o in ops):
+        raise AssertionError(f"SHOW TRACE after Q3: {ops}")
+    print(f"[measure] SHOW TRACE after Q3: " + " > ".join(
+        f"{op}" for op in ops[:12]) + (" ..." if len(ops) > 12 else ""))
+    flat = qmetrics.sysstat_dict()
+    fams = {f: sum(v for k, v in flat.items() if k.startswith(f + "."))
+            for f in ("palf", "admission", "plan", "spill")}
+    if not all(fams.values()):
+        raise AssertionError(f"gv$sysstat families: {fams}")
+    n_sys = s.execute("select count(*) from gv$sysstat").rows()[0][0]
+    print(f"[measure] gv$sysstat: {n_sys} series; counter sums by family "
+          + ", ".join(f"{k}.* {v:.0f}" for k, v in fams.items()))
+    step("audit and trace", t0)
+
+    # 2. the host/device split against the profiler -----------------------
+    t0 = time.perf_counter()
+
+    def profiled(q, tag, warm=True):
+        if warm:
+            s.execute(QUERIES[q])  # relations cached, first executions
+        s.execute(QUERIES[q])
+        # the wall of an unprofiled run: the profiler's own start, stop
+        # and parse sit inside the PROFILE statement's wall
+        wall = db.audit.recent(1)[-1].elapsed_s
+        out = s.execute("profile " + QUERIES[q])
+        check(q, out.rows(), f" (PROFILE{tag})")
+        rec = db.audit.recent(1)[-1]
+        prof = db.device_profiles.get(s._last_profile_trace_id)
+        rows = prof.rows if prof is not None else []
+        compute = sum(r["total_s"] for r in rows if r["kind"] == "kernel"
+                      and not r["kernel"].startswith(("Memcpy", "Memset")))
+        copies = sum(r["total_s"] for r in rows if r["kind"] == "kernel"
+                     and r["kernel"].startswith(("Memcpy", "Memset")))
+        if on_card and compute <= 0.0:
+            raise AssertionError(f"PROFILE Q{q}{tag}: no kernel rows "
+                                 f"({prof.note if prof else 'no capture'})")
+        if on_card and not (compute <= rec.device_s * 1.05 and
+                            rec.device_s <= rec.elapsed_s):
+            raise AssertionError(
+                f"Q{q}{tag}: kernel {compute:.6f} s, device_s "
+                f"{rec.device_s:.6f} s, wall {rec.elapsed_s:.6f} s")
+        idle = 1.0 - (compute + copies) / wall
+        print(f"[measure] PROFILE q{q}{tag}: kernels {compute * 1e3:.3f} ms "
+              f"+ copies {copies * 1e3:.3f} ms (gv$device_profile, "
+              f"{sum(r['kind'] == 'kernel' for r in rows)} kernel rows), "
+              f"device_s {rec.device_s * 1e3:.3f} ms, host_s "
+              f"{rec.host_s * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms "
+              f"unprofiled ({rec.elapsed_s * 1e3:.3f} ms under PROFILE); "
+              f"idle share {idle:.4f}; {card}", flush=True)
+        return idle
+
+    idle = {q: profiled(q, " in memory") for q in MEASURE_PROFILED}
+    db.config.set("sql_work_area_rows", SPILL_BUDGET_ROWS)
+    idle["6 spilled"] = profiled(6, " spilled", warm=False)
+    if s.last_spill is None:
+        raise AssertionError("Q6 did not take the spill route")
+    db.config.set("sql_work_area_rows", MEASURE_WORK_AREA_ROWS)
+    print(f"[measure] idle share (1 - device busy / wall): " + ", ".join(
+        f"q{k}: {v:.4f}" for k, v in idle.items()))
+    step("profile", t0)
+
+    # 3. EXPLAIN ANALYZE against the plan monitor, SQLite and the tables --
+    t0 = time.perf_counter()
+    n_rows = {name: s.execute(f"select count(*) from {name}").rows()[0][0]
+              for name in tables}
+    # with the time split off an execution without overflow lanes (Q6)
+    # reads its monitor counts through the pinned copy's own fence
+    for q, split in ((3, True), (18, True), (6, True), (6, False),
+                     (3, False)):
+        db.config.set("enable_profiling", split)
+        try:
+            text = s.execute("explain analyze " + QUERIES[q]).plan_text
+        finally:
+            db.config.set("enable_profiling", True)
+        rec = db.plan_monitor.recent(1)[-1]
+        lines = [t for t in text.splitlines()
+                 if "act=" in t and not t.startswith("worst")]
+        acts = [int(t.split("act=")[1].split()[0]) for t in lines]
+        if sorted(acts) != sorted(r["rows"] for r in rec.op_stats):
+            raise AssertionError(f"EXPLAIN ANALYZE Q{q}: rows {acts} vs "
+                                 f"the monitor's {rec.op_stats}")
+        # counts the monitor does not produce: the root's rows are the
+        # answer's rows in SQLite, each scan's its table's live rows
+        if acts[0] != len(want[q][0]):
+            raise AssertionError(f"EXPLAIN ANALYZE Q{q} (split {split}): "
+                                 f"root act={acts[0]}, SQLite "
+                                 f"{len(want[q][0])} rows")
+        scans = [(t.split("table='")[1].split("'")[0], a)
+                 for t, a in zip(lines, acts) if "TableScan(" in t]
+        wrong = [(name, a, n_rows[name]) for name, a in scans
+                 if a != n_rows[name]]
+        if not scans or wrong:
+            raise AssertionError(f"EXPLAIN ANALYZE Q{q} (split {split}): "
+                                 f"scans (table, act, rows) {wrong}")
+        print(f"[measure] explain analyze q{q} (time split {split}): root "
+              f"act={acts[0]} = SQLite's {len(want[q][0])} rows, "
+              f"{len(scans)} scans equal their tables' row counts")
+        for ln in text.splitlines():
+            if ln.startswith(("roofline", "worst")):
+                print(f"[measure] explain analyze q{q}: {ln}")
+            elif "act=" in ln:
+                op = ln.strip().split("(")[0]
+                print(f"[measure] explain analyze q{q}: {op} "
+                      f"[{ln.rsplit('[', 1)[1]}")
+    step("explain analyze", t0)
+
+    # 4. ALTER SYSTEM CALIBRATE -------------------------------------------
+    t0 = time.perf_counter()
+
+    def hashes():
+        out = {}
+        for q in sorted(QUERIES):
+            plan = s._binder(None).bind_select(parse_sql(QUERIES[q]))[0]
+            out[q] = qplan.logical_hash(plan)
+        return out
+
+    before = hashes()
+    consts = dict(s.execute("alter system calibrate").rows())
+    after = hashes()
+    cu = s.execute("select kind, name, rows, device_s, value, unit from "
+                   "gv$cost_units").rows()
+    for kind, name, rows, dsec, value, unit in cu:
+        print(f"[measure] gv$cost_units {kind} {name} rows={rows} "
+              f"device_s={dsec:.9f} value={value:.6g} {unit}")
+    units = db.cost_units
+    frac = units.peak_bytes_s / HBM_BYTES_PER_S
+    if on_card and not (0.30 <= frac <= 1.05):
+        raise AssertionError(f"peak_bytes_s {units.peak_bytes_s:.4g} is "
+                             f"{frac:.3f} of {HBM_BYTES_PER_S:.3g} B/s")
+    if on_card and not (2e-6 <= units.launch_overhead_s <= 200e-6):
+        raise AssertionError(f"launch_overhead_s "
+                             f"{units.launch_overhead_s:.3g}")
+    print(f"[measure] calibrate ({units.preset}, {units.probe_s:.3f} s): "
+          f"{consts}; peak_bytes_s {frac:.4f} of 3.35 TB/s; {card}")
+    print(f"[measure] logical_hash before/after calibration: " + " ".join(
+        f"q{q}={before[q]}/{after[q]}" for q in sorted(before)))
+    print(f"[measure] {sum(before[q] != after[q] for q in before)} of 22 "
+          f"plans changed with the calibrated units")
+    for q in in_memory:
+        check(q, s.execute(QUERIES[q]).rows(), " (after calibration)")
+    print(f"[measure] the 11 in-memory queries equal SQLite after "
+          f"calibration")
+    step("calibrate", t0)
+
+    # 5. the plane adds no sync -------------------------------------------
+    t0 = time.perf_counter()
+    st = bq.slice_tables(tables, types, device=dev)
+    n_li = len(tables["lineitem"]["l_orderkey"])
+    plans = {"q1": bq.q1_plan(), "q6": bq.q6_plan(),
+             "q14": bq.q14_plan(n_li)}
+    counts = {}
+    for name, plan in plans.items():
+        qplan.execute_plan(plan, st)  # first execution at the signature
+        qplan.execute_plan(plan, st, monitor_out=[])
+        qplan.resolve_pending(block=True)  # the warm-ups' statement end
+
+        def on(plan=plan):
+            ctx = qtrace.TraceCtx("sync-count")
+            with qtrace.activate(ctx), qtrace.span("statement"):
+                qplan.execute_plan(plan, st, monitor_out=[])
+
+        def off(plan=plan):
+            qplan.execute_plan(plan, st)
+
+        qplan.reset_exec_times()
+        n_on = _sync_calls(torch, on) if on_card else 0
+        qplan.resolve_pending(block=True)
+        qplan.set_time_split(False)
+        qmetrics.set_enabled(False)
+        try:
+            n_off = _sync_calls(torch, off) if on_card else 0
+        finally:
+            qplan.set_time_split(True)
+            qmetrics.set_enabled(True)
+        counts[name] = (n_on, n_off)
+        if n_on != n_off:
+            raise AssertionError(f"{name}: {n_on} synchronizing calls with "
+                                 f"the plane on, {n_off} with it off")
+    qplan.reset_exec_times()
+    del st
+    print(f"[measure] synchronizing calls of one execute_plan (plane on / "
+          f"off): " + ", ".join(f"{k} {a}/{b}" for k, (a, b) in
+                                counts.items()))
+    step("sync count", t0)
+
+    # 6. overhead on the 11 in-memory queries ------------------------------
+    t0 = time.perf_counter()
+
+    def set_plane(on):
+        for k, v in MEASURE_PLANE_OFF.items():
+            db.config.set(k, (1.0 if k == "trace_sample_rate" else True)
+                          if on else v)
+
+    def run_all():
+        torch.cuda.synchronize() if on_card else None
+        t1 = time.perf_counter()
+        for q in in_memory:
+            s.execute(QUERIES[q])
+        return time.perf_counter() - t1
+
+    run_all()  # warm both settings' paths
+    times = {"on": [], "off": []}
+    for _ in range(MEASURE_PAIRS):
+        for mode in ("on", "off"):
+            set_plane(mode == "on")
+            times[mode].append(run_all())
+    set_plane(True)
+    med_on = statistics.median(times["on"])
+    med_off = statistics.median(times["off"])
+    print(f"[measure] 11 in-memory queries, {MEASURE_PAIRS} interleaved "
+          f"pairs: plane on median {med_on * 1e3:.3f} ms, off "
+          f"{med_off * 1e3:.3f} ms, ratio {med_on / med_off:.4f} (the "
+          f"reference's budget 1.02); {card}")
+    step("overhead", t0)
+
+    # 7. the kernel under the profiler -------------------------------------
+    t0 = time.perf_counter()
+    if on_card:
+        from oceanbase_tpu_torch.bench.oracle_np import Q6_BOUNDS
+
+        cols = _q6_columns(torch, 1 << 20, 7, dev)
+        got, rows, note = qprofiler.profile_statement(
+            lambda: sk.q6_filter_sum(*cols, **Q6_BOUNDS), cuda=True)
+        want6 = sk.q6_filter_sum_reference(*cols, **Q6_BOUNDS)
+        mine = [r for r in rows if "q6_filter_sum" in r["kernel"]
+                and r["kind"] == "kernel"]
+        if not mine or int(got) != int(want6):
+            raise AssertionError(f"q6_filter_sum under the profiler: "
+                                 f"{rows[:4]} {note}")
+        r = mine[0]
+        print(f"[measure] q6_filter_sum under the profiler: kernel "
+              f"{r['kernel']}, {r['occurrences']} launch, "
+              f"{r['total_s'] * 1e3:.6f} ms, {r['pct']:.1f}% of the "
+              f"capture's device time; {card}")
+    step("kernel profile", t0)
+    s.close()
+    db.close()
+    print(f"[measure] steps: " + ", ".join(f"{k} {v:.3f} s"
+                                           for k, v in steps.items()))
 
 
 def main() -> int:
@@ -2046,9 +2439,13 @@ def main() -> int:
         loaded, counts = timed_phase("load", phase_load, torch, dev, tables,
                                      types, card, want, root)
         print(f"[load] kernel launches: {counts}")
-        _, counts = timed_phase("server", phase_server, torch, dev, tables,
-                                types, card, want, loaded)
+        served, counts = timed_phase("server", phase_server, torch, dev,
+                                     tables, types, card, want, loaded)
         print(f"[server] kernel launches: {counts}")
+        _, counts = timed_phase("measure", phase_measure, torch, dev,
+                                tables, types, card, want, served)
+        print(f"[measure] kernel launches (q6_filter_sum once under the "
+              f"profiler): {counts}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches",

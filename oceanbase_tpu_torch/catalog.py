@@ -3,11 +3,12 @@
 Port of ``oceanbase_tpu/catalog.py`` for a session without a storage
 plane: ``ColumnDef``/``IndexDef``/``TableDef``, the load-time NDV
 estimate ``sampled_ndv`` and a ``Catalog`` of named tables ->
-(definition, device ``Relation``), with table and view DDL.  Loading
-computes the same row counts and NDV statistics as the JAX package, so
-its binder and optimizer choose the same plans and capacities.  External
-and transient tables wait for the storage plane (ROADMAP Queue 1
-item 5).
+(definition, device ``Relation``), with table and view DDL, and transient
+tables (the gv$/v$ views a statement reads, materialized per statement by
+the session; ``register_transient``).  Loading computes the same row
+counts and NDV statistics as the JAX package, so its binder and optimizer
+choose the same plans and capacities.  External tables wait for ROADMAP
+Queue 1 item 5b, sub-item 9.
 
 A catalog lives on one device: ``Catalog(device=None)`` resolves it to
 ``"cuda"`` and raises without CUDA unless the caller passes
@@ -24,7 +25,7 @@ import numpy as np
 
 from oceanbase_tpu_torch import default_device
 from oceanbase_tpu_torch.datatypes import SqlType, TypeKind
-from oceanbase_tpu_torch.vector import Relation, from_numpy
+from oceanbase_tpu_torch.vector import Relation, empty_relation, from_numpy
 
 
 @dataclass
@@ -109,7 +110,54 @@ class Catalog:
         # IndexProbe sidecars: (table, index) -> (source relation,
         # sidecar); an entry serves only the relation it was built from
         self._sidecars: dict[tuple[str, str], tuple[Relation, Relation]] = {}
+        # transient tables: materialized virtual (gv$/v$) relations,
+        # refreshed per statement (≙ virtual table iterators)
+        self._transients: dict[str, tuple[TableDef, Relation]] = {}
         self.schema_version = 1
+
+    # -- transient (virtual) tables ---------------------------------------
+    def register_transient(self, name: str, arrays, types=None,
+                           valids=None):
+        """(Re)register a virtual table's rows as a transient relation on
+        the catalog's device; an empty view gets one all-dead row, its
+        column types inferred from the arrays' numpy dtypes."""
+        n = len(next(iter(arrays.values()))) if arrays else 0
+        if n == 0:
+            def infer(v):
+                kind = np.asarray(v).dtype.kind
+                if kind in "OUS":
+                    return SqlType.string()
+                if kind == "f":
+                    return SqlType.double()
+                if kind == "b":
+                    return SqlType.bool_()
+                return SqlType.int_()
+
+            col_types = {k: (types or {}).get(k) or infer(v)
+                         for k, v in arrays.items()}
+            rel = empty_relation(col_types, device=self.device)
+            row_count = 0
+        else:
+            rel = from_numpy(arrays, types=types, valids=valids or None,
+                             device=self.device)
+            row_count = rel.capacity
+        cols = [ColumnDef(c, rel.columns[c].dtype) for c in arrays]
+        tdef = TableDef(name, cols, row_count=max(row_count, 1))
+        with self._lock:
+            # a transient must not shadow a view (re-registering an
+            # existing transient is the normal per-statement refresh)
+            if self.view_def(name) is not None:
+                raise ValueError(f"view {name} already exists")
+            self._transients[name] = (tdef, rel)
+
+    def drop_transient(self, name: str):
+        with self._lock:
+            self._transients.pop(name, None)
+
+    def transient(self, name: str):
+        """(definition, relation) of a transient table, or None."""
+        with self._lock:
+            return self._transients.get(name)
 
     # -- index sidecars ---------------------------------------------------
     def sidecar(self, table: str, index: str, rel: Relation):
@@ -229,19 +277,25 @@ class Catalog:
     # -- lookup ----------------------------------------------------------
     def table_def(self, name: str) -> TableDef:
         with self._lock:
+            t = self._transients.get(name)
+            if t is not None:
+                return t[0]
             if name not in self._defs:
                 raise KeyError(f"unknown table {name}")
             return self._defs[name]
 
     def table_data(self, name: str) -> Relation:
         with self._lock:
+            t = self._transients.get(name)
+            if t is not None:
+                return t[1]
             if name not in self._data:
                 raise KeyError(f"table {name} has no data")
             return self._data[name]
 
     def has_table(self, name: str) -> bool:
         with self._lock:
-            return name in self._defs
+            return name in self._defs or name in self._transients
 
     def tables(self) -> list[str]:
         with self._lock:

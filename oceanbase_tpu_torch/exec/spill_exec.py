@@ -39,15 +39,18 @@ before anything streams; and final aggregates merged on the host keep
 their partial's type (ROADMAP Queue 3 #10).  Every host batch passes the
 statement's cancel/deadline checkpoint (``server/admission.py``), as
 in the reference, and a granule stream that unwinds waits for its
-in-flight host-to-device copies before its pinned buffers go.  Waiting
-for other slices: the trace spans and metrics (ROADMAP Queue 1 item 9)
-and the disk-budget, fault and label hooks of the temp-file store
-(item 5).
+in-flight host-to-device copies before its pinned buffers go.  A
+spilled query runs under the reference's ``spill.execute`` and
+``spill.finish`` spans, counts its ``spill.*`` metrics at the result
+boundary, and times its device work into the statement's host/device
+split (``exec/plan.py::device_span``).  Waiting for another slice: the disk-budget, fault and label
+hooks of the temp-file store (ROADMAP Queue 1 item 5b, sub-items 10-11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -75,8 +78,21 @@ from oceanbase_tpu_torch.expr import ir
 from oceanbase_tpu_torch.px.dist_ops import split_aggs
 from oceanbase_tpu_torch.px.planner import NotDistributable, split_top
 from oceanbase_tpu_torch.server import admission as qadmission
+from oceanbase_tpu_torch.server import metrics as qmetrics
+from oceanbase_tpu_torch.server import trace as qtrace
 from oceanbase_tpu_torch.storage.tmpfile import TempFileStore
 from oceanbase_tpu_torch.vector.column import Relation, from_numpy, to_numpy
+
+# spill-tier accounting (host side, recorded once per spilled query at
+# the result boundary — same place the spill.execute span closes)
+qmetrics.declare("spill.executions", "counter",
+                 "queries routed through the disk-spill tier")
+qmetrics.declare("spill.bytes", "counter",
+                 "bytes written to the temp-file store")
+qmetrics.declare("spill.rows", "counter",
+                 "rows that crossed the host/disk boundary")
+qmetrics.declare("spill.execute_s", "histogram",
+                 "spilled-query wall time", unit="s")
 
 OUT_CHUNK = 1 << 16
 
@@ -190,7 +206,9 @@ def execute_spilled(plan: pp.PlanNode, providers: dict, spill_dir: str,
         except NotImplementedError as e:
             raise NotDistributable(str(e)) from None
 
-    with TempFileStore(spill_dir) as store:
+    m0 = time.monotonic()
+    with TempFileStore(spill_dir) as store, \
+            qtrace.span("spill.execute") as tsp, pp.device_span(dev):
         ctx = _Ctx(store, budget_rows, chunk_rows, providers,
                    device_tables, types_by_table, big, dev)
         try:
@@ -213,13 +231,25 @@ def execute_spilled(plan: pp.PlanNode, providers: dict, spill_dir: str,
                 ctx.stats.kind = "scalar"
             else:
                 ctx.stats.kind = "sort"
-            # the granule streams above are lazy: _finish drives them
-            arrays, valids = _finish(ctx, batches, top)
+            # the granule streams above are lazy: _finish drives them,
+            # so the whole spill pipeline's work lands inside this span
+            with qtrace.span("spill.finish"):
+                arrays, valids = _finish(ctx, batches, top)
         finally:
             ctx.snap_store()
         if any(k == "join" for k, _ in ctx.stats.ops):
             ctx.stats.kind = ("join" if ctx.stats.kind == "sort"
                               else ctx.stats.kind + "+join")
+        tsp.tags.update(kind=ctx.stats.kind, runs=ctx.stats.runs,
+                        bytes=ctx.stats.bytes,
+                        spilled_rows=ctx.stats.spilled_rows,
+                        batches=ctx.stats.batches)
+        qmetrics.inc("spill.executions", kind=ctx.stats.kind)
+        qmetrics.inc("spill.bytes", ctx.stats.bytes, kind=ctx.stats.kind)
+        qmetrics.inc("spill.rows", ctx.stats.spilled_rows,
+                     kind=ctx.stats.kind)
+        qmetrics.observe("spill.execute_s", time.monotonic() - m0,
+                         kind=ctx.stats.kind)
         return arrays, valids, dict(ctx.dtypes), ctx.stats
 
 

@@ -1,7 +1,7 @@
 """Lease-based leader election.
 
-Port of ``oceanbase_tpu/palf/election.py`` without its metrics counters
-(ROADMAP Queue 1 item 9).
+Port of ``oceanbase_tpu/palf/election.py``, with its ``palf.elections*``
+metrics.
 
 Reference analog: src/logservice/palf/election — ElectionImpl
 (algorithm/election_impl.h:43), proposer/acceptor split
@@ -22,6 +22,12 @@ import threading
 import time
 from dataclasses import dataclass
 
+from oceanbase_tpu_torch.server import metrics as qmetrics
+
+qmetrics.declare("palf.elections", "counter",
+                 "election campaigns started on this node")
+qmetrics.declare("palf.elections_won", "counter",
+                 "campaigns that reached quorum")
 
 
 @dataclass
@@ -79,6 +85,7 @@ class ElectionProposer:
         return (self.lease_ms + random.randint(0, self.lease_ms)) / 1000.0
 
     def campaign(self, peer_ids) -> bool:
+        qmetrics.inc("palf.elections")
         r = self.replica
         r.current_term += 1
         term = r.current_term
@@ -101,6 +108,7 @@ class ElectionProposer:
         if votes >= quorum and r.current_term == term:
             r.role = "leader"
             self.refresh_lease()
+            qmetrics.inc("palf.elections_won")
             return True
         r.role = "follower"
         return False

@@ -2,7 +2,7 @@
 
 Port of ``oceanbase_tpu/palf/log.py``: the same on-disk format (magic,
 crc64-stamped entries, recycle base record), torn-tail truncation and
-recycle.  Left out: the metrics counters (ROADMAP Queue 1 item 9), the
+recycle, and the reference's ``palf.*`` metrics.  Left out: the
 disk-fault plane's hooks and the disk manager's typed errors (item 5b);
 a failed write unwinds exactly as in the reference and raises its
 ``OSError``.
@@ -31,8 +31,21 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from oceanbase_tpu_torch.native import crc64
+from oceanbase_tpu_torch.server import metrics as qmetrics
 
 log = logging.getLogger(__name__)
+
+# replication-plane accounting (host side; server/metrics.py registry)
+qmetrics.declare("palf.appends", "counter",
+                 "leader group-append batches")
+qmetrics.declare("palf.entries_appended", "counter",
+                 "log entries appended on the leader")
+qmetrics.declare("palf.fsyncs", "counter",
+                 "durable log fsyncs (append path)")
+qmetrics.declare("palf.fsync_s", "histogram",
+                 "append-path fsync latency", unit="s")
+qmetrics.declare("palf.entries_applied", "counter",
+                 "committed entries applied through the state machine")
 
 _HDR = struct.Struct("<QQIQ")  # term, lsn(index), payload_len, crc64
 _MAGIC = b"OBTPULG1"  # file magic + format version (bump on layout change)
@@ -154,11 +167,14 @@ class PalfReplica:
             self._log_f.flush()
             pre_off = self._log_f.tell()
             self._log_f.write(buf)
+            t0 = time.perf_counter()
             self._log_f.flush()
             os.fsync(self._log_f.fileno())
         except OSError:
             self._unwind_append(pre_off)
             raise
+        qmetrics.inc("palf.fsyncs")
+        qmetrics.observe("palf.fsync_s", time.perf_counter() - t0)
 
     def _unwind_append(self, pre_off: int | None):
         """Roll the append file back to the pre-write offset after a
@@ -363,6 +379,8 @@ class PalfReplica:
                 # LSN gap on disk that recovery cannot scan across
                 del self.entries[len(self.entries) - len(out):]
                 raise
+            qmetrics.inc("palf.appends")
+            qmetrics.inc("palf.entries_appended", len(out))
             return out
 
     def last_lsn(self) -> int:
@@ -487,6 +505,7 @@ class PalfReplica:
                     e = self.entries[self.applied_lsn - self.base_lsn]
                 if self.apply_cb is not None:
                     self.apply_cb(e)
+                qmetrics.inc("palf.entries_applied")
                 with self._lock:
                     self.applied_lsn += 1
         finally:

@@ -22,10 +22,13 @@ ObSQLSessionInfo::check_session_status at operator boundaries):
   host reaches its next boundary, which on an in-memory plan can be
   before the card has finished the work already queued.
 
-The reference's module also holds ``RemoteCtx`` (a DTL fragment's
-cancel context; ROADMAP Queue 1 item 10), ``MemstoreThrottle`` and
-``MemstoreFull`` (memstore write backpressure; item 5b, sub-item 10)
-and the ``admission.*`` metrics family (item 9); none is ported here.
+The ``admission.*`` metrics are the reference's series.  The
+reference's module also holds ``RemoteCtx`` (a DTL fragment's cancel
+context; ROADMAP Queue 1 item 10) and ``MemstoreThrottle`` and
+``MemstoreFull`` (memstore write backpressure; item 5b, sub-item 10);
+neither is ported here, so ``admission.px_downgrades``,
+``admission.throttle_sleeps`` and ``admission.memstore_full`` are
+declared and stay at zero.
 """
 
 from __future__ import annotations
@@ -35,6 +38,36 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Callable, Optional
+
+from oceanbase_tpu_torch.server import metrics as qmetrics
+
+qmetrics.declare("admission.admitted", "counter",
+                 "statements granted a slot (labels: tenant, lane)")
+qmetrics.declare("admission.queued", "counter",
+                 "statements that had to wait in the admission FIFO")
+qmetrics.declare("admission.rejected", "counter",
+                 "statements rejected with ServerBusy (full queue or "
+                 "queue-wait budget exceeded)")
+qmetrics.declare("admission.timeouts", "counter",
+                 "statements that died at their query_timeout_s "
+                 "deadline (QueryTimeout)")
+qmetrics.declare("admission.kills", "counter",
+                 "statements cancelled via KILL (QueryKilled)")
+qmetrics.declare("admission.demotions", "counter",
+                 "statements that yielded their slot to the "
+                 "large-query lane")
+qmetrics.declare("admission.wait_s", "histogram",
+                 "admission queue wait of admitted statements",
+                 unit="s")
+qmetrics.declare("admission.checkpoints", "counter",
+                 "host-side cancel/deadline checkpoint observations")
+qmetrics.declare("admission.px_downgrades", "counter",
+                 "PX admission denials silently downgraded to serial "
+                 "execution (labels: tenant)")
+qmetrics.declare("admission.throttle_sleeps", "counter",
+                 "writes that paid a memstore-pressure ramp sleep")
+qmetrics.declare("admission.memstore_full", "counter",
+                 "writes rejected at the memstore hard limit")
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +153,7 @@ class StmtCtx:
         probe + one clock read."""
         self.checkpoints += 1
         if self.cancel.is_set():
+            qmetrics.inc("admission.kills", tenant=self.tenant)
             # the lane's kill counter covers statements killed while
             # RUNNING, not only those killed in the queue
             if self.controller is not None:
@@ -132,6 +166,7 @@ class StmtCtx:
             return
         now = time.monotonic()
         if self.deadline is not None and now > self.deadline:
+            qmetrics.inc("admission.timeouts", tenant=self.tenant)
             if self.controller is not None:
                 with self.controller._lock:
                     self.controller._lane(self.tenant).timeouts += 1
@@ -313,9 +348,12 @@ class AdmissionController:
                 lane.active += 1
                 lane.admitted += 1
                 ctx.slot = "normal"
+                qmetrics.inc("admission.admitted", tenant=ctx.tenant,
+                             lane="normal")
                 return
             if len(lane.queue) >= max(self._queue_limit(), 0):
                 lane.rejected += 1
+                qmetrics.inc("admission.rejected", tenant=ctx.tenant)
                 raise ServerBusy(
                     f"tenant {ctx.tenant}: admission queue full "
                     f"({len(lane.queue)} waiting, "
@@ -323,6 +361,7 @@ class AdmissionController:
             w = _Waiter(ctx)
             lane.queue.append(w)
             lane.queued += 1
+            qmetrics.inc("admission.queued", tenant=ctx.tenant)
         budget = self._queue_timeout_s()
         rem = ctx.remaining_s()
         if rem is not None:
@@ -344,6 +383,7 @@ class AdmissionController:
                 if ctx.cancel.is_set():
                     with self._lock:
                         lane.kills += 1
+                    qmetrics.inc("admission.kills", tenant=ctx.tenant)
                     raise QueryKilled(
                         f"statement killed while queued "
                         f"(session {ctx.session_id})")
@@ -351,22 +391,33 @@ class AdmissionController:
                 if rem is not None and rem <= 0:
                     with self._lock:
                         lane.timeouts += 1
+                    qmetrics.inc("admission.timeouts",
+                                 tenant=ctx.tenant)
                     raise QueryTimeout(
                         f"query timeout while queued "
                         f"(session {ctx.session_id})")
                 with self._lock:
                     lane.rejected += 1
+                qmetrics.inc("admission.rejected", tenant=ctx.tenant)
                 raise ServerBusy(
                     f"tenant {ctx.tenant}: admission queue wait "
                     f"exceeded {budget:.3f}s")
         ctx.slot = "normal"  # _grant_locked counted us into lane.active
         ctx.queue_s = time.monotonic() - t0
+        qmetrics.observe("admission.wait_s", ctx.queue_s,
+                         tenant=ctx.tenant)
+        qmetrics.inc("admission.admitted", tenant=ctx.tenant,
+                     lane="normal")
 
     def release(self, ctx: StmtCtx):
         """Return whatever ``ctx`` actually holds (ctx.slot — set at
         grant time, NOT re-derived from the live knobs: a rejected
         acquire holds nothing, and an admission toggle mid-statement
         must neither leak nor double-free a slot)."""
+        if ctx.checkpoints:
+            # folded at the statement boundary: one inc, not one per
+            # operator close
+            qmetrics.inc("admission.checkpoints", ctx.checkpoints)
         with self._lock:
             cur = self._running.get(ctx.session_id)
             if cur is ctx:
@@ -403,11 +454,14 @@ class AdmissionController:
             ctx.slot = None  # held by the queue now, not by us
             self._grant_locked()  # the freed slot admits a waiter NOW
             self.demotions += 1
+            qmetrics.inc("admission.demotions", tenant=ctx.tenant)
             if self._large_active < self._large_slots():
                 self._large_active += 1
                 self._lane(ctx.tenant).large_active += 1
                 ctx.lane = "large"
                 ctx.slot = "large"
+                qmetrics.inc("admission.admitted", tenant=ctx.tenant,
+                             lane="large")
                 return
             w = _Waiter(ctx, lane="large")
             self._large_queue.append(w)
@@ -431,6 +485,8 @@ class AdmissionController:
                 return
         ctx.lane = "large"
         ctx.slot = "large"
+        qmetrics.inc("admission.admitted", tenant=ctx.tenant,
+                     lane="large")
 
     # -- grant machinery (callers hold self._lock) ---------------------
     def _grant_locked(self):

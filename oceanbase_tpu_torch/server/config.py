@@ -4,9 +4,9 @@ Port of ``oceanbase_tpu/server/config.py`` (≙ the parameter seed file,
 src/share/parameter/ob_parameter_seed.ipp, runtime-settable via ALTER
 SYSTEM SET, persisted, with per-tenant overlays): the same ``Config``
 (typed, validated, persisted to ``config.json``, ``watch`` hooks, tenant
-overlays) over only the knobs the ported modules read.  Every other
-knob of the reference (metrics, profiling, calibration, ASH, throttling,
-disk budgets, ...) raises the reference's
+overlays) over only the knobs the ported modules read, the measurement
+plane's among them.  Every other knob of the reference (throttling,
+disk budgets, the workload repository, ...) raises the reference's
 ``KeyError("unknown parameter ...")`` on get, set and load: a knob of a
 plane that is not ported is refused, never accepted and ignored.
 """
@@ -43,6 +43,10 @@ def _pos(v):
 
 def _nonneg(v):
     return v >= 0
+
+
+def _frac(v):
+    return 0.0 <= v <= 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +137,77 @@ DEF("stats_gather_interval_s", 600.0, "float",
 DEF("auto_compact_interval_s", 3600.0, "float",
     "auto major-compaction period", _pos)
 
+# the measurement plane: plan monitor and plan quality (exec/plan.py,
+# sql/session.py, server/monitor.py)
+DEF("enable_sql_plan_monitor", True, "bool",
+    "collect per-operator row counts/timings (≙ sql_plan_monitor); an "
+    "explicit EXPLAIN ANALYZE forces collection for its own statement "
+    "regardless")
+DEF("plan_monitor_sample_every", 16, "int",
+    "per-plan ledger sampling: the first executions of a logical plan "
+    "always collect per-operator rows, then every Nth (1 = collect "
+    "every execution); unsampled executions push no monitor lanes and "
+    "skip the ledger record — hot-reloadable via ALTER SYSTEM SET", _pos)
+DEF("enable_plan_feedback", True, "bool",
+    "cardinality feedback (gv$plan_feedback): monitored executions "
+    "record observed per-operator rows per logical plan hash; binds "
+    "consult the store to correct out_capacity, and CapacityOverflow "
+    "retries jump straight to the reported budget instead of riding "
+    "the blind 4x ladder — hot-reloadable via ALTER SYSTEM SET")
+DEF("plan_regress_threshold", 2.0, "float",
+    "plan-regression watchdog: a plan whose latency EWMA exceeds its "
+    "frozen warmup baseline by this factor is flagged regressed in "
+    "gv$plan_history — hot-reloadable via ALTER SYSTEM SET (each "
+    "execution re-reads it)", lambda v: v >= 1.0)
+DEF("plan_feedback_entries", 2048, "int",
+    "bounded gv$plan_feedback store: logical plan hashes kept (LRU); "
+    "takes effect for new Database instances (ring size is bound at "
+    "boot)", _pos)
+DEF("plan_history_entries", 1024, "int",
+    "bounded gv$plan_history store: logical plan hashes kept (LRU); "
+    "takes effect for new Database instances (ring size is bound at "
+    "boot)", _pos)
+# device-time split, profiling and roofline calibration (exec/plan.py,
+# server/calibrate.py, server/profiler.py)
+DEF("enable_profiling", True, "bool",
+    "host/device time split: execute_plan records a CUDA event pair "
+    "around its launches and reads it after the result boundary's one "
+    "sync, so every execution records host_s and device_s separately "
+    "— feeds gv$sql_audit host_s/device_s, gv$plan_cache "
+    "achieved_gflops/achieved_gbps, the time q-error ledger, and the "
+    "PROFILE capture; hot-reloadable via ALTER SYSTEM SET")
+DEF("enable_calibration", True, "bool",
+    "roofline cost calibration (server/calibrate.py): run the "
+    "canonical probe suite at first boot (constants persisted "
+    "checksummed as cost_units.json, surfaced as gv$cost_units) and "
+    "allow ALTER SYSTEM CALIBRATE re-probes; off = no machine "
+    "constants, roofline predictions and time q-errors degrade to 0")
+# diagnostics (server/metrics.py, server/trace.py, server/monitor.py)
+DEF("enable_metrics", True, "bool",
+    "metrics plane (server/metrics.py): named counters, gauges and "
+    "log-bucketed latency histograms updated host-side at result and "
+    "span-close boundaries, surfaced as gv$sysstat / "
+    "gv$sysstat_histogram / SHOW METRICS (≙ ob_diagnose_info sysstat "
+    "counters)")
+DEF("enable_query_trace", True, "bool",
+    "full-link statement tracing (server/trace.py): a root span per "
+    "statement, children across bind/execute/operators/spill "
+    "(≙ ObTrace/flt -> gv$ob_trace)")
+DEF("trace_sample_rate", 1.0, "float",
+    "fraction of statements whose trace tree is RETAINED in gv$trace "
+    "(collection stays on; slow/failed statements always retain)", _frac)
+DEF("trace_slow_threshold_s", 1.0, "float",
+    "statements at least this slow keep their trace tree even when the "
+    "sample draw said no (tail attribution must never be sampled away)",
+    _nonneg)
+DEF("trace_ring_spans", 20000, "int",
+    "bounded per-node span ring capacity behind gv$trace", _pos)
+DEF("enable_ash", True, "bool",
+    "active-session-history sampling (≙ ASH)")
+DEF("ash_sample_interval_ms", 1000, "int", "ASH sampling period", _pos)
+DEF("sql_audit_queue_size", 10000, "int",
+    "ring-buffer capacity of gv$sql_audit", _pos)
+
 
 def _unknown(name: str) -> KeyError:
     return KeyError(f"unknown parameter {name!r}")
@@ -195,6 +270,10 @@ class Config:
 
     def snapshot(self) -> dict:
         return {name: self.get(name) for name in sorted(_DEFS)}
+
+    @staticmethod
+    def defs() -> dict[str, ParamDef]:
+        return dict(_DEFS)
 
 
 _CAP_UNITS = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}

@@ -7,24 +7,32 @@ tenant persisted under ``<root>/tenants`` (each with its own storage
 engine, PALF WAL, transaction service and a ``StorageCatalog`` on the
 database's device); the users (``users.json``, mysql_native_password
 hashes; ``root`` starts passwordless); statement admission
-(``server/admission.py``); the live session registry SHOW PROCESSLIST
-and KILL read (``server/monitor.py``); stored procedures
-(``procedures.json``, loaded at first use by a session); the DBMS job
-scheduler (``server/jobs.py``, whose thread starts only with
-``enable_dbms_jobs`` or ``jobs.start()``); and the TLS credentials of
-the wire protocol (``server/tls.py``).  ``Database(root).session(tenant)
-.execute(sql)`` is the in-process entry point and
-``server/mysql_protocol.py::MySQLServer`` the wire one; both run on
-``cuda`` unless the caller passes ``device="cpu"``, and raise without
-CUDA otherwise.
+(``server/admission.py``); stored procedures (``procedures.json``,
+loaded at first use by a session); the DBMS job scheduler
+(``server/jobs.py``, whose thread starts only with ``enable_dbms_jobs``
+or ``jobs.start()``); and the TLS credentials of the wire protocol
+(``server/tls.py``).  ``Database(root).session(tenant).execute(sql)`` is
+the in-process entry point and ``server/mysql_protocol.py::MySQLServer``
+the wire one; both run on ``cuda`` unless the caller passes
+``device="cpu"``, and raise without CUDA otherwise.
 
-The reference's instance also boots, and this one has no argument or
-attribute for: roofline calibration (the port plans with the default
-cost units of ``server/calibrate.py`` and runs no probe), the SQL audit
-ring, the plan monitor, plan feedback and history, ASH sampling, wait
-events, the trace ring, the metrics plane and the workload repository
-(ROADMAP Queue 1 item 9, the measurement plane), and the virtual
-tables (item 5b, sub-item 9).  ``backup()`` waits for sub-item 13.
+The measurement plane (ROADMAP Queue 1 item 9): the metrics flag
+(``enable_metrics``) and the host/device time split
+(``enable_profiling``), both process-global and hot-reloaded by config
+watchers; roofline calibration at boot (``enable_calibration``: adopt
+``cost_units.json`` or run the "boot" probe on the database's device,
+cached per process; a probe failure leaves ``cost_units`` None and never
+fails the boot); the SQL audit ring, the plan monitor, plan feedback and
+history, the plan-choice ledger, per-operator time calibration, the
+PROFILE capture store, the time model, the trace ring, wait events, the
+spill work-area history, ASH (the live session registry SHOW
+PROCESSLIST and KILL read; its sampling thread starts only with
+``start_ash=True`` and ``enable_ash``) and ``virtual_tables``, which
+serves the gv$/v$ views through SQL.
+
+The reference's workload repository (``server/workload.py``) is not
+booted: it waits for ROADMAP Queue 1 item 5b, sub-item 15.
+``backup()`` waits for sub-item 13.
 """
 
 from __future__ import annotations
@@ -36,18 +44,34 @@ import os
 import shutil
 
 from oceanbase_tpu_torch import default_device
+from oceanbase_tpu_torch.exec import plan as qplan
+from oceanbase_tpu_torch.server import calibrate as qcalibrate
+from oceanbase_tpu_torch.server import metrics as qmetrics
 from oceanbase_tpu_torch.server.admission import AdmissionController
 from oceanbase_tpu_torch.server.backend_info import backend_summary
 from oceanbase_tpu_torch.server.config import Config
 from oceanbase_tpu_torch.server.jobs import JobScheduler
-from oceanbase_tpu_torch.server.monitor import AshSampler
+from oceanbase_tpu_torch.server.monitor import (
+    AshSampler,
+    PlanChoiceLedger,
+    PlanFeedback,
+    PlanHistory,
+    PlanMonitor,
+    SqlAudit,
+    TimeCalibration,
+    TimeModel,
+    WaitEvents,
+)
 from oceanbase_tpu_torch.server.mysql_protocol import mysql_native_hash
+from oceanbase_tpu_torch.server.profiler import DeviceProfileStore
 from oceanbase_tpu_torch.server.tenant import Tenant
+from oceanbase_tpu_torch.server.trace import TraceRegistry
+from oceanbase_tpu_torch.server.virtual_tables import VirtualTables
 
 
 class Database:
     def __init__(self, root: str | None = None, wal_replicas: int = 3,
-                 device=None):
+                 device=None, start_ash: bool = False):
         self.root = root
         self.device = default_device(device)
         cfg_path = os.path.join(root, "config.json") if root else None
@@ -56,8 +80,47 @@ class Database:
         self.config = Config(persist_path=cfg_path)
         self.tenants: dict[str, Tenant] = {}
         self._session_ids = itertools.count(1)
-        #: live session states (SHOW PROCESSLIST, KILL)
-        self.ash = AshSampler()
+        self.node_id = 0  # single-process instance
+
+        # metrics plane and host/device time split ride the config,
+        # process-global, hot-reloaded by ALTER SYSTEM SET
+        qmetrics.set_enabled(bool(self.config["enable_metrics"]))
+        qplan.set_time_split(bool(self.config["enable_profiling"]))
+        self.config.watch(self._on_knob)
+
+        # roofline calibration: adopt persisted machine constants or run
+        # the first-boot probe (cached per process); a corrupt
+        # cost_units.json is quarantined and re-probed, never served
+        self.cost_units = None
+        if bool(self.config["enable_calibration"]):
+            try:
+                self.cost_units = qcalibrate.ensure_units(
+                    root, device=self.device)
+            except Exception:  # noqa: BLE001 — calibration is
+                # observability: a probe failure degrades predictions
+                # to zeros, never boot
+                self.cost_units = None
+
+        # observability stores
+        self.audit = SqlAudit(int(self.config["sql_audit_queue_size"]))
+        self.plan_monitor = PlanMonitor()
+        self.plan_feedback = PlanFeedback(
+            int(self.config["plan_feedback_entries"]))
+        self.plan_history = PlanHistory(
+            int(self.config["plan_history_entries"]))
+        self.plan_choice = PlanChoiceLedger(
+            int(self.config["plan_history_entries"]))
+        self.time_calibration = TimeCalibration()
+        self.device_profiles = DeviceProfileStore()
+        self.time_model = TimeModel()
+        self.trace_registry = TraceRegistry(
+            int(self.config["trace_ring_spans"]))
+        #: live session states (SHOW PROCESSLIST, KILL) and ASH samples
+        self.ash = AshSampler(
+            interval_s=int(self.config["ash_sample_interval_ms"]) / 1000.0)
+        self.wait_events = WaitEvents()
+        #: per-query spill records (v$sql_workarea)
+        self.workarea_history: list[dict] = []
         # statement admission + fair queuing + KILL; per-tenant WRR
         # weights read live from each tenant's config overlay
         self.admission = AdmissionController(
@@ -96,10 +159,21 @@ class Database:
                                            _boot=True)
         if bool(self.config["enable_dbms_jobs"]):
             self.jobs.start()
+        self.virtual_tables = VirtualTables(self)
+        if start_ash and bool(self.config["enable_ash"]):
+            self.ash.start()
 
         # one boot log line naming the resolved backend
         logging.getLogger("oceanbase_tpu_torch.server").info(
-            "boot backend: %s", backend_summary(self.device))
+            "boot backend: %s", backend_summary(self.device,
+                                                self.cost_units))
+
+    @staticmethod
+    def _on_knob(name: str, value):
+        if name == "enable_metrics":
+            qmetrics.set_enabled(bool(value))
+        elif name == "enable_profiling":
+            qplan.set_time_split(bool(value))
 
     def _tenant_weight(self, name: str) -> int:
         t = self.tenants.get(name)
@@ -205,6 +279,7 @@ class Database:
 
     def close(self):
         self.jobs.stop()
+        self.ash.stop()
         for t in self.tenants.values():
             t.close()
 

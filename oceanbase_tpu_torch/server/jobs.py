@@ -5,8 +5,8 @@ the dbms_job/dbms_scheduler services (src/observer/dbms_job,
 dbms_scheduler) running stats auto-gather and maintenance windows (daily
 major freeze).  Jobs run on one daemon thread, started by ``start()`` or
 at boot with ``enable_dbms_jobs``, and stopped by ``Database.close()``;
-every run is recorded in ``history`` (the reference also serves it as
-v$dbms_jobs, which waits for ROADMAP Queue 1 item 5b, sub-item 9).
+every run is recorded in ``history``; ``v$dbms_jobs`` serves the job
+registry.
 
 Built-ins:
 - stats_gather   — ANALYZE tables whose row count drifted >= 50% since

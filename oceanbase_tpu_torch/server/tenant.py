@@ -14,8 +14,9 @@ manager (``tx/tablelock.py``), the KV front end (``kv.py``) and the
 worker pool parallel DML submits to.  What the reference's tenant also
 wires and the port's does not: the multi-node ``NetPalf`` log (ROADMAP
 Queue 1 item 5b, sub-item 14), the memstore write throttle and the disk
-manager (sub-item 10), the CDC pump and PX admission (item 10) and the
-trace spans (item 9).
+manager (sub-item 10) and the CDC pump and PX admission (item 10).  Its
+recovery steps carry the reference's trace spans (``recovery.replay``,
+``recovery.restore_prepared``, ``recovery.checkpoint``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 from oceanbase_tpu_torch.kv import KvTable
 from oceanbase_tpu_torch.palf.cluster import PalfCluster
+from oceanbase_tpu_torch.server import trace as qtrace
 from oceanbase_tpu_torch.server.config import Config
 from oceanbase_tpu_torch.share.sequence import SequenceManager
 from oceanbase_tpu_torch.storage.engine import StorageCatalog, StorageEngine
@@ -62,9 +64,11 @@ class Tenant:
         m0 = time.monotonic()
         stats: dict = {}
         if local.committed_lsn > start:
-            max_ts = self.tx.apply_replay(
-                local.entries_between(start, local.committed_lsn),
-                stats=stats)
+            with qtrace.span("recovery.replay", tenant=name,
+                             start_lsn=start, end_lsn=local.committed_lsn):
+                max_ts = self.tx.apply_replay(
+                    local.entries_between(start, local.committed_lsn),
+                    stats=stats)
             self.tx.gts.advance_to(max_ts)
         #: WAL entries the last boot replayed
         self.replayed_entries = stats.get("entries", 0)
@@ -78,7 +82,9 @@ class Tenant:
                 note=f"commits={stats.get('commits', 0)}")
         # durable XA: branches prepared before the crash reconstruct
         # into PREPARE state (XA RECOVER lists them)
-        restored = self.tx.restore_prepared()
+        with qtrace.span("recovery.restore_prepared", tenant=name) as sp:
+            restored = self.tx.restore_prepared()
+            sp.tags["branches"] = len(restored)
         if restored:
             self.recovery.record(
                 "restore_prepared", tenant=name, prepared=len(restored),
@@ -155,11 +161,13 @@ class Tenant:
         # BELOW a previous one; commits under the old replay point are
         # already durable in segments, so never regress it
         wal_lsn = max(wal_lsn, int(self.engine.meta.get("wal_lsn", 0)))
-        for name in list(self.engine.tables):
-            self.engine.freeze_and_flush(name, snapshot=snap)
-        self.engine.meta["wal_lsn"] = wal_lsn
-        self.engine.meta["gts"] = self.tx.gts.current()
-        self.engine.checkpoint()
+        with qtrace.span("recovery.checkpoint", tenant=self.name,
+                         wal_lsn=wal_lsn):
+            for name in list(self.engine.tables):
+                self.engine.freeze_and_flush(name, snapshot=snap)
+            self.engine.meta["wal_lsn"] = wal_lsn
+            self.engine.meta["gts"] = self.tx.gts.current()
+            self.engine.checkpoint()
         self.recovery.record(
             "checkpoint", tenant=self.name, wal_end_lsn=wal_lsn,
             elapsed_s=time.monotonic() - m0,

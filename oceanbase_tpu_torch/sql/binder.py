@@ -41,9 +41,10 @@ class BindError(ValueError):
 
 _uid = itertools.count()
 
-#: the ROADMAP item the reference's gv$/v$ virtual tables wait for
-VIRTUAL_TABLES = ("ROADMAP Queue 1 item 5b, sub-item 9 (external and gv$ "
-                  "tables)")
+#: the ROADMAP item the reference's external tables wait for (the gv$/v$
+#: views are transient catalog tables the session materializes before
+#: binding, server/virtual_tables.py)
+VIRTUAL_TABLES = "ROADMAP Queue 1 item 5b, sub-item 9 (external tables)"
 
 
 def fresh(prefix: str) -> str:
@@ -471,10 +472,6 @@ class Binder:
         if vdef is not None:
             self._bind_view(name, vdef, tref, qb, scope)
             return
-        if name.startswith(("gv$", "v$")) and \
-                not self.catalog.has_table(name):
-            raise NotImplementedError(
-                f"the virtual table {name} waits for {VIRTUAL_TABLES}")
         tdef = self.catalog.table_def(name)
         alias = tref.alias or name
         rename = {}

@@ -54,9 +54,23 @@ and CALL (persisted in ``procedures.json``), and a per-session LRU plan
 cache of bound SELECT plans keyed by statement text, parameters and
 schema version under ``plan_cache_mem_limit``.
 
-There is no parallel or pushed-down query execution and no tracing or
-metrics here.  Statements of planes not yet ported raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The measurement plane, with a ``Database``: every statement is audited
+(gv$sql_audit: queue, host and device seconds, the host phases, its
+trace_id), traced (a root span with bind, execute, ``plan.execute`` and
+per-operator children; kept by ``trace_sample_rate`` or when slow or
+failed) and counted (``sql.*``, ``plan_cache.*``); a SELECT's plan
+carries per-operator monitor rows (sampled by
+``plan_monitor_sample_every``), cardinality feedback re-seeds its
+capacities, and the plan-history watchdog, the plan-choice ledger and
+the time calibration table learn from its measured device time.
+EXPLAIN ANALYZE (with its roofline line), PROFILE (torch.profiler),
+SHOW TRACE / METRICS / PROFILE, ALTER SYSTEM CALIBRATE and the gv$/v$
+views (materialized per statement as transient tables) run.
+
+There is no parallel or pushed-down query execution.  Statements of
+planes not yet ported (ANALYZE / SHOW WORKLOAD REPORT, external tables,
+VECTOR) raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -84,6 +98,7 @@ from oceanbase_tpu_torch.datatypes import (
     date_to_days,
     days_to_date,
 )
+from oceanbase_tpu_torch.exec import plan as qplan
 from oceanbase_tpu_torch.exec.diag import CapacityOverflow
 from oceanbase_tpu_torch.exec.granule import segment_chunk_provider
 from oceanbase_tpu_torch.exec.ops import merge_dicts
@@ -93,6 +108,8 @@ from oceanbase_tpu_torch.exec.plan import (
     build_sidecar,
     execute_plan,
     index_probes,
+    logical_hash,
+    monitored_postorder,
     prepare_index_probes,
     referenced_tables,
 )
@@ -106,10 +123,20 @@ from oceanbase_tpu_torch.expr.compile import (
 )
 from oceanbase_tpu_torch.px.planner import NotDistributable
 from oceanbase_tpu_torch.server import admission as qadmission
+from oceanbase_tpu_torch.server import calibrate as qcalibrate
+from oceanbase_tpu_torch.server import metrics as qmetrics
+from oceanbase_tpu_torch.server import profiler as qprofiler
+from oceanbase_tpu_torch.server import trace as qtrace
+from oceanbase_tpu_torch.server.monitor import AuditRecord
 from oceanbase_tpu_torch.sql import access_path as ap
 from oceanbase_tpu_torch.sql import ast
 from oceanbase_tpu_torch.sql.binder import VIRTUAL_TABLES, Binder, Scope
-from oceanbase_tpu_torch.sql.optimizer import CostModel, scale_capacities
+from oceanbase_tpu_torch.sql.optimizer import (
+    CostModel,
+    apply_feedback,
+    overflow_jump_factor,
+    scale_capacities,
+)
 from oceanbase_tpu_torch.sql.parser import parse_sql
 from oceanbase_tpu_torch.storage.lookup import (
     estimate_rows_in_ranges,
@@ -126,9 +153,25 @@ from oceanbase_tpu_torch.vector import (
     to_numpy,
 )
 
+# statement accounting (host side, statement boundary), the reference's
+# series
+qmetrics.declare("sql.statements", "counter",
+                 "statements executed (labels: tenant, ok)")
+qmetrics.declare("sql.statement_s", "histogram",
+                 "end-to-end statement latency", unit="s")
+qmetrics.declare("sql.rows_returned", "counter",
+                 "result rows returned to clients")
+qmetrics.declare("plan_cache.hits", "counter",
+                 "session plan-cache hits")
+qmetrics.declare("plan_cache.misses", "counter",
+                 "session plan-cache misses (bind + optimize paid)")
+qmetrics.declare("plan_cache.evictions", "counter",
+                 "session plan-cache LRU evictions")
+
 _POW10 = [10**i for i in range(38)]
 
-_MEASURE = "ROADMAP Queue 1 item 9 (the measurement plane)"
+_WORKLOAD = ("ROADMAP Queue 1 item 5b, sub-item 15 (the workload "
+             "repository)")
 _VECTOR = "ROADMAP Queue 1 items 4 and 8 (VECTOR and side device modules)"
 
 
@@ -145,8 +188,7 @@ def _needs_db(what: str):
 # statement type -> (what, ROADMAP item) for statements of planes the
 # port has not ported yet, refused with or without a Database
 _UNPORTED = {
-    ast.ProfileStmt: ("PROFILE", _MEASURE),
-    ast.AnalyzeWorkloadStmt: ("ANALYZE WORKLOAD REPORT", _MEASURE),
+    ast.AnalyzeWorkloadStmt: ("ANALYZE WORKLOAD REPORT", _WORKLOAD),
     ast.CreateExternalTableStmt: ("CREATE EXTERNAL TABLE", VIRTUAL_TABLES),
 }
 
@@ -252,6 +294,16 @@ class Session:
         #: {"route": "native" | "python", "rows", "bytes"} of the last
         #: LOAD DATA
         self.last_load = None
+        #: trace id SHOW TRACE renders (the last statement whose trace
+        #: was kept)
+        self._last_trace_id = ""
+        self._stmt_is_show_trace = False
+        #: bind window of the last SELECT (gv$sql_audit.compile_s)
+        self._last_compile_s = 0.0
+        #: the binder's CBO choices of the last bind (gv$plan_choice)
+        self._last_cbo_choices: list = []
+        #: trace id of this session's last PROFILE capture
+        self._last_profile_trace_id = ""
 
     @property
     def device(self):
@@ -289,8 +341,12 @@ class Session:
                        ast.DeleteStmt, ast.CallStmt, ast.LoadDataStmt)
 
     def _needs_admission(self, stmt) -> bool:
+        if isinstance(stmt, ast.ProfileStmt):
+            return self._needs_admission(stmt.stmt)  # PROFILE runs it
         if isinstance(stmt, self._ADMITTED_STMTS):
             return True
+        if isinstance(stmt, ast.ExplainStmt) and stmt.analyze:
+            return True  # EXPLAIN ANALYZE executes the plan
         if isinstance(stmt, ast.CreateTableStmt) and \
                 stmt.as_select is not None:
             return True  # CTAS executes its SELECT
@@ -311,15 +367,31 @@ class Session:
         return v if v > 0 else None
 
     def execute(self, sql: str, params: list | None = None) -> Result:
-        """Parse + execute one statement.
+        """Parse + execute one statement, with request auditing, ASH
+        state and a full-link trace root span (≙ obmp_query process +
+        sql_audit recording + ObTrace begin/end).
 
         With a ``Database``, a query or DML statement checks a per-tenant
         admission slot out BEFORE binding (typed ``ServerBusy`` when the
         bounded queue is full) and runs under a ``StmtCtx`` whose
         deadline and KILL flag the host-side checkpoints observe; the
         session's SHOW PROCESSLIST slot says QUEUED, RUNNING or KILLED
-        meanwhile."""
-        self._ash_state.update(active=True, sql=sql, state="executing")
+        meanwhile.  At the end the statement's host/device split is read
+        (``exec_times``; its result has been read by then, so no event
+        pair waits) into the audit record and the tenant's time model."""
+        start = time.time()        # wall ts for the audit record
+        t0 = time.monotonic()      # duration source (step-proof)
+        err = ""
+        out = None
+        # host/device split accumulator: statement-scoped, so audit and
+        # plan-monitor rows attribute exactly this statement's work
+        qplan.reset_exec_times()
+        tctx = qtrace.start_trace(self.db)
+        self._ash_state.update(
+            active=True, sql=sql, state="executing",
+            trace_id=tctx.trace_id if tctx is not None else "")
+        self._last_compile_s = 0.0
+        self._stmt_is_show_trace = False  # set by _show_trace()
         admission = self.db.admission if self.db is not None else None
         ctx: qadmission.StmtCtx | None = None
         try:
@@ -327,30 +399,161 @@ class Session:
                 # a session evicted by plain KILL <id> takes no more
                 # statements (typed; the client reconnects)
                 admission.check_session(self.session_id)
-            stmt = parse_sql(sql)
-            if admission is not None and self._needs_admission(stmt):
-                ctx = qadmission.StmtCtx(
-                    session_id=self.session_id, tenant=self.tenant.name,
-                    sql=sql, timeout_s=self._stmt_timeout_s(),
-                    controller=admission, ash_state=self._ash_state)
-                self._ash_state["state"] = "queued"
-                try:
-                    admission.acquire(ctx)
-                finally:
-                    if self._ash_state.get("state") == "queued":
-                        self._ash_state["state"] = "executing"
-            with qadmission.activate(ctx):
-                return self.execute_stmt(stmt, params)
+            with qtrace.activate(tctx):
+                with qtrace.span("statement", sql=sql[:200],
+                                 session=self.session_id):
+                    stmt = parse_sql(sql)
+                    if admission is not None and \
+                            self._needs_admission(stmt):
+                        ctx = qadmission.StmtCtx(
+                            session_id=self.session_id,
+                            tenant=self.tenant.name, sql=sql,
+                            timeout_s=self._stmt_timeout_s(),
+                            controller=admission,
+                            ash_state=self._ash_state)
+                        self._ash_state["state"] = "queued"
+                        try:
+                            admission.acquire(ctx)
+                        finally:
+                            if self._ash_state.get("state") == "queued":
+                                self._ash_state["state"] = "executing"
+                        if ctx.queue_s > 0:
+                            # queued time is a first-class wait: a span
+                            # in the statement tree + gv$sql_audit's
+                            # queue_s column
+                            qtrace.add_span("admission.wait",
+                                            ctx.queue_s,
+                                            tenant=ctx.tenant)
+                    with qadmission.activate(ctx):
+                        self._materialize_virtuals(stmt)
+                        out = self.execute_stmt(stmt, params)
+                        return out
+        except Exception as e:
+            err = f"{type(e).__name__}: {e}"
+            raise
         finally:
             if ctx is not None:
                 admission.release(ctx)
-            self._ash_state.update(active=False, state="idle")
+            self._finish_statement(sql, start, t0, out, err, tctx, ctx)
+
+    def _finish_statement(self, sql, start, t0, out, err, tctx, ctx):
+        """Statement close: metrics, trace retention, the audit record
+        and the time model."""
+        times = qplan.exec_times()
+        elapsed = time.monotonic() - t0
+        self._ash_state.update(active=False, state="idle", trace_id="")
+        tname = self.tenant.name if self.tenant is not None else "sys"
+        qmetrics.inc("sql.statements", tenant=tname, ok=0 if err else 1)
+        qmetrics.observe("sql.statement_s", elapsed, tenant=tname)
+        if out is not None and out.rowcount > 0:
+            qmetrics.inc("sql.rows_returned", out.rowcount, tenant=tname)
+        trace_id = ""
+        if tctx is not None:
+            kept = qtrace.finish_trace(self.db, tctx, elapsed, error=err)
+            if kept:
+                trace_id = tctx.trace_id
+                # SHOW TRACE reads the LAST statement's tree — a SHOW
+                # TRACE must not clobber what it displays
+                if not self._stmt_is_show_trace:
+                    self._last_trace_id = trace_id
+            elif not self._stmt_is_show_trace:
+                # sampled away: SHOW TRACE must come up empty, not
+                # attribute an older statement's tree
+                self._last_trace_id = ""
+        if self.db is None:
+            return
+        queue_s = ctx.queue_s if ctx is not None else 0.0
+        self.db.audit.record(AuditRecord(
+            sql=sql, session_id=self.session_id, tenant=tname,
+            start_ts=start, elapsed_s=elapsed,
+            rows=out.rowcount if out is not None else 0, error=err,
+            compile_s=self._last_compile_s, trace_id=trace_id,
+            queue_s=queue_s, host_s=times.host_s,
+            device_s=times.device_s, bind_s=times.bind_s,
+            sidecar_build_s=times.sidecar_build_s,
+            lower_s=times.lower_s, xla_compile_s=times.compile_s,
+            dispatch_s=times.dispatch_s, merge_s=times.merge_s))
+        self.db.time_model.observe(tname, times, elapsed_s=elapsed,
+                                   queue_s=queue_s)
+
+    def _materialize_virtuals(self, stmt):
+        """Refresh every gv$/v$ view the statement references as a
+        transient catalog table (≙ virtual table iterators serving the
+        query): SELECT (FROM, CTEs, set ops, expression subqueries),
+        EXPLAIN, PROFILE, INSERT ... SELECT, UPDATE/DELETE WHERE
+        subqueries and DESCRIBE, through view bodies too."""
+        if self.db is None:
+            return
+        vt = self.db.virtual_tables
+        seen_views: set = set()
+
+        def refresh(name):
+            arrays = vt.provide(name)
+            if arrays is not None:
+                self.catalog.register_transient(name, arrays)
+                return
+            # a view body may reference gv$/v$ tables too
+            vdef = self.catalog.view_def(name)
+            if vdef is None or name in seen_views:
+                return
+            seen_views.add(name)
+            try:
+                body = parse_sql(vdef["sql"])
+            except Exception:
+                return
+            if isinstance(body, ast.SelectStmt):
+                walk_sel(body)
+
+        def walk_expr(e):
+            if e is None or not isinstance(e, ir.Expr):
+                return
+            if isinstance(e, ast.Subquery) and e.select is not None:
+                walk_sel(e.select)
+            for c in e.children():
+                walk_expr(c)
+
+        def walk_from(items):
+            for t in items:
+                if isinstance(t, ast.TableRef):
+                    refresh(t.name)
+                elif isinstance(t, ast.JoinRef):
+                    walk_from([t.left, t.right])
+                    if isinstance(t.on, ir.Expr):
+                        walk_expr(t.on)
+                elif isinstance(t, ast.SubqueryRef):
+                    walk_sel(t.select)
+
+        def walk_sel(sel):
+            walk_from(sel.from_)
+            for e, _ in sel.items:
+                walk_expr(e)
+            walk_expr(sel.where)
+            walk_expr(sel.having)
+            for _, sub in sel.ctes:
+                walk_sel(sub)
+            for _, _, rhs in sel.setops:
+                walk_sel(rhs)
+
+        if isinstance(stmt, ast.ProfileStmt):
+            stmt = stmt.stmt
+        if isinstance(stmt, ast.ExplainStmt):
+            stmt = stmt.stmt
+        if isinstance(stmt, ast.SelectStmt):
+            walk_sel(stmt)
+        elif isinstance(stmt, ast.InsertStmt) and stmt.select is not None:
+            walk_sel(stmt.select)
+        elif isinstance(stmt, (ast.UpdateStmt, ast.DeleteStmt)):
+            walk_expr(stmt.where)
+        elif isinstance(stmt, ast.DescribeStmt):
+            refresh(stmt.table)
 
     def execute_stmt(self, stmt, params=None) -> Result:
         if isinstance(stmt, ast.SelectStmt):
             return self._execute_select(stmt, params)
         if isinstance(stmt, ast.ExplainStmt):
             return self._explain(stmt.stmt, params, analyze=stmt.analyze)
+        if isinstance(stmt, ast.ProfileStmt):
+            return self._profile(stmt, params)
         if isinstance(stmt, ast.CreateTableStmt):
             return self._create_table(stmt)
         if isinstance(stmt, ast.DropTableStmt):
@@ -383,8 +586,12 @@ class Session:
                 return self._delete_tx(stmt, params)
             return self._delete(stmt, params)
         if isinstance(stmt, ast.ShowTablesStmt):
+            # the gv$ views are part of the schema surface: every
+            # diagnostic view is discoverable
+            vt = (self.db.virtual_tables.names() if self.db is not None
+                  else ())
             names = sorted(set(self.catalog.tables())
-                           | set(self.catalog.view_names()))
+                           | set(self.catalog.view_names()) | set(vt))
             return Result(["table_name"], {"table_name": _strings(names)},
                           {}, {"table_name": SqlType.string()},
                           rowcount=len(names))
@@ -454,14 +661,32 @@ class Session:
     # ------------------------------------------------------------------
     # SELECT, EXPLAIN
     # ------------------------------------------------------------------
+    def _cost_model(self) -> CostModel:
+        """CBO pricing context: THIS database's measured gv$cost_units
+        (the process units inside CostModel when absent) with
+        gv$time_calibration's per-operator corrections folded in —
+        clamped, and only after a few observations, so one wild early
+        sample cannot poison later plan choices."""
+        if self.db is None:
+            return CostModel()
+        corrections: dict = {}
+        for r in self.db.time_calibration.rows():
+            if r["count"] >= 3 and r["correction"] > 0.0:
+                corrections[r["op"]] = min(
+                    max(float(r["correction"]), 0.25), 8.0)
+        return CostModel(units=self.db.cost_units, corrections=corrections)
+
     def _binder(self, params) -> Binder:
         binder = Binder(self.catalog, params=params or [],
                         sequences=self._sequences, sysvars=self.variables)
-        binder.cost_model = CostModel()
+        binder.cost_model = self._cost_model()
         return binder
 
     def _plan_select(self, stmt: ast.SelectStmt, params):
-        return self._binder(params).bind_select(stmt)
+        binder = self._binder(params)
+        out = binder.bind_select(stmt)
+        self._last_cbo_choices = list(binder.cbo_choices)
+        return out
 
     def _plan_select_cached(self, sql_key: str, stmt, params):
         """Plan-cache probe (≙ ObPlanCache::get_plan): bound plans keyed
@@ -478,10 +703,16 @@ class Session:
         if hit is not None:
             self.plan_cache.move_to_end(key)  # LRU touch
             self.plan_cache_stats["hits"] += 1
+            qmetrics.inc("plan_cache.hits")
+            # the gv$plan_choice row was recorded at the original bind;
+            # a hit only re-executes the already-chosen plan
+            self._last_cbo_choices = []
             return hit
         self.plan_cache_stats["misses"] += 1
+        qmetrics.inc("plan_cache.misses")
         binder = self._binder(params)
         out = binder.bind_select(stmt)
+        self._last_cbo_choices = list(binder.cbo_choices)
         if not binder.folded_volatile:
             self._plan_cache_put(key, out)
         return out
@@ -514,17 +745,40 @@ class Session:
             k, _ = self.plan_cache.popitem(last=False)
             self._plan_cache_total -= self._plan_cache_bytes.pop(k, 0)
             self.plan_cache_stats["evictions"] += 1
+            qmetrics.inc("plan_cache.evictions")
 
     def _execute_select(self, stmt: ast.SelectStmt, params) -> Result:
         self.last_spill = None
         if self.db is None:
             return self._materialize(*self._run_select(stmt, params))
-        if bool(self.db.config["enable_plan_cache"]) and \
-                self._ash_state.get("sql"):
-            plan, outputs, _est = self._plan_select_cached(
-                self._ash_state["sql"], stmt, params)
-        else:
-            plan, outputs, _est = self._plan_select(stmt, params)
+        use_cache = (bool(self.db.config["enable_plan_cache"])
+                     and self._ash_state.get("sql"))
+        tb0 = time.monotonic()
+        with qtrace.span("compile", cached=int(bool(use_cache))):
+            if use_cache:
+                plan, outputs, _est = self._plan_select_cached(
+                    self._ash_state["sql"], stmt, params)
+            else:
+                plan, outputs, _est = self._plan_select(stmt, params)
+        self._last_compile_s = time.monotonic() - tb0
+        # the bind window is the first host phase of the time model
+        qplan.add_exec_times(bind_s=self._last_compile_s)
+        lhash = logical_hash(plan)
+        if self._last_cbo_choices:
+            # bind-time CBO beliefs land in gv$plan_choice; the measured
+            # device seconds fold in once the plan has run
+            self.db.plan_choice.record(lhash, self._last_cbo_choices)
+        feedback_on = bool(self.db.config["enable_plan_feedback"])
+        if feedback_on:
+            # cardinality feedback (gv$plan_feedback): operators observed
+            # bigger than their static budgets start at the observed
+            # capacity bucket instead of re-riding the retry ladder
+            corr = self.db.plan_feedback.corrections(lhash)
+            if corr:
+                qmetrics.inc("plan.feedback_hits")
+                plan, n_fixed = _with_feedback(plan, corr)
+                if n_fixed:
+                    qmetrics.inc("plan.feedback_corrections", n_fixed)
         # estimate-driven spill route (≙ the SQL memory manager deciding
         # spill from work-area estimates BEFORE execution): over-budget
         # inputs never materialize whole on the device
@@ -533,8 +787,22 @@ class Session:
             res = self._try_spilled(plan, outputs, big)
             if res is not None:
                 return res
+        monitor = None
+        mon_collect = True
+        if bool(self.db.config["enable_sql_plan_monitor"]):
+            # sampled ledger collection: unsampled executions push no
+            # monitor lanes and record no ledger row
+            monitor = []
+            mon_collect = self.db.plan_monitor.should_record(
+                lhash, int(self.db.config["plan_monitor_sample_every"]))
+        qplan.reset_compile_flag()
+        t0 = time.monotonic()  # plan-monitor total_s (step-proof delta)
         try:
-            rel, outputs = self._run_plan(plan, outputs)
+            with qtrace.span("execute") as xsp:
+                rel, outputs = self._run_plan(
+                    plan, outputs, monitor=monitor,
+                    mon_collect=mon_collect, feedback=feedback_on)
+                xsp.tags.update(attempts=self.last_retries + 1)
         except CapacityOverflow:
             # backstop: re-plan retries exhausted -> disk spill tier,
             # largest input as the stream
@@ -543,7 +811,34 @@ class Session:
             if res is not None:
                 return res
             raise
-        return self._materialize(rel, outputs)
+        # the result read is the boundary after which every event pair
+        # and pinned monitor copy of this statement has completed
+        res = self._materialize(rel, outputs)
+        qplan.resolve_pending()
+        exec_elapsed = time.monotonic() - t0
+        if monitor is not None and mon_collect:
+            # roofline prediction vs the measured device half: the TIME
+            # q-error beside the cardinality one
+            times, pred_s, time_q = self._roofline(plan)
+            self.db.plan_monitor.record(
+                qplan.plan_fingerprint(plan)[:64], monitor, exec_elapsed,
+                logical_hash=lhash, retries=self.last_retries,
+                path="serial", host_s=times.host_s,
+                device_s=times.device_s, pred_s=pred_s, time_q=time_q)
+            # validate the CHOICE, not just the plan
+            self.db.plan_choice.observe(lhash, times.device_s)
+            if feedback_on and monitor:
+                self.db.plan_feedback.observe(lhash, monitor)
+        if self.last_retries == 0 and not qplan.compile_flag():
+            # plan-regression watchdog: latency baselines per logical
+            # hash, independent of the plan-monitor knob; samples that
+            # paid a first execution at a new signature or a retry
+            # replay are excluded
+            if self.db.plan_history.record(
+                    lhash, exec_elapsed,
+                    float(self.db.config["plan_regress_threshold"])):
+                qmetrics.inc("plan.regressions")
+        return res
 
     def _run_select(self, stmt: ast.SelectStmt, params):
         """Bind and run a SELECT on the device under the capacity-retry
@@ -551,7 +846,12 @@ class Session:
         plan, outputs, _est = self._plan_select(stmt, params)
         return self._run_plan(plan, outputs)
 
-    def _run_plan(self, plan: PlanNode, outputs):
+    def _run_plan(self, plan: PlanNode, outputs, monitor=None,
+                  mon_collect: bool = True, feedback: bool = False):
+        """Run ``plan`` on the device under the capacity-retry ladder
+        (4x per retry, or straight to the budget the overflow report
+        asks for with ``feedback``); ``monitor`` collects the ledger
+        rows of the successful attempt."""
         tables = {t: self._table_snapshot(t)
                   for t in referenced_tables(plan)
                   if self.catalog.has_table(t)}
@@ -565,35 +865,213 @@ class Session:
             qadmission.checkpoint()
             try:
                 p = plan if factor == 1 else scale_capacities(plan, factor)
-                rel = execute_plan(p, tables)
+                rel = execute_plan(p, tables, monitor_out=monitor,
+                                   monitor_collect=mon_collect)
                 break
-            except CapacityOverflow:
+            except CapacityOverflow as ovf:
                 if attempt >= max_retry:
                     raise
-                factor *= 4
+                qmetrics.inc("plan.capacity_retries")
+                factor *= (overflow_jump_factor(ovf.drops) if feedback
+                           else 4)
+                if monitor is not None:
+                    monitor.clear()
         self.last_retries = attempt
         self.last_plan = p
         self.last_outputs = outputs
         return rel, outputs
 
+    def _roofline(self, plan):
+        """Roofline prediction for THIS statement's accumulated device
+        work -> (ExecTimes, pred_s, time_q); records the pair into the
+        per-operator-type calibration table.  Zeros when the split is
+        off or THIS database is uncalibrated."""
+        times = qplan.exec_times()
+        pred_s = time_q = 0.0
+        units = self.db.cost_units if self.db is not None else None
+        if units is not None and times.device_s > 0.0 and \
+                times.calls > 0:
+            pred_s = qcalibrate.predict_seconds(
+                units, times.flops, times.bytes, times.calls)
+            time_q = qcalibrate.time_q_error(pred_s, times.device_s)
+            self.db.time_calibration.observe(
+                type(plan).__name__, pred_s, times.device_s,
+                host_s=times.host_s)
+        return times, pred_s, time_q
+
     def _explain(self, stmt, params, analyze: bool = False) -> Result:
         if not isinstance(stmt, ast.SelectStmt):
             raise NotImplementedError("EXPLAIN supports SELECT")
-        if analyze:
-            raise NotImplementedError(
-                f"EXPLAIN ANALYZE reads the plan-monitor lanes, which "
-                f"wait for {_MEASURE}")
         # planning for EXPLAIN must not consume sequence values
         seqs = self._sequences
         binder = Binder(self.catalog, params=params or [],
                         sequences=_PeekSequences(seqs) if seqs else None,
                         sysvars=self.variables)
-        plan, _outputs, _est = binder.bind_select(stmt)
-        text = format_plan(plan)
+        plan, outputs, _est = binder.bind_select(stmt)
+        row_counts = None
+        extra = ""
+        if analyze:
+            row_counts, extra = self._explain_analyze(plan, outputs)
+        text = format_plan(plan, row_counts=row_counts) + extra
+        if row_counts:
+            worst = max(row_counts.values(),
+                        key=lambda r: r.get("q_error", 0.0))
+            if worst.get("q_error", 0.0) > 0.0:
+                text += (f"\nworst misestimate: {worst['op']} "
+                         f"est={worst['est']} act={worst['rows']} "
+                         f"q={worst['q_error']:.2f}")
         lines = np.array(text.splitlines(), dtype=object)
         return Result(["plan"], {"plan": lines}, {},
                       {"plan": SqlType.string()}, rowcount=len(lines),
                       plan_text=text)
+
+    def _explain_analyze(self, plan, outputs):
+        """Execute ``plan`` with the monitor on (whatever
+        ``enable_sql_plan_monitor`` says: the user asked for actuals)
+        under the retry ladder, or through the spill tier when its inputs
+        are over budget -> ({id(node): ledger row}, text appended to the
+        plan: the spill counters, the roofline line)."""
+        big = self._spill_candidates(plan)
+        if big and self._try_spilled(plan, outputs, big) is not None:
+            st = self.last_spill
+            return None, (f"\nspill: kind={st.kind} runs={st.runs} "
+                          f"bytes={st.bytes} "
+                          f"spilled_rows={st.spilled_rows} "
+                          f"batches={st.batches}")
+        monitor: list = []
+        an0 = time.monotonic()  # ledger total_s (step-proof)
+        # the same retry ladder as execution: a CapacityOverflow IS the
+        # finding EXPLAIN ANALYZE exists to expose, not a failure
+        self._run_plan(plan, outputs, monitor=monitor, feedback=True)
+        # this statement reads no result, so its execution's event pair
+        # (if it had no overflow lane to read) is waited for here
+        qplan.resolve_pending(block=True)
+        row_counts = dict(zip((id(n) for n in monitored_postorder(plan)),
+                              monitor))
+        times, pred_s, time_q = self._roofline(plan)
+        extra = ""
+        if times.device_s > 0.0 or self.device.type == "cpu":
+            wname, wsec = times.worst_phase()
+            extra = (f"\nroofline: [pred={pred_s:.3e}s "
+                     f"dev={times.device_s:.3e}s "
+                     f"host={times.host_s:.3e}s "
+                     + (f"tq={time_q:.2f}" if time_q > 0.0
+                        else "tq=uncalibrated")
+                     + f" worst_phase={wname}:{wsec:.3e}s]")
+        if self.db is not None:
+            self.db.plan_monitor.record(
+                qplan.plan_fingerprint(plan)[:64], monitor,
+                time.monotonic() - an0, logical_hash=logical_hash(plan),
+                retries=self.last_retries, path="serial",
+                host_s=times.host_s, device_s=times.device_s,
+                pred_s=pred_s, time_q=time_q)
+        return row_counts, extra
+
+    # ------------------------------------------------------------------
+    # PROFILE, SHOW TRACE / METRICS / PROFILE
+    # ------------------------------------------------------------------
+    def _profile(self, stmt: ast.ProfileStmt, params=None) -> Result:
+        """PROFILE <statement>: execute it under ``torch.profiler``;
+        the per-kernel rows land in gv$device_profile keyed by this
+        statement's trace_id (SHOW PROFILE shows them).  The statement's
+        own result and errors pass through unchanged."""
+        if self.db is None or not bool(self.db.config["enable_profiling"]):
+            # no store / knob off: run the statement, skip the capture
+            return self.execute_stmt(stmt.stmt, params)
+        tctx = qtrace.current()
+        # query tracing off: a standalone capture id keeps the rows
+        # joinable to each other and to SHOW PROFILE
+        trace_id = (tctx.trace_id if tctx is not None
+                    else uuid.uuid4().hex[:16])
+        on_cuda = self.device.type == "cuda"
+        out, rows, note = qprofiler.profile_statement(
+            lambda: self.execute_stmt(stmt.stmt, params), cuda=on_cuda)
+        self.db.device_profiles.record(qprofiler.make_profile(
+            trace_id, self._ash_state.get("sql", ""), rows, note,
+            backend="gpu" if on_cuda else self.device.type))
+        self._last_profile_trace_id = trace_id
+        return out
+
+    def _show_profile(self) -> Result:
+        """SHOW PROFILE: this session's most recent PROFILE capture as
+        per-kernel rows (total/avg time, share of device time)."""
+        store = self.db.device_profiles if self.db is not None else None
+        tid = self._last_profile_trace_id
+        prof = store.get(tid) if (store is not None and tid) else None
+        rows = prof.rows if prof is not None else []
+        note = prof.note if prof is not None else \
+            "no PROFILE captured in this session"
+        if not rows and note:
+            rows = [{"device": "", "kernel": f"({note})", "kind": "note",
+                     "occurrences": 0, "total_s": 0.0, "avg_s": 0.0,
+                     "pct": 0.0}]
+        return Result(
+            ["device", "kernel", "kind", "occurrences", "total_ms",
+             "avg_us", "pct_device"],
+            {"device": _strings(r["device"] for r in rows),
+             "kernel": _strings(r["kernel"] for r in rows),
+             "kind": _strings(r["kind"] for r in rows),
+             "occurrences": np.array([r["occurrences"] for r in rows],
+                                     np.int64),
+             "total_ms": np.array([r["total_s"] * 1e3 for r in rows],
+                                  np.float64),
+             "avg_us": np.array([r["avg_s"] * 1e6 for r in rows],
+                                np.float64),
+             "pct_device": np.array([r["pct"] for r in rows],
+                                    np.float64)},
+            {}, {"device": SqlType.string(), "kernel": SqlType.string(),
+                 "kind": SqlType.string()}, rowcount=len(rows))
+
+    def _show_metrics(self) -> Result:
+        """SHOW METRICS: the process's metrics as Prometheus text
+        exposition, one line per row."""
+        lines = qmetrics.prom_text(qmetrics.wire_snapshot()).splitlines()
+        return Result(["metric"], {"metric": _strings(lines)}, {},
+                      {"metric": SqlType.string()}, rowcount=len(lines))
+
+    def _show_trace(self) -> Result:
+        """SHOW TRACE: the last kept statement trace rendered as an
+        indented span tree (≙ SHOW TRACE over the flt span store).
+        Empty when the last statement's trace was sampled away."""
+        self._stmt_is_show_trace = True  # don't clobber _last_trace_id
+        cols = ["operation", "node", "start_ts", "elapsed_ms", "tags"]
+        reg = self.db.trace_registry if self.db is not None else None
+        tid = self._last_trace_id
+        spans = reg.trace(tid) if (reg is not None and tid) else []
+        by_parent: dict[int, list] = {}
+        ids = {sp.span_id for sp in spans}
+        for sp in spans:
+            # a span whose parent was not captured (pruned by ring
+            # wraparound) renders as a root
+            key = sp.parent_id if sp.parent_id in ids else 0
+            by_parent.setdefault(key, []).append(sp)
+        for kids in by_parent.values():
+            kids.sort(key=lambda sp: (sp.start_ts, sp.span_id))
+        rows: list = []
+        seen: set = set()
+
+        def walk(sp, depth):
+            if sp.span_id in seen:
+                return  # defensive: a malformed parent loop
+            seen.add(sp.span_id)
+            rows.append((("  " * depth) + sp.name, sp.node, sp.start_ts,
+                         sp.elapsed_s * 1000.0,
+                         json.dumps(sp.tags, sort_keys=True, default=str)
+                         if sp.tags else ""))
+            for c in by_parent.get(sp.span_id, ()):
+                walk(c, depth + 1)
+
+        for root in by_parent.get(0, ()):
+            walk(root, 0)
+        return Result(
+            cols,
+            {"operation": _strings(r[0] for r in rows),
+             "node": np.array([r[1] for r in rows], np.int64),
+             "start_ts": np.array([r[2] for r in rows], np.float64),
+             "elapsed_ms": np.array([r[3] for r in rows], np.float64),
+             "tags": _strings(r[4] for r in rows)},
+            {}, {"operation": SqlType.string(), "tags": SqlType.string()},
+            rowcount=len(rows))
 
     def _materialize(self, rel: Relation, outputs) -> Result:
         raw = to_numpy(rel)
@@ -741,6 +1219,8 @@ class Session:
         prepare_index_probes(self.catalog, plan, device_tables)
         sdir = os.path.join(self.db.root or tempfile.gettempdir(),
                             "tmpfile", f"q{uuid.uuid4().hex[:10]}")
+        t0 = time.time()
+        m0 = time.monotonic()
         try:
             arrays, valids, dtypes, stats = execute_spilled(
                 plan, providers, sdir,
@@ -754,7 +1234,42 @@ class Session:
         self.last_retries = 0
         self.last_plan = plan
         self.last_outputs = outputs
-        return materialize_host(arrays, valids, dtypes, outputs)
+        res = materialize_host(arrays, valids, dtypes, outputs)
+        self._record_spill(plan, stats, res.rowcount, t0,
+                           time.monotonic() - m0)
+        return res
+
+    def _record_spill(self, plan, stats, n_out: int, t0: float,
+                      elapsed: float):
+        """The spill route's accounting: a v$sql_workarea row, the
+        "spill io" wait event and, with the plan monitor on, one ledger
+        row for the root (the tier streams batches, so only the root's
+        output cardinality is observable whole)."""
+        plan_hash = qplan.plan_fingerprint(plan)[:64]
+        self.db.workarea_history.append({
+            "ts": t0, "sql": self._ash_state.get("sql", ""),
+            "plan_hash": plan_hash, "kind": stats.kind, "runs": stats.runs,
+            "bytes": stats.bytes, "spilled_rows": stats.spilled_rows,
+            "batches": stats.batches, "elapsed_s": elapsed})
+        self.db.wait_events.add("spill io", elapsed)
+        if not bool(self.db.config["enable_sql_plan_monitor"]):
+            return
+        # the row describes the operator that OWNS its postorder
+        # position: a pass-through root emits no lane, so name and est
+        # come from the last monitored node
+        mon_nodes = monitored_postorder(plan)
+        row_node = mon_nodes[-1] if mon_nodes else plan
+        root_est = row_node.est_rows
+        op_rows = [{"op": type(row_node).__name__,
+                    "pos": max(len(mon_nodes) - 1, 0),
+                    "est": root_est, "rows": n_out,
+                    "q_error": qplan.q_error(root_est, n_out),
+                    "elapsed_s": elapsed, "spill_bytes": stats.bytes}]
+        times, pred_s, time_q = self._roofline(plan)
+        self.db.plan_monitor.record(
+            plan_hash, op_rows, elapsed, logical_hash=logical_hash(plan),
+            spill_bytes=stats.bytes, path="spill", host_s=times.host_s,
+            device_s=times.device_s, pred_s=pred_s, time_q=time_q)
 
     @staticmethod
     def _spill_provider(tablet, snapshot: int):
@@ -820,9 +1335,6 @@ class Session:
         return _ok()
 
     def _describe(self, name: str) -> Result:
-        if name.startswith(("gv$", "v$")) and \
-                not self.catalog.has_table(name):
-            raise _needs(f"the virtual table {name}", VIRTUAL_TABLES)
         if self.catalog.view_def(name) is not None:
             return self._describe_view(name)
         td = self.catalog.table_def(name)
@@ -937,8 +1449,14 @@ class Session:
                 {"variable_name": _strings(names),
                  "value": _strings(str(self.variables[n]) for n in names)},
                 {}, {}, rowcount=len(names))
-        if stmt.what in ("trace", "metrics", "profile", "workload_report"):
-            raise _needs(f"SHOW {stmt.what.upper()}", _MEASURE)
+        if stmt.what == "trace":
+            return self._show_trace()
+        if stmt.what == "metrics":
+            return self._show_metrics()
+        if stmt.what == "profile":
+            return self._show_profile()
+        if stmt.what == "workload_report":
+            raise _needs("SHOW WORKLOAD REPORT", _WORKLOAD)
         if stmt.what == "processlist":
             return self._show_processlist()
         if self.db is None:
@@ -1909,7 +2427,7 @@ class Session:
             self.db.config.set(stmt.name, stmt.value)
             return _ok()
         if stmt.action == "calibrate":
-            raise _needs("ALTER SYSTEM CALIBRATE", _MEASURE)
+            return self._calibrate()
         # MINOR/MAJOR FREEZE, CHECKPOINT: flush every table at the
         # horizon, not gts-now (versions newer than a live transaction's
         # snapshot must stay in the memtables)
@@ -1921,6 +2439,32 @@ class Session:
                 eng.major_compact(name)
             self.catalog.invalidate(name)
         return _ok()
+
+    def _calibrate(self) -> Result:
+        """ALTER SYSTEM CALIBRATE: re-run the roofline probe suite on the
+        database's device (the "full" ladder) and persist the refreshed
+        machine constants, which the optimizer prices plans with from
+        the next bind on."""
+        if not bool(self.db.config["enable_calibration"]):
+            raise ValueError(
+                "enable_calibration is off (ALTER SYSTEM SET "
+                "enable_calibration = true first)")
+        units = qcalibrate.ensure_units(self.db.root, preset="full",
+                                        force=True, device=self.device)
+        self.db.cost_units = units
+        names = ["backend", "peak_gflops", "peak_gbps", "eff_gbps",
+                 "launch_overhead_us", "rpc_s_per_byte", "probe_s"]
+        vals = [units.backend,
+                f"{units.peak_flops_s / 1e9:.3f}",
+                f"{units.peak_bytes_s / 1e9:.3f}",
+                f"{units.eff_bytes_s / 1e9:.3f}",
+                f"{units.launch_overhead_s * 1e6:.2f}",
+                f"{units.rpc_s_per_byte:.3e}",
+                f"{units.probe_s:.3f}"]
+        return Result(["constant", "value"],
+                      {"constant": _strings(names),
+                       "value": _strings(vals)},
+                      {}, {}, rowcount=len(names))
 
     # ------------------------------------------------------------------
     # KILL, SHOW PROCESSLIST (with a Database)
@@ -2130,6 +2674,18 @@ class Session:
                     self._ash_state["sql"] = saved
                 if res is not None and res.names:
                     out[0] = res
+
+
+def _with_feedback(plan, corrections: dict):
+    """``apply_feedback`` memoized on the bound plan for its corrections:
+    a cached plan with a standing correction would otherwise build, and
+    fingerprint, a fresh corrected tree on every execution."""
+    key = tuple(sorted(corrections.items()))
+    hit = plan.__dict__.get("_with_feedback")
+    if hit is None or hit[0] != key:
+        hit = plan.__dict__["_with_feedback"] = (
+            key, *apply_feedback(plan, corrections))
+    return hit[1], hit[2]
 
 
 def _py(x):
@@ -2358,9 +2914,11 @@ def _ok(rowcount: int = 0) -> Result:
     return Result([], {}, {}, {}, rowcount=rowcount)
 
 
-def format_plan(node, indent: int = 0) -> str:
-    """EXPLAIN text: one line per operator with its attributes, children
-    indented below it."""
+def format_plan(node, indent: int = 0,
+                row_counts: dict | None = None) -> str:
+    """EXPLAIN [ANALYZE] text: one line per operator with its attributes,
+    children indented below it; ANALYZE adds the estimate-vs-actual
+    ledger per operator (``[est=… act=… q=…]``)."""
     pad = "  " * indent
     attrs = []
     for k, v in vars(node).items():
@@ -2374,7 +2932,12 @@ def format_plan(node, indent: int = 0) -> str:
             s = s[:57] + "..."
         attrs.append(f"{k}={s}")
     line = f"{pad}{type(node).__name__}({', '.join(attrs)})"
-    return "\n".join([line] + [format_plan(c, indent + 1)
+    if row_counts is not None and id(node) in row_counts:
+        r = row_counts[id(node)]
+        est = r["est"] if r.get("est") is not None else "?"
+        line += (f"  [est={est} act={r['rows']} "
+                 f"q={r.get('q_error', 0.0):.2f}]")
+    return "\n".join([line] + [format_plan(c, indent + 1, row_counts)
                                for c in node.children()])
 
 

@@ -5,10 +5,11 @@ Port of ``oceanbase_tpu/storage/engine.py``: the same slog records,
 manifest format, crc checks, segment files and recovery order.  The
 ``StorageCatalog`` materializes tablet snapshots as the port's device
 relations on its device (``cuda`` unless the caller passes ``"cpu"``).
-Range-partitioned tables (``storage/partition.py``) and ALTER TABLE
-ADD/DROP COLUMN come with it.  Left out, each waiting for a sub-item of
-ROADMAP Queue 1 item 5b: the scrub and repair hooks (12), external and
-transient (``gv$``) tables (9), the disk-fault plane and the disk
+Range-partitioned tables (``storage/partition.py``), ALTER TABLE
+ADD/DROP COLUMN and the transient (``gv$``) tables of the catalog come
+with it.  Left out, each waiting for a sub-item of ROADMAP Queue 1 item
+5b: the scrub and repair hooks (12), external tables (9), the
+disk-fault plane and the disk
 manager's typed errors (10; a failed write unwinds and raises its
 ``OSError``), the ERRSIM fault point of ``freeze_and_flush`` (11) and
 the memstore throttle's flush listener (10); vector and fulltext index
@@ -1001,6 +1002,9 @@ class StorageCatalog(Catalog):
     # -- the engine is the source of truth for definitions ---------------
     def table_def(self, name: str):
         with self._lock:
+            t = self._transients.get(name)
+            if t is not None:
+                return t[0]
             ts = self.engine.tables.get(name)
             if ts is not None:
                 self._defs[name] = ts.tdef
@@ -1010,7 +1014,7 @@ class StorageCatalog(Catalog):
 
     def has_table(self, name: str) -> bool:
         with self._lock:
-            return name in self.engine.tables
+            return name in self._transients or name in self.engine.tables
 
     def tables(self) -> list[str]:
         with self._lock:
@@ -1086,6 +1090,9 @@ class StorageCatalog(Catalog):
 
     def table_data(self, name):
         with self._lock:
+            t = self._transients.get(name)
+            if t is not None:
+                return t[1]
             ts = self.engine.tables.get(name)
             if ts is None:
                 raise KeyError(f"table {name} has no data")
@@ -1122,6 +1129,9 @@ class StorageCatalog(Catalog):
     def table_data_at(self, name, snapshot: int, tx_id: int = 0):
         """Snapshot read at an explicit version (+ own-tx writes) — the
         read path active transactions use."""
+        t = self.transient(name)
+        if t is not None:
+            return t[1]  # virtual tables are snapshots of their own
         ts = self.engine.tables[name]
         if tx_id == 0 and snapshot >= ts.tablet.max_commit_version():
             # no committed version is newer than the snapshot, so the

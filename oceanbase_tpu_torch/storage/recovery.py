@@ -1,9 +1,8 @@
 """Recovery bookkeeping: what a node did to come back.
 
-Port of ``oceanbase_tpu/storage/recovery.py`` without its metrics
-counters (the measurement plane, ROADMAP Queue 1 item 9) and without a
-``gv$recovery`` table to serve it (virtual tables wait for item 5b):
-``Tenant.recovery.rows()`` reads the events.  The port records
+Port of ``oceanbase_tpu/storage/recovery.py`` with its ``recovery.*``
+metrics; ``gv$recovery`` serves ``Tenant.recovery.rows()``.  The port
+records
 ``boot_replay``, ``restore_prepared``, ``checkpoint`` and ``quarantine``;
 ``rebuild`` and ``catchup`` belong to the multi-node plane (item 5b).
 
@@ -37,7 +36,16 @@ import threading
 import time
 from collections import deque
 
+from oceanbase_tpu_torch.server import metrics as qmetrics
+
 MAX_EVENTS = 256
+
+qmetrics.declare("recovery.events", "counter",
+                 "recovery-plane events (label: phase)")
+qmetrics.declare("recovery.entries", "counter",
+                 "WAL entries replayed/shipped by recovery events")
+qmetrics.declare("recovery.bytes", "counter",
+                 "bytes moved by recovery events (rebuild fetches)")
 
 
 class RecoveryState:
@@ -61,6 +69,11 @@ class RecoveryState:
               "elapsed_s": float(elapsed_s), "note": note}
         with self._lock:
             self._events.append(ev)
+        qmetrics.inc("recovery.events", phase=phase)
+        if entries:
+            qmetrics.inc("recovery.entries", int(entries), phase=phase)
+        if nbytes:
+            qmetrics.inc("recovery.bytes", int(nbytes), phase=phase)
         return ev
 
     def rows(self) -> list[dict]:

@@ -494,12 +494,14 @@ def test_point_update_takes_the_primary_key_path(tmp_path):
 @pytest.mark.parametrize("sql,item", [
     ("create external table e (a int) location '/x.csv'",
      "item 5b, sub-item 9"),
-    ("select * from gv$backend", "item 5b, sub-item 9"),
-    ("select count(*) from v$dbms_jobs", "item 5b, sub-item 9"),
-    ("describe gv$tenant_resource", "item 5b, sub-item 9"),
-    ("profile select 1", "item 9"), ("alter system calibrate", "item 9"),
-    ("analyze workload report", "item 9"), ("show trace", "item 9"),
-    ("explain analyze select 1", "item 9"),
+    ("select * from gv$scrub", "item 5b, sub-item 12"),
+    ("select count(*) from v$errsim", "item 5b, sub-item 11"),
+    ("describe gv$workload_snapshot", "item 5b, sub-item 15"),
+    ("profile select * from v$errsim", "item 5b, sub-item 11"),
+    ("explain select * from gv$scrub", "item 5b, sub-item 12"),
+    ("analyze workload report", "item 5b, sub-item 15"),
+    ("show workload report", "item 5b, sub-item 15"),
+    ("select count(*) from gv$workload_report", "item 5b, sub-item 15"),
 ])
 def test_unported_statements_raise_with_a_database(tmp_path, sql, item):
     db = Database(str(tmp_path / "db"), device="cpu")
@@ -514,9 +516,9 @@ def test_unported_statements_raise_with_a_database(tmp_path, sql, item):
 def test_unported_knobs_are_refused(tmp_path):
     db = Database(str(tmp_path / "db"), device="cpu")
     s = db.session()
-    for sql in ("alter system set enable_metrics = false",
-                "alter system set enable_calibration = false",
-                "alter system set enable_sql_plan_monitor = 0",
+    for sql in ("alter system set enable_workload_repo = true",
+                "alter system set enable_rate_limit = false",
+                "alter system set tenant_memory_limit = 1",
                 "set global memstore_limit_bytes = 1"):
         with pytest.raises(KeyError, match="unknown parameter"):
             s.execute(sql)
@@ -536,13 +538,23 @@ def test_unported_knobs_are_refused(tmp_path):
                      "admission_tenant_weight",
                      "large_query_threshold_s", "admission_large_slots",
                      "enable_dbms_jobs", "stats_gather_interval_s",
-                     "auto_compact_interval_s"}
+                     "auto_compact_interval_s",
+                     # the measurement plane's knobs
+                     "enable_sql_plan_monitor",
+                     "plan_monitor_sample_every", "enable_plan_feedback",
+                     "plan_regress_threshold", "plan_feedback_entries",
+                     "plan_history_entries", "enable_profiling",
+                     "enable_calibration", "enable_metrics",
+                     "enable_query_trace", "trace_sample_rate",
+                     "trace_slow_threshold_s", "trace_ring_spans",
+                     "enable_ash", "ash_sample_interval_ms",
+                     "sql_audit_queue_size"}
     db.close()
     db2 = Database(str(tmp_path / "db"), device="cpu")  # persisted
     assert db2.config["sql_work_area_rows"] == 4096
     db2.close()
     (tmp_path / "db" / "config.json").write_text(
-        json.dumps({"enable_calibration": False}))
+        json.dumps({"enable_workload_repo": False}))
     with pytest.raises(KeyError, match="unknown parameter"):
         Database(str(tmp_path / "db"), device="cpu")
 

@@ -15,6 +15,7 @@ import torch
 
 import oceanbase_tpu.exec.ops as jops
 import oceanbase_tpu.server.calibrate as jcalibrate
+import oceanbase_tpu_torch.server.calibrate as tcalibrate
 import oceanbase_tpu_torch.exec.ops as tops
 from oceanbase_tpu.bench.tpch import TPCH_PRIMARY_KEYS, gen_tpch
 from oceanbase_tpu.sql import Session as JSession
@@ -318,10 +319,14 @@ def test_catalog_only_session_procedures_and_processlist():
 
 
 @pytest.mark.parametrize("sql", [
-    "profile select 1", "analyze workload report", "show trace",
-    "show metrics", "explain analyze select 1"])
+    "analyze workload report", "analyze workload report from 1 to 2",
+    "show workload report", "ANALYZE WORKLOAD REPORT FROM 3 TO 4",
+    "profile analyze workload report"])
 def test_measurement_plane_statements_raise(sql):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    """The measurement plane's workload repository is the part still
+    unported: its statements name the sub-item that holds it."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 5b, sub-item 15"):
         TSession(device="cpu").execute(sql)
 
 
@@ -347,6 +352,7 @@ def tpch():
 def test_surface_reads_match(tpch, name, monkeypatch):
     js, ts, conn = tpch
     monkeypatch.setattr(jcalibrate, "_PROC_UNITS", None)
+    monkeypatch.setattr(tcalibrate, "_PROC_UNITS", None)
     sql = sq.READS[name]
     got = ts.execute(sql).rows()
     want, _n = run_oracle_stmt(conn, sql)

@@ -14,6 +14,7 @@ import torch
 import oceanbase_tpu.exec.plan as jplan
 import oceanbase_tpu.expr.ir as jir
 import oceanbase_tpu.server.calibrate as jcalibrate
+import oceanbase_tpu_torch.server.calibrate as tcalibrate
 import oceanbase_tpu_torch.exec.plan as tplan
 import oceanbase_tpu_torch.expr.ir as tir
 from oceanbase_tpu.bench.oracle import load_sqlite, rows_match, run_oracle
@@ -40,8 +41,9 @@ torch.set_num_threads(2)
 @pytest.fixture(autouse=True)
 def _uncalibrated(monkeypatch):
     # process-wide cost units another test in this worker may have
-    # calibrated would give the JAX optimizer other plans
+    # calibrated would give either optimizer other plans
     monkeypatch.setattr(jcalibrate, "_PROC_UNITS", None)
+    monkeypatch.setattr(tcalibrate, "_PROC_UNITS", None)
 
 
 def _walk(plan):
@@ -355,6 +357,7 @@ def tpch_indexed():
 def test_tpch_indexed_matches(tpch_indexed, name, monkeypatch):
     js, ts, conn = tpch_indexed
     monkeypatch.setattr(jcalibrate, "_PROC_UNITS", None)
+    monkeypatch.setattr(tcalibrate, "_PROC_UNITS", None)
     sql = IP1 if name == "ip1" else QUERIES[int(name[1:])]
     jp, _o, _e = js._plan_select(jparse(sql), None)
     tp, _o, _e = ts._plan_select(tparse(sql), None)

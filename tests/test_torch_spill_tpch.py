@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import oceanbase_tpu.server.calibrate as jcalibrate
+import oceanbase_tpu_torch.server.calibrate as tcalibrate
 from oceanbase_tpu.bench.oracle import rows_match, run_oracle
 from oceanbase_tpu.bench.tpch_queries import QUERIES
 from oceanbase_tpu.exec import granule as jg
@@ -89,6 +90,7 @@ def check_spilled_query(tpch, tmp_path, qnum, monkeypatch):
     session and SQLite."""
     js, ts, conn, host = tpch
     monkeypatch.setattr(jcalibrate, "_PROC_UNITS", None)
+    monkeypatch.setattr(tcalibrate, "_PROC_UNITS", None)
     sql = QUERIES[qnum]
     jplan, jout, _ = js._plan_select(jparse(sql), None)
     tplan, tout, _ = ts._plan_select(tparse(sql), None)

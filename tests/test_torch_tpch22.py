@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import oceanbase_tpu.server.calibrate as jcalibrate
+import oceanbase_tpu_torch.server.calibrate as tcalibrate
 import oceanbase_tpu.sql.session as jsession
 from oceanbase_tpu.bench.oracle import load_sqlite, rows_match, run_oracle
 from oceanbase_tpu.bench.tpch import TPCH_PRIMARY_KEYS, gen_tpch
@@ -59,9 +60,10 @@ def check_query(env, qnum, monkeypatch):
 
     monkeypatch.setattr(jsession, "execute_plan", counted)
     # process-wide cost units another test in this worker may have
-    # calibrated would give the JAX optimizer other plans; the port has
-    # no calibration yet and always prices with the uncalibrated units
+    # calibrated would give either optimizer other plans: both price
+    # with the uncalibrated units
     monkeypatch.setattr(jcalibrate, "_PROC_UNITS", None)
+    monkeypatch.setattr(tcalibrate, "_PROC_UNITS", None)
     want_j = js.execute(sql).rows()
     got = ts.execute(sql).rows()
     assert ts.last_retries == len(runs) - 1
