@@ -46,8 +46,8 @@ Phases, each printing its own lines:
 8b. db: the port's ``Database`` (LSM storage, the PALF WAL, MVCC
    transactions) in a temporary directory on the card at its defaults:
    the eight tables direct-loaded through ``catalog.load_numpy`` and
-   ANALYZEd, 13 TPC-H queries through ``db.session()`` held against
-   SQLite (the 11 that run in memory, and Q1 and Q6: lineitem's rows
+   ANALYZEd, 12 TPC-H queries through ``db.session()`` held against
+   SQLite (the 11 that run in memory, and Q6: lineitem's rows
    exceed the 2^22-row work area, so they stream from the LSM through
    the spill tier; phases load and server run all 22 that way), each
    printed with its route, an OLTP mix on ``orders`` (autocommit
@@ -55,7 +55,7 @@ Phases, each printing its own lines:
    latencies, a multi-statement transaction, a rolled-back one, a write
    conflict between two sessions), a checkpoint, more commits, and a
    reopen from the same directory without ``close()`` that replays the
-   WAL tail and must read back every committed row, Q1 and Q6;
+   WAL tail and must read back every committed row and Q6;
 8c. load: the eight tables written as ``|``-delimited files and loaded
    by LOAD DATA INFILE (the native CSV tokenizer) into a fresh
    ``Database`` whose lineitem and orders are RANGE-partitioned on the
@@ -125,7 +125,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 PLAN_RUNS = 5
 SQL_RUNS = 3                     # timed runs per query, after a warm-up
 STREAM_RUNS = 5                  # timed streamed runs, after a warm-up
-SPILL_RUNS = 3                   # timed spilled runs, after a warm-up
+# timed spilled runs after a warm-up: one, since phase durability the
+# whole run has to stay inside its limit
+SPILL_RUNS = 1
 # the spilled S1 sort and J1 join (about 23 and 12 s a run) time one run
 # after the warm-up: with phase "server" the whole run has to stay inside
 # its limit
@@ -149,11 +151,11 @@ LOAD_PARTITIONS = 8
 LOAD_POINT_INSERTS = 50
 SPILL_QUERIES = (1, 3, 5, 6, 7, 8, 9, 10, 12, 14, 19)
 SPILL_REFUSED = (4, 13, 15, 17, 18, 20, 21, 22)
-# phase db runs Q1 and Q6 of the spilled queries and the 11 that run in
-# memory: phases "load" and "server" run all 22 through the LSM, and the
-# whole run has to stay inside its limit
+# phase db runs Q6 of the spilled queries and the 11 that run in
+# memory: phases "load", "server" and "durability" run the spilled ones
+# through the LSM, and the whole run has to stay inside its limit
 DB_QUERIES = tuple(q for q in range(1, 23)
-                   if q not in SPILL_QUERIES or q in (1, 6))
+                   if q not in SPILL_QUERIES or q == 6)
 J1_PARTITIONS = 16
 
 
@@ -935,7 +937,7 @@ def phase_db(torch, dev, tables, types, card, want):
                 [(n_live,)]:
             raise AssertionError("reopened: orders' row count differs")
         reread = {}
-        for q in (1, 6):
+        for q in (6,):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             reread[q] = sess.execute(QUERIES[q]).rows()
@@ -944,7 +946,7 @@ def phase_db(torch, dev, tables, types, card, want):
                   f" ms, route {'spilled' if sess.last_spill else 'in memory'}")
         check_tpch(reread, want, " (reopened db)")
         print(f"[db] the reopened database reads back all {len(price)} "
-              f"committed point rows, orders' {n_live} rows, Q1 and Q6; "
+              f"committed point rows, orders' {n_live} rows and Q6; "
               f"{card}")
         db.close()
     finally:
@@ -2342,9 +2344,544 @@ def phase_measure(torch, dev, tables, types, card, want, served):
               f"capture's device time; {card}")
     step("kernel profile", t0)
     s.close()
-    db.close()
     print(f"[measure] steps: " + ", ".join(f"{k} {v:.3f} s"
                                            for k, v in steps.items()))
+    # phase durability runs on this database, which stays open
+    return db
+
+
+# phase durability: the memstore budget the INSERT burst crosses, the
+# burst's rows and rows per statement, the spill budget that kills S1,
+# and the keys of the rows the phase adds to orders (above every
+# generated and procedure-added key)
+DURABILITY_MEMSTORE_BYTES = 384 << 10
+DURABILITY_BURST_ROWS = 20_000
+DURABILITY_BURST_STMT_ROWS = 50
+DURABILITY_SPILL_LIMIT = 1 << 20
+# the throttle's cost at its defaults: interleaved rounds of autocommit
+# single-row INSERTs with it on and off
+DURABILITY_AB_ROUNDS = 4
+DURABILITY_AB_INSERTS = 50
+DURABILITY_KEY_OFFSET = 10_000_000
+
+
+class DurabilityInjected(RuntimeError):
+    """The error phase durability arms its ERRSIM points with."""
+
+
+def _orders_values(od, i, key) -> str:
+    """Row ``i`` of the generated orders as a VALUES tuple under a new
+    order key (an order without lineitems: no TPC-H answer moves)."""
+    return (f"({key}, {int(od['o_custkey'][i])}, "
+            f"'{od['o_orderstatus'][i]}', "
+            f"{int(od['o_totalprice'][i]) / 100:.2f}, date '1998-12-31', "
+            f"'{od['o_orderpriority'][i]}', '{od['o_clerk'][i]}', "
+            f"{int(od['o_shippriority'][i])}, 'durability')")
+
+
+def phase_durability(torch, dev, tables, types, card, want, served, db,
+                     files, root):
+    """Phase durability: the durability and fault plane on phase
+    measure's database (phase server's restarted SF1 database, lineitem
+    and orders in 8 RANGE partitions): workload snapshots around the 11
+    in-memory queries with ANALYZE and SHOW WORKLOAD REPORT; a full
+    backup, commits on orders, an incremental backup and a WAL archive,
+    restored into a new root, overlaid and cut to a point between two
+    commits, booted on the card and ANALYZEd, with Q1, Q6, Q3 and Q18
+    against SQLite and the cut's rows; a seeded bitflip of the next
+    orders segment flush that a scrub round detects, quarantines and
+    rewrites from memory; the log budget at the log surface's floor
+    (read-only: writes refused, Q6 and Q14 still served) and back; a
+    spill budget that kills S1 with no residue; gv$disk against du;
+    ERRSIM on tx.commit and storage.flush; a 20,000-row INSERT burst
+    into a copy of orders under a small memstore budget; one reopen that
+    boots clean, reads back every acknowledged row and the workload
+    snapshots, and answers Q3; and TPC-H Q4 and Q13 over an external
+    table on phase load's orders.tbl."""
+    import gc
+    import shutil
+
+    from oceanbase_tpu_torch.bench.oracle import rows_match
+    from oceanbase_tpu_torch.bench.surface_queries import S1
+    from oceanbase_tpu_torch.bench.tbl import create_table_sql
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.net.faults import FaultPlane
+    from oceanbase_tpu_torch.server import backup
+    from oceanbase_tpu_torch.server import metrics as qmetrics
+    from oceanbase_tpu_torch.server.admission import MemstoreFull
+    from oceanbase_tpu_torch.server.database import Database
+    from oceanbase_tpu_torch.server.diskmgr import (
+        SpillBudgetExceeded,
+        TenantReadOnly,
+    )
+    from oceanbase_tpu_torch.server.errsim import ERRSIM
+    from oceanbase_tpu_torch.server.monitor import SqlAudit
+    from oceanbase_tpu_torch.storage.integrity import CorruptionError
+
+    on_card = dev.type == "cuda"
+    in_memory = served["in_memory"]
+    top = served["top"]
+    od = tables["orders"]
+    ordered = {q: "order by" in QUERIES[q].lower() and q not in (2, 18, 21)
+               for q in QUERIES}
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+        print(f"[durability] step {name}: {steps[name]:.3f} s", flush=True)
+
+    def check(q, rows, tag):
+        ok, why = rows_match(rows, want[q][0], ordered=ordered[q])
+        if not ok:
+            raise AssertionError(f"Q{q}{tag} differs from SQLite: {why}")
+
+    def du(path):
+        return sum(os.path.getsize(os.path.join(d, f))
+                   for d, _s, fs in os.walk(path) for f in fs)
+
+    s = db.session()
+    t_sys = db.tenant("sys")
+    acked: list[int] = []      # orders keys this phase committed
+    key = [top + DURABILITY_KEY_OFFSET]
+
+    def add_order(sess, i=0):
+        """INSERT one order under the next key; the key is acknowledged
+        only when the statement returns."""
+        key[0] += 1
+        sess.execute(f"insert into orders values "
+                     f"{_orders_values(od, i % len(od['o_orderkey']), key[0])}")
+        acked.append(key[0])
+        return key[0]
+
+    # the memstore throttle has been on at its defaults since phase db:
+    # what it did there (process-wide counters)
+    print(f"[durability] before this phase, under the throttle's defaults "
+          f"since phase db: admission.throttle_sleeps "
+          f"{qmetrics.counter_value('admission.throttle_sleeps'):.0f}, "
+          f"admission.memstore_full "
+          f"{qmetrics.counter_value('admission.memstore_full'):.0f}")
+
+    # 1. workload snapshots around the 11 in-memory queries ---------------
+    t0 = time.perf_counter()
+    # the phase's statements go to an audit ring of their own (the
+    # earlier phases' ring is put back after), so the report's top SQL
+    # is this phase's executions
+    ring = db.audit
+    db.audit = SqlAudit(len(ring) + 10000)
+    snap_a = db.workload.snapshot(cluster=False)
+    for q in in_memory:
+        check(q, s.execute(QUERIES[q]).rows(), " (workload)")
+    snap_b = db.workload.snapshot(cluster=False)
+    rep = s.execute(f"analyze workload report from {snap_a['id']} to "
+                    f"{snap_b['id']}").rows()
+    top_sql = {r[1]: r[3] for r in rep if r[0] == "top_sql"}
+    texts = {QUERIES[q][:200]: q for q in in_memory}
+    listed = {texts[t]: d for t, d in top_sql.items() if t in texts}
+    if len(listed) != min(10, len(in_memory)) or len(top_sql) != len(listed):
+        raise AssertionError(f"top SQL of the report: {sorted(listed)} of "
+                             f"{len(top_sql)} rows")
+    for q, detail in listed.items():
+        fields = dict(x.split("=", 1) for x in detail.split())
+        if int(fields["calls"]) != 1 or \
+                (on_card and float(fields["device_s"]) <= 0.0):
+            raise AssertionError(f"Q{q} in the report's top SQL: {detail}")
+    tree = s.execute("show workload report").rows()
+    if not tree or not tree[0][0].startswith(
+            f"workload report from={snap_a['id']} to={snap_b['id']}"):
+        raise AssertionError(f"SHOW WORKLOAD REPORT: {tree[:2]}")
+    sections = sorted({r[0] for r in rep})
+    db.audit = ring
+    print(f"[durability] workload: snapshots {snap_a['id']} and "
+          f"{snap_b['id']} around the 11 in-memory queries (each equal to "
+          f"SQLite); ANALYZE WORKLOAD REPORT {len(rep)} rows in sections "
+          f"{sections}; top SQL {len(listed)} of the queries, each calls=1 "
+          f"with device_s > 0; SHOW WORKLOAD REPORT {len(tree)} lines")
+    step("workload", t0)
+
+    # 2. backup, incremental, archive, restore, point-in-time cut ---------
+    t0 = time.perf_counter()
+    bk = os.path.join(root, "backup")
+    t1 = time.perf_counter()
+    full = backup.full_backup(db, os.path.join(bk, "full"))
+    full_s = time.perf_counter() - t1
+    full_bytes = du(full)
+    before_cut = [add_order(s, i) for i in range(3)]
+    t1 = time.perf_counter()
+    inc = backup.incremental_backup(db, os.path.join(bk, "inc"), full)
+    inc_s = time.perf_counter() - t1
+    with open(os.path.join(inc, backup.MANIFEST)) as fh:
+        manifest = json.load(fh)
+    if manifest["kind"] != "incremental" or manifest["skipped"] <= 0:
+        raise AssertionError(f"incremental backup: {manifest['kind']}, "
+                             f"skipped {manifest['skipped']}")
+    # the cut falls between two commits after the increment's
+    # checkpoint (the archive carries them)
+    before_cut += [add_order(s, 3)]
+    cut_version = db.tx.gts.current()
+    after_cut = [add_order(s, i) for i in range(4, 6)]
+    t1 = time.perf_counter()
+    archive = backup.archive_wal(db, os.path.join(bk, "arch"))
+    arch_s = time.perf_counter() - t1
+    inc_bytes, arch_bytes = du(inc), du(archive)
+    print(f"[durability] backup: full {full_bytes} bytes in {full_s:.3f} s "
+          f"({full_bytes / full_s / 1e6:.1f} MB/s); incremental "
+          f"{inc_bytes} bytes in {inc_s:.3f} s, {manifest['skipped']} "
+          f"files skipped; WAL archive {arch_bytes} bytes in "
+          f"{arch_s:.3f} s; {card}")
+    target = os.path.join(root, "restored")
+    t1 = time.perf_counter()
+    backup.restore_chain(inc, target)
+    backup.overlay_archive(archive, target)
+    backup.pitr_cut(target, cut_version)
+    restore_s = time.perf_counter() - t1
+    # the restored tree keeps phase measure's in-memory work area: put
+    # the default back, so Q1 and Q6 stream from the LSM
+    with open(os.path.join(target, "config.json")) as fh:
+        cfg = json.load(fh)
+    cfg.pop("sql_work_area_rows", None)
+    with open(os.path.join(target, "config.json"), "w") as fh:
+        json.dump(cfg, fh)
+    t1 = time.perf_counter()
+    rdb = Database(target, device=dev)
+    boot_s = time.perf_counter() - t1
+    rs = rdb.session()
+    t1 = time.perf_counter()
+    for name in tables:
+        rs.execute(f"analyze table {name}")
+    analyze_s = time.perf_counter() - t1
+    routes = {}
+    for q in (1, 6, 3, 18):
+        t1 = time.perf_counter()
+        check(q, rs.execute(QUERIES[q]).rows(), " (restored, cut)")
+        routes[q] = ("spilled" if rs.last_spill is not None else
+                     "in memory", (time.perf_counter() - t1) * 1e3)
+    if routes[1][0] != "spilled" or routes[6][0] != "spilled":
+        raise AssertionError(f"restored Q1/Q6 routes: {routes}")
+    got = {r[0] for r in rs.execute(
+        f"select o_orderkey from orders where o_orderkey > "
+        f"{top + DURABILITY_KEY_OFFSET}").rows()}
+    if got != set(before_cut):
+        raise AssertionError(f"the cut kept orders {sorted(got)}, want "
+                             f"{before_cut} (not {after_cut})")
+    rs.close()
+    rdb.close()
+    del rdb, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(target, ignore_errors=True)
+    print(f"[durability] restore: chain + archive + cut in {restore_s:.3f} "
+          f"s, boot {boot_s:.3f} s, ANALYZE {analyze_s:.3f} s; " +
+          ", ".join(f"Q{q} {r} {ms:.3f} ms" for q, (r, ms) in
+                    routes.items()) +
+          f" equal to SQLite; the {len(before_cut)} orders before the cut "
+          f"present, the {len(after_cut)} after it absent; {card}")
+    shutil.rmtree(bk, ignore_errors=True)
+    step("backup and restore", t0)
+
+    # 3. scrub: a seeded bitflip of the next orders segment flush ----------
+    t0 = time.perf_counter()
+    db.config.set("enable_disk_faults", True)
+    eng = t_sys.engine
+    # a flip can land in the zip container's don't-care bytes, which
+    # corrupt nothing: the seed moves on until one lands in checked bytes
+    # (as the reference's bit-flip tests pick theirs)
+    for seed in range(DB_SEED, DB_SEED + 8):
+        fp = FaultPlane(seed=seed)
+        fp.disk("bitflip", kind="segment", count=1)
+        db.arm_disk_faults(fp)
+        try:
+            for i in range(6, 11):
+                add_order(s, i)
+            seg = eng.freeze_and_flush("orders", t_sys.tx.flush_snapshot())
+        finally:
+            db.arm_disk_faults(None)
+        if fp.rules()[0]["fired"] != 1 or seg is None:
+            raise AssertionError(f"the bitflip rule: {fp.rules()}")
+        try:
+            type(seg).load(eng._segment_file("orders", seg.segment_id))
+        except CorruptionError:
+            break
+        print(f"[durability] bitflip seed {seed} landed in bytes no "
+              f"checksum covers; next seed")
+    else:
+        raise AssertionError("no seed corrupted checked bytes")
+    scrubber = db.scrubber()
+    summary = scrubber.run_once()
+    if [c[0] for c in summary["corrupt"]] != ["orders"] or \
+            summary["repaired"] != ["orders"] or summary["failed"] or \
+            t_sys.engine.quarantined:
+        raise AssertionError(f"scrub round: {summary}")
+    phases = [r[0] for r in s.execute(
+        "select phase from gv$scrub order by ts").rows()]
+    if phases != ["quarantine", "repair", "verify"]:
+        raise AssertionError(f"gv$scrub phases: {phases}")
+    again = scrubber.run_once()
+    if again["corrupt"] or again["repaired"]:
+        raise AssertionError(f"second scrub round: {again}")
+    print(f"[durability] scrub: {summary['segments']} segments, "
+          f"{summary['bytes']} bytes verified in {summary['elapsed_s']:.3f} "
+          f"s ({summary['bytes'] / summary['elapsed_s'] / 1e9:.3f} GB/s); "
+          f"the bitflipped orders segment quarantined and rewritten from "
+          f"memory; gv$scrub {phases}; a second round "
+          f"({again['bytes'] / again['elapsed_s'] / 1e9:.3f} GB/s, raw "
+          f"crc of known files) clean; {card}")
+    step("scrub", t0)
+
+    # 4. disk pressure: read-only and back, the spill budget, gv$disk -----
+    t0 = time.perf_counter()
+    dm = t_sys.diskmgr
+    t_sys.reclaim_log_disk()          # the log surface at its floor
+    floor = dm._walk_surface("log")
+    db.config.set("log_disk_limit_bytes", floor)
+    t1 = time.perf_counter()
+    dm.poll(force=True)
+    enter_s = time.perf_counter() - t1
+    if not dm.read_only:
+        raise AssertionError(f"log {floor} bytes at its limit: not "
+                             f"read-only")
+    try:
+        add_order(s)        # refused: its key is never acknowledged
+        raise AssertionError("a write committed in read-only")
+    except TenantReadOnly:
+        pass
+    for q in (6, 14):
+        check(q, s.execute(QUERIES[q]).rows(), " (read-only)")
+    db.config.set("log_disk_limit_bytes", 1 << 40)
+    t1 = time.perf_counter()
+    dm.poll(force=True)
+    exit_s = time.perf_counter() - t1
+    if dm.read_only:
+        raise AssertionError("the tenant stayed read-only")
+    add_order(s)
+    db.config.set("log_disk_limit_bytes", 0)
+    print(f"[durability] log budget {floor} bytes (the surface's floor "
+          f"after checkpoint + recycle): read-only entered in "
+          f"{enter_s * 1e3:.3f} ms, an INSERT refused TenantReadOnly, Q6 "
+          f"and Q14 equal to SQLite meanwhile; budget raised: left in "
+          f"{exit_s * 1e3:.3f} ms and an INSERT committed")
+    db.config.set("sql_work_area_rows", SPILL_BUDGET_ROWS)
+    db.config.set("spill_disk_limit_bytes", DURABILITY_SPILL_LIMIT)
+    t1 = time.perf_counter()
+    try:
+        s.execute(S1)
+        raise AssertionError("S1 spilled past the spill budget")
+    except SpillBudgetExceeded:
+        kill_s = time.perf_counter() - t1
+    tmp = os.path.join(db.root, "tmpfile")
+    left = [f for _d, _s, fs in os.walk(tmp) for f in fs] \
+        if os.path.isdir(tmp) else []
+    if left or dm.usage("spill") != 0 or dm.read_only:
+        raise AssertionError(f"spill kill residue: {left[:3]}, "
+                             f"{dm.usage('spill')} bytes")
+    check(6, s.execute(QUERIES[6]).rows(), " (after the spill kill)")
+    db.config.set("spill_disk_limit_bytes", 0)
+    db.config.set("sql_work_area_rows", MEASURE_WORK_AREA_ROWS)
+    print(f"[durability] spill budget {DURABILITY_SPILL_LIMIT} bytes: S1 "
+          f"killed SpillBudgetExceeded after {kill_s * 1e3:.3f} ms, no "
+          f"temp file, 0 spill bytes accounted, the next Q6 equal to "
+          f"SQLite; {card}")
+    db.config.set("log_disk_limit_bytes", 1 << 40)
+    db.config.set("data_disk_limit_bytes", 1 << 40)
+    gv = {r[0]: r[1] for r in s.execute(
+        "select surface, used_bytes from gv$disk"
+        " where tenant = 'sys'").rows()}
+    walked = {"log": du(dm.paths["log"][0]),
+              "data": du(dm.paths["data"][0]),
+              "spill": du(tmp) if os.path.isdir(tmp) else 0}
+    for surface, d in walked.items():
+        if abs(gv[surface] - d) > max(1, d) * 0.05:
+            raise AssertionError(f"gv$disk {surface} {gv[surface]} vs du "
+                                 f"{d}")
+    db.config.set("log_disk_limit_bytes", 0)
+    db.config.set("data_disk_limit_bytes", 0)
+    print(f"[durability] gv$disk against du: " + ", ".join(
+        f"{k} {gv[k]} / {v}" for k, v in walked.items()))
+    step("disk pressure", t0)
+
+    # 5. ERRSIM on tx.commit and storage.flush ------------------------------
+    t0 = time.perf_counter()
+    ERRSIM.reset()
+    try:
+        ERRSIM.arm("tx.commit", error=DurabilityInjected("tx.commit"),
+                   count=1)
+        try:
+            add_order(s)
+            raise AssertionError("the armed tx.commit did not fire")
+        except DurabilityInjected:
+            pass
+        add_order(s)
+        ERRSIM.arm("storage.flush",
+                   error=DurabilityInjected("storage.flush"), count=1)
+        try:
+            db.checkpoint()
+            raise AssertionError("the armed storage.flush did not fire")
+        except DurabilityInjected:
+            pass
+        add_order(s)
+        view = s.execute("select tracepoint, hits, fired from v$errsim"
+                         " where fired > 0 order by tracepoint").rows()
+    finally:
+        ERRSIM.reset()
+    if [(r[0], r[2]) for r in view] != [("storage.flush", 1),
+                                         ("tx.commit", 1)]:
+        raise AssertionError(f"v$errsim: {view}")
+    print(f"[durability] ERRSIM: tx.commit failed its INSERT and "
+          f"storage.flush its checkpoint with DurabilityInjected; "
+          f"v$errsim {view}")
+    step("errsim", t0)
+
+    # 6. the memstore throttle under an INSERT burst -------------------------
+    t0 = time.perf_counter()
+    s.execute(create_table_sql(
+        "orders_burst", od, {k: v for k, v in types.items() if k in od},
+        ["o_orderkey"]))
+    # the throttle's own cost at its defaults: autocommit single-row
+    # INSERTs with it on and off, in interleaved rounds
+    cost = {True: [], False: []}
+    n_ins = 0
+    for _round in range(DURABILITY_AB_ROUNDS):
+        for on in (True, False):
+            db.config.set("enable_rate_limit", on)
+            for _ in range(DURABILITY_AB_INSERTS):
+                n_ins += 1
+                t1 = time.perf_counter()
+                s.execute(f"insert into orders_burst values "
+                          f"{_orders_values(od, n_ins, -1 - n_ins)}")
+                cost[on].append((time.perf_counter() - t1) * 1e3)
+    db.config.set("enable_rate_limit", True)
+    s.execute("delete from orders_burst")
+    p50 = {on: statistics.median(v) for on, v in cost.items()}
+    p99 = {on: sorted(v)[int(0.99 * (len(v) - 1))] for on, v in cost.items()}
+    print(f"[durability] throttle at its defaults, {DURABILITY_AB_ROUNDS} "
+          f"interleaved rounds of {DURABILITY_AB_INSERTS} autocommit "
+          f"INSERTs each way: on p50 {p50[True]:.3f} ms p99 "
+          f"{p99[True]:.3f} ms, off p50 {p50[False]:.3f} ms p99 "
+          f"{p99[False]:.3f} ms; {card}")
+    db.config.set("memstore_limit_bytes", DURABILITY_MEMSTORE_BYTES)
+    thr = t_sys.throttle
+    thr.reset_peak()
+    c0 = {m: qmetrics.counter_value(m) for m in
+          ("admission.throttle_sleeps", "admission.memstore_full")}
+    sleeps0, full0 = thr.throttle_sleeps, thr.full_rejections
+    lat, refused, burst_acked = [], 0, 0
+    rows_per = DURABILITY_BURST_STMT_ROWS
+    # an open transaction pins the flush horizon, as a long writer does:
+    # the pressure flushes cannot take the burst's rows, so the writers
+    # ride the ramp into MemstoreFull; at the first refusal the pin
+    # commits and the next pressure flush catches up
+    pin = db.session()
+    pin.execute("begin")
+    pin.execute(f"insert into orders_burst values "
+                f"{_orders_values(od, 0, -1)}")
+    for b in range(DURABILITY_BURST_ROWS // rows_per):
+        vals = ", ".join(_orders_values(od, i % len(od["o_orderkey"]), i)
+                         for i in range(b * rows_per, (b + 1) * rows_per))
+        while True:
+            t1 = time.perf_counter()
+            try:
+                s.execute(f"insert into orders_burst values {vals}")
+                lat.append((time.perf_counter() - t1) * 1e3)
+                burst_acked += rows_per
+                break
+            except MemstoreFull:
+                refused += 1
+                if pin is not None:
+                    pin.execute("commit")
+                    pin.close()
+                    pin = None
+                    burst_acked += 1
+                time.sleep(0.01)   # the flush catches up, then retry
+    if pin is not None:
+        raise AssertionError("the pinned burst never reached MemstoreFull")
+    sleeps = thr.throttle_sleeps - sleeps0
+    full = thr.full_rejections - full0
+    c1 = {m: qmetrics.counter_value(m) - c0[m] for m in c0}
+    if not (sleeps and full) or thr.peak_bytes > DURABILITY_MEMSTORE_BYTES \
+            or thr.used_bytes() >= thr.trigger_bytes():
+        raise AssertionError(f"the burst's throttle: {thr.stats()}")
+    n_burst = s.execute("select count(*) from orders_burst").rows()
+    if n_burst != [(burst_acked,)]:
+        raise AssertionError(f"burst rows {n_burst}, acknowledged "
+                             f"{burst_acked}")
+    lat.sort()
+    print(f"[durability] memstore throttle at {DURABILITY_MEMSTORE_BYTES} "
+          f"bytes: {burst_acked} rows in {len(lat)} INSERTs of {rows_per}, "
+          f"p50 {statistics.median(lat):.3f} ms, p99 "
+          f"{lat[int(0.99 * (len(lat) - 1))]:.3f} ms; throttle sleeps "
+          f"{sleeps}, MemstoreFull {full} ({refused} statements retried "
+          f"after the pin committed); "
+          f"admission.* {c1}; peak {thr.peak_bytes} bytes; {card}")
+    db.config.set("memstore_limit_bytes", 256 << 20)
+    step("memstore throttle", t0)
+
+    # one reopen for steps 1, 3, 5 and 6: it boots clean (the rewritten
+    # segment verifies), every acknowledged row reads back, the workload
+    # snapshots load crc-clean, and Q3 equals SQLite
+    t0 = time.perf_counter()
+    s.close()
+    root_db = db.root
+    db.close()
+    del db, s, t_sys
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    db = Database(root_db, device=dev)
+    reopen_s = time.perf_counter() - t1
+    s = db.session()
+    for sid in (snap_a["id"], snap_b["id"]):
+        db.workload.load(sid)
+    got = sorted(r[0] for r in s.execute(
+        f"select o_orderkey from orders where o_orderkey > "
+        f"{top + DURABILITY_KEY_OFFSET}").rows())
+    if got != sorted(acked):
+        raise AssertionError(f"after the reopen: orders {got}, "
+                             f"acknowledged {sorted(acked)}")
+    if s.execute("select count(*) from orders_burst").rows() != \
+            [(burst_acked,)]:
+        raise AssertionError("the burst's rows after the reopen")
+    s.execute(f"delete from orders where o_orderkey > "
+              f"{top + DURABILITY_KEY_OFFSET}")
+    s.execute("drop table orders_burst")
+    for name in ("customer", "orders", "lineitem"):
+        s.execute(f"analyze table {name}")
+    check(3, s.execute(QUERIES[3]).rows(), " (after the reopen)")
+    print(f"[durability] reopen {reopen_s:.3f} s: booted clean, "
+          f"{len(acked)} acknowledged orders and {burst_acked} burst rows "
+          f"read back, workload snapshots {snap_a['id']} and "
+          f"{snap_b['id']} crc-clean, Q3 equal to SQLite")
+    step("reopen", t0)
+
+    # 7. an external table over phase load's orders.tbl ----------------------
+    t0 = time.perf_counter()
+    ddl = create_table_sql("orders_ext", od,
+                           {k: v for k, v in types.items() if k in od}, [])
+    s.execute(ddl.replace("create table", "create external table", 1) +
+              f" location '{files['orders']}' fields terminated by '|'")
+    nbytes = os.path.getsize(files["orders"])
+    t1 = time.perf_counter()
+    rel = db.catalog.table_data("orders_ext")
+    read_s = time.perf_counter() - t1
+    if rel.capacity < len(od["o_orderkey"]):
+        raise AssertionError(f"orders_ext capacity {rel.capacity}")
+    del rel
+    for q, old in ((4, "from orders\n"), (13, "join orders\n")):
+        sql = QUERIES[q].replace(old, old.replace("orders", "orders_ext"))
+        if sql == QUERIES[q]:
+            raise AssertionError(f"Q{q} does not read orders")
+        t1 = time.perf_counter()
+        check(q, s.execute(sql).rows(), " over orders_ext")
+        print(f"[durability] Q{q} over orders_ext equal to SQLite's Q{q} "
+              f"in {(time.perf_counter() - t1) * 1e3:.3f} ms")
+    print(f"[durability] external table over orders.tbl: "
+          f"{len(od['o_orderkey'])} rows, {nbytes} bytes read and put on "
+          f"the card in {read_s:.3f} s ({nbytes / read_s / 1e6:.1f} MB/s); "
+          f"{card}")
+    s.execute("drop table orders_ext")
+    step("external table", t0)
+    s.close()
+    db.close()
+    print(f"[durability] steps: " + ", ".join(f"{k} {v:.3f} s"
+                                              for k, v in steps.items()))
 
 
 def main() -> int:
@@ -2442,10 +2979,15 @@ def main() -> int:
         served, counts = timed_phase("server", phase_server, torch, dev,
                                      tables, types, card, want, loaded)
         print(f"[server] kernel launches: {counts}")
-        _, counts = timed_phase("measure", phase_measure, torch, dev,
-                                tables, types, card, want, served)
+        measured, counts = timed_phase("measure", phase_measure, torch,
+                                       dev, tables, types, card, want,
+                                       served)
         print(f"[measure] kernel launches (q6_filter_sum once under the "
               f"profiler): {counts}")
+        _, counts = timed_phase("durability", phase_durability, torch, dev,
+                                tables, types, card, want, served, measured,
+                                loaded["files"], root)
+        print(f"[durability] kernel launches: {counts}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches",

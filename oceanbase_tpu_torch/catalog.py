@@ -7,8 +7,9 @@ estimate ``sampled_ndv`` and a ``Catalog`` of named tables ->
 tables (the gv$/v$ views a statement reads, materialized per statement by
 the session; ``register_transient``).  Loading computes the same row
 counts and NDV statistics as the JAX package, so its binder and optimizer
-choose the same plans and capacities.  External tables wait for ROADMAP
-Queue 1 item 5b, sub-item 9.
+choose the same plans and capacities.  External tables (files scanned
+at query time through ``share/external.py``, ``register_external``) are
+cached per file mtime.
 
 A catalog lives on one device: ``Catalog(device=None)`` resolves it to
 ``"cuda"`` and raises without CUDA unless the caller passes
@@ -17,6 +18,7 @@ A catalog lives on one device: ``Catalog(device=None)`` resolves it to
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Optional
@@ -25,6 +27,7 @@ import numpy as np
 
 from oceanbase_tpu_torch import default_device
 from oceanbase_tpu_torch.datatypes import SqlType, TypeKind
+from oceanbase_tpu_torch.share.external import read_external
 from oceanbase_tpu_torch.vector import Relation, empty_relation, from_numpy
 
 
@@ -113,6 +116,10 @@ class Catalog:
         # transient tables: materialized virtual (gv$/v$) relations,
         # refreshed per statement (≙ virtual table iterators)
         self._transients: dict[str, tuple[TableDef, Relation]] = {}
+        # external (lake) tables: name -> {"tdef", "location", "format",
+        # "delimiter", "skip", "cache": (mtime, Relation)|None}
+        # (≙ src/share/external_table — files scanned at query time)
+        self._externals: dict[str, dict] = {}
         self.schema_version = 1
 
     # -- transient (virtual) tables ---------------------------------------
@@ -179,11 +186,67 @@ class Catalog:
                         and index in (None, k[1])]:
                 del self._sidecars[key]
 
+    # -- external tables --------------------------------------------------
+    def register_external(self, tdef: TableDef, location: str,
+                          fmt: str = "csv", delimiter: str = ",",
+                          skip_lines: int = 0,
+                          if_not_exists: bool = False):
+        with self._lock:
+            if tdef.name in self._externals:
+                if if_not_exists:
+                    return
+                raise ValueError(f"external table {tdef.name} exists")
+            # collision checks inside one locked section (no
+            # check-then-act window against concurrent DDL)
+            if self.has_table(tdef.name):
+                raise ValueError(f"table {tdef.name} already exists")
+            if self.view_def(tdef.name) is not None:
+                raise ValueError(f"view {tdef.name} already exists")
+            self._externals[tdef.name] = {
+                "tdef": tdef, "location": location, "format": fmt,
+                "delimiter": delimiter, "skip": skip_lines,
+                "cache": None}
+            self.schema_version += 1
+
+    def drop_external(self, name: str) -> bool:
+        with self._lock:
+            if self._externals.pop(name, None) is not None:
+                self.schema_version += 1
+                return True
+            return False
+
+    def _external_lookup(self, name: str):
+        return self._externals.get(name)
+
+    def _external_data(self, name: str) -> Relation:
+        """The external table's file read into a relation on the
+        catalog's device; re-read when the file's mtime changes."""
+        e = self._externals.get(name)
+        if e is None:  # dropped concurrently: the missing-table path
+            raise KeyError(f"unknown table {name}")
+        try:
+            mtime = os.path.getmtime(e["location"])
+        except OSError:
+            mtime = None
+        with self._lock:
+            hit = e["cache"]
+            if hit is not None and hit[0] == mtime:
+                return hit[1]
+        arrays, valids, types = read_external(
+            e["location"], e["format"], e["tdef"], e["delimiter"],
+            e["skip"])
+        rel = from_numpy(arrays, types=types, valids=valids or None,
+                         device=self.device)
+        with self._lock:
+            e["cache"] = (mtime, rel)
+            e["tdef"].row_count = rel.capacity
+        return rel
+
     # -- views ------------------------------------------------------------
     def create_view(self, name: str, sql: str, cols=None,
                     or_replace: bool = False):
         with self._lock:
-            if self.has_table(name):
+            if self.has_table(name) or name in self._externals:
                 raise ValueError(f"table {name} already exists")
             if name in self._views and not or_replace:
                 raise ValueError(f"view {name} already exists")
@@ -210,7 +273,7 @@ class Catalog:
         with self._lock:
             if self.view_def(tdef.name) is not None:
                 raise ValueError(f"view {tdef.name} already exists")
-            if tdef.name in self._defs:
+            if tdef.name in self._defs or tdef.name in self._externals:
                 if if_not_exists:
                     return
                 raise ValueError(f"table {tdef.name} already exists")
@@ -280,11 +343,16 @@ class Catalog:
             t = self._transients.get(name)
             if t is not None:
                 return t[0]
+            e = self._externals.get(name)
+            if e is not None:
+                return e["tdef"]
             if name not in self._defs:
                 raise KeyError(f"unknown table {name}")
             return self._defs[name]
 
     def table_data(self, name: str) -> Relation:
+        if name in self._externals:
+            return self._external_data(name)
         with self._lock:
             t = self._transients.get(name)
             if t is not None:
@@ -295,12 +363,16 @@ class Catalog:
 
     def has_table(self, name: str) -> bool:
         with self._lock:
-            return name in self._defs or name in self._transients
+            return name in self._defs or name in self._transients or \
+                name in self._externals
 
     def tables(self) -> list[str]:
         with self._lock:
-            return sorted(n for n in self._defs
-                          if not n.startswith("__idx__"))
+            # index storage tables are internal (reachable by name, but
+            # hidden from SHOW TABLES / information_schema enumeration)
+            return sorted([n for n in self._defs
+                           if not n.startswith("__idx__")]
+                          + list(self._externals))
 
     def device_bytes(self) -> int:
         """Bytes the tables' data, validity and masks hold on the device."""

@@ -43,8 +43,11 @@ in-flight host-to-device copies before its pinned buffers go.  A
 spilled query runs under the reference's ``spill.execute`` and
 ``spill.finish`` spans, counts its ``spill.*`` metrics at the result
 boundary, and times its device work into the statement's host/device
-split (``exec/plan.py::device_span``).  Waiting for another slice: the disk-budget, fault and label
-hooks of the temp-file store (ROADMAP Queue 1 item 5b, sub-items 10-11).
+split (``exec/plan.py::device_span``).  Its temp-file store carries the
+tenant's spill budget, the disk-fault plane and the statement's label
+(``disk_budget``/``faults``/``label``): a spill past the budget raises
+``SpillBudgetExceeded`` out of the statement and leaves no temp file and
+no accounted bytes behind.
 """
 
 from __future__ import annotations
@@ -169,7 +172,8 @@ def execute_spilled(plan: pp.PlanNode, providers: dict, spill_dir: str,
                     budget_rows: int, device_tables: dict | None = None,
                     types_by_table: dict | None = None,
                     big_tables: set | None = None,
-                    chunk_rows: int = DEFAULT_CHUNK_ROWS, device=None):
+                    chunk_rows: int = DEFAULT_CHUNK_ROWS, device=None,
+                    disk_budget=None, faults=None, label: str = ""):
     """Run ``plan`` with disk spill for everything over ``budget_rows``,
     its device work on ``device`` (default ``"cuda"``).
 
@@ -179,6 +183,10 @@ def execute_spilled(plan: pp.PlanNode, providers: dict, spill_dir: str,
     -> (arrays, valids, dtypes, SpillStats); raises NotDistributable for
     unsupported shapes.  DECIMAL columns come back as raw scaled ints;
     the caller descales them with the returned dtypes.
+    ``disk_budget``/``faults``/``label`` thread the disk-pressure plane
+    into this statement's temp-file store: spill bytes count against the
+    tenant spill budget (SpillBudgetExceeded kills just this statement)
+    and chunk writes consult the fault plane.
     """
     dev = default_device(device)
     chunk_rows = snap_chunk_rows(chunk_rows)
@@ -207,7 +215,8 @@ def execute_spilled(plan: pp.PlanNode, providers: dict, spill_dir: str,
             raise NotDistributable(str(e)) from None
 
     m0 = time.monotonic()
-    with TempFileStore(spill_dir) as store, \
+    with TempFileStore(spill_dir, budget=disk_budget, faults=faults,
+                       label=label) as store, \
             qtrace.span("spill.execute") as tsp, pp.device_span(dev):
         ctx = _Ctx(store, budget_rows, chunk_rows, providers,
                    device_tables, types_by_table, big, dev)

@@ -1,8 +1,7 @@
 """In-process PALF cluster: N replicas, message passing, failure injection.
 
-Port of ``oceanbase_tpu/palf/cluster.py`` without the ERRSIM fault
-point on the append path (the fault plane waits for ROADMAP Queue 1
-item 5b).
+Port of ``oceanbase_tpu/palf/cluster.py``, with the ERRSIM fault point
+``palf.append`` on the append path.
 
 Reference analog: the palf_cluster mittest harness
 (mittest/palf_cluster/README.md) plus the runtime glue PalfEnv provides —
@@ -28,6 +27,7 @@ from oceanbase_tpu_torch.palf.election import (
     VoteRequest,
 )
 from oceanbase_tpu_torch.palf.log import PalfReplica
+from oceanbase_tpu_torch.server.errsim import ERRSIM
 
 
 class NotLeader(RuntimeError):
@@ -126,6 +126,7 @@ class PalfCluster:
     # ------------------------------------------------------------------
     def append(self, payloads: list[bytes]) -> int:
         """Group-append on the leader; returns committed end LSN."""
+        ERRSIM.hit("palf.append")
         with self._lock:
             ldr = self.leader()
             entries = ldr.leader_append(payloads)

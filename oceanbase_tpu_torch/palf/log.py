@@ -2,10 +2,10 @@
 
 Port of ``oceanbase_tpu/palf/log.py``: the same on-disk format (magic,
 crc64-stamped entries, recycle base record), torn-tail truncation and
-recycle, and the reference's ``palf.*`` metrics.  Left out: the
-disk-fault plane's hooks and the disk manager's typed errors (item 5b);
-a failed write unwinds exactly as in the reference and raises its
-``OSError``.
+recycle, the reference's ``palf.*`` metrics, the disk-fault plane's
+write checks (``faults``) and the disk manager's typed errors: a failed
+write unwinds exactly as in the reference and raises ``DiskFull`` or
+``DiskIOError``, never a bare ``OSError``.
 
 Reference analog: PalfHandleImpl + LogSlidingWindow + LogEngine/LogIOWorker
 (src/logservice/palf/palf_handle_impl.cpp:406 submit_log, :3235
@@ -22,12 +22,14 @@ previous entry's term matches (truncating divergent suffixes).
 
 from __future__ import annotations
 
+import errno
+import json
 import logging
 import os
 import struct
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from oceanbase_tpu_torch.native import crc64
@@ -58,8 +60,11 @@ _MAGIC = b"OBTPULG1"  # file magic + format version (bump on layout change)
 # ordinary entry format, so scan_wal/crc verification cover it.
 _BASE_PAYLOAD = b"\x00PALF_BASE\x00"
 
-# quarantine retention (shared with the data-dir boundary)
+# quarantine retention (shared with the data-dir boundary):
+# storage/integrity.py owns the pruner, re-exported here for callers
 from oceanbase_tpu_torch.storage.integrity import (  # noqa: E402
+    QUARANTINE_KEEP,
+    QUARANTINE_MAX_AGE_S,
     prune_quarantine,
 )
 
@@ -117,6 +122,9 @@ class PalfReplica:
         # recovery-event sink (storage/recovery.py RecoveryState or
         # None): quarantined/truncated WAL bytes surface in gv$recovery
         self.recovery = recovery
+        # disk-fault plane hook (net/faults.py), armed by
+        # Database.arm_disk_faults
+        self.faults = None
         # WAL recycle point: entries at/below base_lsn were dropped
         # from memory AND disk (their effects live in the engine
         # checkpoint); entries[i].lsn == base_lsn + i + 1
@@ -146,10 +154,11 @@ class PalfReplica:
         return os.path.join(self.log_dir, f"replica_{self.replica_id}.log")
 
     def _persist(self, entries: list[LogEntry]):
-        """Durably append ``entries``.  A write failure UNWINDS: the
-        file is truncated back to the pre-write offset (no half entry
-        left behind), the desynced buffered handle is dropped, and the
-        ``OSError`` propagates."""
+        """Durably append ``entries``.  A write failure — real ENOSPC/
+        EIO or an armed errno fault — UNWINDS: the file is truncated
+        back to the pre-write offset (no half entry left behind), the
+        desynced buffered handle is dropped, and the failure surfaces
+        as typed DiskFull/DiskIOError, never a bare OSError."""
         if self.log_dir is None:
             return
         path = self._log_path()
@@ -166,15 +175,33 @@ class PalfReplica:
             # pre-write file offset the unwind truncates back to
             self._log_f.flush()
             pre_off = self._log_f.tell()
+            if self.faults is not None and entries:
+                # errno injection INSIDE the writer: enospc/eio raise
+                # with nothing written; partial persists a seeded
+                # fraction of the batch then fails — the torn-write
+                # case the unwind below must clean up
+                cut = self.faults.check_write("wal", path,
+                                              nbytes=len(buf))
+                if cut is not None:
+                    self._log_f.write(buf[:cut])
+                    self._log_f.flush()
+                    raise OSError(errno.ENOSPC,
+                                  "fault: partial WAL write", path)
             self._log_f.write(buf)
             t0 = time.perf_counter()
             self._log_f.flush()
             os.fsync(self._log_f.fileno())
-        except OSError:
+        except OSError as exc:
             self._unwind_append(pre_off)
-            raise
+            from oceanbase_tpu_torch.server.diskmgr import wrap_disk_error
+
+            raise wrap_disk_error(
+                exc, f"palf replica {self.replica_id} wal append"
+            ) from exc
         qmetrics.inc("palf.fsyncs")
         qmetrics.observe("palf.fsync_s", time.perf_counter() - t0)
+        if self.faults is not None:
+            self.faults.act_disk("wal", path)
 
     def _unwind_append(self, pre_off: int | None):
         """Roll the append file back to the pre-write offset after a
@@ -215,6 +242,8 @@ class PalfReplica:
         path = self._log_path()
         tmp = path + ".tmp"
         try:
+            if self.faults is not None:
+                self.faults.check_write("wal", path)
             with open(tmp, "wb") as f:
                 f.write(_MAGIC)
                 if self.base_lsn > 0:
@@ -225,12 +254,16 @@ class PalfReplica:
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, path)
-        except OSError:
+        except OSError as exc:
             try:
                 os.remove(tmp)
             except OSError:
                 pass
-            raise
+            from oceanbase_tpu_torch.server.diskmgr import wrap_disk_error
+
+            raise wrap_disk_error(
+                exc, f"palf replica {self.replica_id} wal rewrite"
+            ) from exc
 
     def _resync_from_disk(self):
         """Reload in-memory entries from the on-disk log (the recovery

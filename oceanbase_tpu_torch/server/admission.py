@@ -1,4 +1,5 @@
-"""Statement admission, fair queuing, deadlines and KILL.
+"""Statement admission, fair queuing, deadlines and KILL, and memstore
+write backpressure.
 
 Port of ``oceanbase_tpu/server/admission.py`` (≙ the tenant resource
 manager + ObPxAdmission statement quotas, the large-query queue —
@@ -22,13 +23,18 @@ ObSQLSessionInfo::check_session_status at operator boundaries):
   host reaches its next boundary, which on an in-memory plan can be
   before the card has finished the work already queued.
 
+- ``MemstoreThrottle``: per-tenant unflushed-memstore byte accounting
+  at the TransService.write choke point; past
+  ``writing_throttle_trigger_pct`` of ``memstore_limit_bytes`` writers
+  pay a quadratically ramped sleep (and a freeze/flush of the fattest
+  table is kicked), at the hard limit writes raise typed
+  ``MemstoreFull`` until the flush catches up (≙ ob_tenant_freezer's
+  writing throttling).  On by default (``enable_rate_limit``).
+
 The ``admission.*`` metrics are the reference's series.  The
 reference's module also holds ``RemoteCtx`` (a DTL fragment's cancel
-context; ROADMAP Queue 1 item 10) and ``MemstoreThrottle`` and
-``MemstoreFull`` (memstore write backpressure; item 5b, sub-item 10);
-neither is ported here, so ``admission.px_downgrades``,
-``admission.throttle_sleeps`` and ``admission.memstore_full`` are
-declared and stay at zero.
+context; ROADMAP Queue 1 item 10), so ``admission.px_downgrades`` is
+declared and stays at zero.
 """
 
 from __future__ import annotations
@@ -87,6 +93,11 @@ class QueryTimeout(TimeoutError):
 
 class QueryKilled(RuntimeError):
     """The statement was cancelled via KILL [QUERY] <session_id>."""
+
+
+class MemstoreFull(RuntimeError):
+    """A tenant's unflushed memstore bytes hit memstore_limit_bytes;
+    writes fail typed until the freeze/flush catches up."""
 
 
 # ---------------------------------------------------------------------------
@@ -614,5 +625,185 @@ class AdmissionController:
                 self._large_active
 
 
-__all__ = ["AdmissionController", "QueryKilled", "QueryTimeout",
-           "ServerBusy", "StmtCtx", "activate", "checkpoint"]
+# ---------------------------------------------------------------------------
+# memstore write backpressure
+# ---------------------------------------------------------------------------
+
+
+class MemstoreThrottle:
+    """Per-tenant unflushed-memstore byte accounting + writer throttle
+    (≙ writing throttling: the freezer's trigger percentage ramping
+    writer sleeps, the hard limit bouncing writes).
+
+    ``note_write`` is called at the TransService.write choke point (all
+    writers: session DML, PDML workers, OBKV); ``admit_write`` gates
+    BEFORE the memtable append.  ``on_flush`` (wired to the engine's
+    flush listener) re-bases a table's accounting from the rows still
+    resident after a freeze/flush."""
+
+    def __init__(self, config, flush_cb: Callable[[str], None]
+                 | None = None):
+        self.config = config
+        self.flush_cb = flush_cb
+        self._lock = threading.Lock()
+        #: table -> {"bytes": int, "rows": int}
+        self._tables: dict[str, dict] = {}
+        # running total of unflushed bytes, adjusted at every mutation
+        # (write/flush/drop): admit_write sits on EVERY row write's hot
+        # path, so it must not pay an O(n_tables) sum under the lock
+        self._used_bytes = 0
+        self._flush_inflight = False
+        self.throttle_sleeps = 0
+        self.full_rejections = 0
+        self.peak_bytes = 0
+
+    @staticmethod
+    def row_bytes(values: dict) -> int:
+        n = 64  # key/version-chain overhead estimate
+        for v in values.values():
+            if isinstance(v, str):
+                n += 16 + len(v)
+            elif isinstance(v, (list, tuple)):
+                n += 16 + 8 * len(v)
+            else:
+                n += 8
+        return n
+
+    def enabled(self) -> bool:
+        return bool(self.config["enable_rate_limit"])
+
+    def limit_bytes(self) -> int:
+        return int(self.config["memstore_limit_bytes"])
+
+    def trigger_bytes(self) -> int:
+        pct = int(self.config["writing_throttle_trigger_pct"])
+        return self.limit_bytes() * pct // 100
+
+    def used_bytes(self) -> int:
+        with self._lock:
+            return self._used_bytes
+
+    def admit_write(self, table: str, values: dict):
+        """Gate + account one row write.  Raises MemstoreFull at the
+        hard limit; pays a ramped sleep past the trigger (and kicks a
+        freeze/flush of the fattest table so pressure clears)."""
+        if not self.enabled():
+            return
+        nbytes = self.row_bytes(values)
+        limit = self.limit_bytes()
+        trigger = self.trigger_bytes()
+        with self._lock:
+            used = self._used_bytes
+            # ONE accept/reject decision, made under the lock: a
+            # rejected row is NEVER accounted (it never reaches the
+            # memtable), and an accepted one must not be re-judged
+            # against its own bytes after the fact
+            rejected = used + nbytes > limit
+            if rejected:
+                self.full_rejections += 1
+                qmetrics.inc("admission.memstore_full")
+            else:
+                ent = self._tables.setdefault(
+                    table, {"bytes": 0, "rows": 0})
+                ent["bytes"] += nbytes
+                ent["rows"] += 1
+                used += nbytes
+                self._used_bytes = used
+                self.peak_bytes = max(self.peak_bytes, used)
+            fattest = self._fattest_locked()
+            # take the one-shot flush token ONLY when it will actually
+            # be spent — a kick with no flushable table (first-ever
+            # write over the limit) or no callback must not wedge the
+            # token and disable pressure flushes forever
+            kick = (rejected or used > trigger) and \
+                fattest is not None and self.flush_cb is not None and \
+                self._take_flush_locked()
+        if kick:
+            try:
+                self.flush_cb(fattest)
+            finally:
+                with self._lock:
+                    self._flush_inflight = False
+        if rejected:
+            raise MemstoreFull(
+                f"memstore limit reached ({used}/{limit} bytes "
+                f"unflushed); retry after the flush catches up")
+        if used > trigger and limit > trigger:
+            # quadratic ramp: barely over the trigger sleeps ~0, near
+            # the hard limit sleeps the full budget (≙ the reference's
+            # decaying write throughput as memstore fills)
+            frac = (used - trigger) / float(limit - trigger)
+            delay = min(frac * frac, 1.0) * float(
+                self.config["writing_throttle_max_sleep_s"])
+            if delay > 0.0005:
+                self.throttle_sleeps += 1
+                qmetrics.inc("admission.throttle_sleeps")
+                time.sleep(delay)
+
+    def _fattest_locked(self) -> str | None:
+        if not self._tables:
+            return None
+        return max(self._tables, key=lambda t: self._tables[t]["bytes"])
+
+    def _take_flush_locked(self) -> bool:
+        if self._flush_inflight:
+            return False
+        self._flush_inflight = True
+        return True
+
+    def on_flush(self, table: str, remaining_rows: int):
+        """Engine flush listener: re-base ``table``'s accounting from
+        the rows still resident (the flush horizon can hold back
+        versions a live transaction's conflict check needs)."""
+        with self._lock:
+            ent = self._tables.get(table)
+            if ent is None:
+                return
+            rows = max(ent["rows"], 1)
+            avg = ent["bytes"] / rows
+            # a flush only SHRINKS residency: clamp the re-base so avg
+            # drift (or memtable rows this accounting never saw, e.g.
+            # replayed writes) cannot push the estimate UP past what
+            # was admitted — the hard limit must stay a hard limit
+            ent["rows"] = max(int(remaining_rows), 0)
+            shrunk = min(int(ent["rows"] * avg), ent["bytes"])
+            self._used_bytes -= ent["bytes"] - shrunk
+            ent["bytes"] = shrunk
+
+    def drop_table(self, table: str):
+        with self._lock:
+            ent = self._tables.pop(table, None)
+            if ent is not None:
+                self._used_bytes -= ent["bytes"]
+
+    def reset_peak(self):
+        """Start a fresh peak-bytes window (benches measure a phase,
+        not the process lifetime)."""
+        with self._lock:
+            self.peak_bytes = self._used_bytes
+
+    def state(self) -> str:
+        if not self.enabled():
+            return "off"
+        used = self.used_bytes()
+        if used >= self.limit_bytes():
+            return "full"
+        if used > self.trigger_bytes():
+            return "throttle"
+        return "ok"
+
+    def stats(self) -> dict:
+        return {
+            "memstore_bytes": self.used_bytes(),
+            "memstore_limit_bytes": self.limit_bytes(),
+            "throttle_trigger_bytes": self.trigger_bytes(),
+            "throttle_state": self.state(),
+            "throttle_sleeps": self.throttle_sleeps,
+            "memstore_full_rejections": self.full_rejections,
+            "memstore_peak_bytes": self.peak_bytes,
+        }
+
+
+__all__ = ["AdmissionController", "MemstoreFull", "MemstoreThrottle",
+           "QueryKilled", "QueryTimeout", "ServerBusy", "StmtCtx",
+           "activate", "checkpoint"]

@@ -5,10 +5,11 @@ src/share/parameter/ob_parameter_seed.ipp, runtime-settable via ALTER
 SYSTEM SET, persisted, with per-tenant overlays): the same ``Config``
 (typed, validated, persisted to ``config.json``, ``watch`` hooks, tenant
 overlays) over only the knobs the ported modules read, the measurement
-plane's among them.  Every other knob of the reference (throttling,
-disk budgets, the workload repository, ...) raises the reference's
-``KeyError("unknown parameter ...")`` on get, set and load: a knob of a
-plane that is not ported is refused, never accepted and ignored.
+and durability planes' among them.  Every other knob of the reference
+(the cluster, PX, rpc and rebuild knobs, ``tenant_memory_limit``, ...)
+raises the reference's ``KeyError("unknown parameter ...")`` on get, set
+and load: a knob of a plane that is not ported is refused, never
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -128,6 +129,62 @@ DEF("large_query_threshold_s", 5.0, "float",
     "checkpoint (point queries stop starving behind scans)", _pos)
 DEF("admission_large_slots", 2, "int",
     "concurrent statements of the low-priority large-query lane", _pos)
+# memstore write backpressure (server/admission.py::MemstoreThrottle)
+DEF("enable_rate_limit", True, "bool",
+    "memstore write backpressure (server/admission.py::"
+    "MemstoreThrottle): account unflushed bytes per write, ramp writer "
+    "sleeps past writing_throttle_trigger_pct of "
+    "memstore_limit_bytes, raise MemstoreFull at the hard limit "
+    "(≙ write throttling)")
+DEF("memstore_limit_bytes", 256 << 20, "cap",
+    "per-tenant unflushed memstore byte budget; writes at the limit "
+    "raise typed MemstoreFull until the freeze/flush catches up", _pos)
+DEF("writing_throttle_trigger_pct", 60, "int",
+    "percentage of memstore_limit_bytes past which writers pay a "
+    "ramped sleep before each append (≙ "
+    "writing_throttling_trigger_percentage)",
+    lambda v: 1 <= v <= 100)
+DEF("writing_throttle_max_sleep_s", 0.05, "float",
+    "per-write sleep ceiling of the memstore throttle ramp", _pos)
+# disk-pressure plane: per-surface byte budgets (0 = unlimited) +
+# read-only degradation (server/diskmgr.py)
+DEF("log_disk_limit_bytes", 0, "cap",
+    "per-tenant PALF WAL directory budget; crossing the utilization "
+    "threshold kicks checkpoint + WAL recycle, reaching the limit "
+    "drops the tenant to read-only (typed TenantReadOnly on writes, "
+    "reads keep serving) — ≙ log_disk_utilization_limit_threshold",
+    _nonneg)
+DEF("data_disk_limit_bytes", 0, "cap",
+    "per-tenant data directory (segments + manifest + slog) budget; "
+    "at the limit the tenant enters read-only until space frees",
+    _nonneg)
+DEF("spill_disk_limit_bytes", 0, "cap",
+    "per-tenant temp-file (spill) byte budget; exhaustion kills only "
+    "the spilling statement (typed SpillBudgetExceeded) — ≙ the "
+    "tmp-file quota", _nonneg)
+DEF("log_disk_utilization_threshold", 80, "int",
+    "percentage of log_disk_limit_bytes past which the tenant "
+    "reclaims aggressively (checkpoint + WAL recycle) before "
+    "degrading, and back under which read-only auto-exits",
+    lambda v: 1 <= v <= 100)
+# data integrity / scrub (storage/scrub.py) and the disk-fault plane
+# (net/faults.py; Database.arm_disk_faults)
+DEF("enable_scrub", True, "bool",
+    "background scrubber: periodically re-read + checksum-verify every "
+    "persisted segment, compare per-table logical digests across "
+    "replicas (scrub.checksum verb, majority wins), and auto-repair "
+    "corrupt/minority tables from a healthy peer over the chunked "
+    "rebuild.fetch_* verbs (≙ replica checksum verification at major "
+    "freeze) — surfaced as gv$scrub")
+DEF("scrub_interval_s", 300.0, "float",
+    "scrub round cadence; each round re-reads local segment files and "
+    "exchanges per-table digests with peers — hot-reloadable (the loop "
+    "re-reads it every wait)", _pos)
+DEF("enable_disk_faults", False, "bool",
+    "allow disk fault rules (seeded enospc/eio/partial writes and "
+    "bitflip/truncate of just-persisted segment/manifest/slog/wal "
+    "files) to arm on this database — the deterministic media-rot "
+    "half of the chaos plane")
 # DBMS jobs (server/jobs.py)
 DEF("enable_dbms_jobs", False, "bool",
     "start the DBMS job scheduler thread at boot (stats auto-gather, "
@@ -207,6 +264,22 @@ DEF("enable_ash", True, "bool",
 DEF("ash_sample_interval_ms", 1000, "int", "ASH sampling period", _pos)
 DEF("sql_audit_queue_size", 10000, "int",
     "ring-buffer capacity of gv$sql_audit", _pos)
+# workload diagnostics repository (server/workload.py) — persistent
+# crc64-stamped snapshots of the observability surfaces, the substrate
+# of ANALYZE WORKLOAD REPORT (≙ AWR-style workload repository).  All
+# four knobs hot-reload: the snapshot loop re-reads them every round.
+DEF("enable_workload_repo", False, "bool",
+    "background workload-snapshot thread: periodically persist "
+    "gv$sysstat + histograms, gv$time_model, plan-cache/plan-history "
+    "summaries, ASH rollups and disk state to <data_dir>/workload/ "
+    "(crc64-verified on load, quarantined on mismatch)")
+DEF("workload_snapshot_interval_s", 60.0, "float",
+    "cadence of automatic workload snapshots", _pos)
+DEF("workload_retention_keep", 64, "int",
+    "newest snapshots retained per node; older ones are pruned "
+    "(count cap, mirrors integrity.prune_quarantine)", _pos)
+DEF("workload_retention_max_age_s", 7 * 24 * 3600.0, "float",
+    "snapshots older than this are pruned regardless of count", _pos)
 
 
 def _unknown(name: str) -> KeyError:

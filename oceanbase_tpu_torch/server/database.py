@@ -30,9 +30,17 @@ PROCESSLIST and KILL read; its sampling thread starts only with
 ``start_ash=True`` and ``enable_ash``) and ``virtual_tables``, which
 serves the gv$/v$ views through SQL.
 
-The reference's workload repository (``server/workload.py``) is not
-booted: it waits for ROADMAP Queue 1 item 5b, sub-item 15.
-``backup()`` waits for sub-item 13.
+The durability and fault plane: each tenant's disk manager (log, data
+and spill budgets, read-only degradation) and memstore throttle (on by
+default, ``enable_rate_limit``); ``scrubber()`` and the gv$scrub event
+log; ``faults``, the disk-fault plane the
+backup and spill writers consult (``arm_disk_faults`` wires one plane
+into every durable writer, with ``enable_disk_faults``); ``backup()``
+(a checkpointed copy; ``server/backup.py`` holds the incremental,
+archive and point-in-time chain); and the workload repository
+(``server/workload.py``: persistent crc-checked snapshots behind
+ANALYZE/SHOW WORKLOAD REPORT, whose snapshot thread starts only with
+``enable_workload_repo``).
 """
 
 from __future__ import annotations
@@ -64,6 +72,8 @@ from oceanbase_tpu_torch.server.monitor import (
 )
 from oceanbase_tpu_torch.server.mysql_protocol import mysql_native_hash
 from oceanbase_tpu_torch.server.profiler import DeviceProfileStore
+from oceanbase_tpu_torch.server.workload import WorkloadRepository
+from oceanbase_tpu_torch.storage.scrub import ScrubState, Scrubber, local_node
 from oceanbase_tpu_torch.server.tenant import Tenant
 from oceanbase_tpu_torch.server.trace import TraceRegistry
 from oceanbase_tpu_torch.server.virtual_tables import VirtualTables
@@ -81,6 +91,13 @@ class Database:
         self.tenants: dict[str, Tenant] = {}
         self._session_ids = itertools.count(1)
         self.node_id = 0  # single-process instance
+        # disk-fault plane (net/faults.FaultPlane): durable writers
+        # (backup, spill, workload snapshots) consult it; None = no
+        # injection (arm_disk_faults wires one everywhere)
+        self.faults = None
+        #: the scrub event log gv$scrub serves (``scrubber()`` rounds
+        #: record into it)
+        self.scrub = ScrubState(self.node_id)
 
         # metrics plane and host/device time split ride the config,
         # process-global, hot-reloaded by ALTER SYSTEM SET
@@ -128,6 +145,13 @@ class Database:
         #: {name: ProcedureStmt}, loaded by the first session that needs
         #: it (sql/session.py::_proc_store)
         self.procedures: dict | None = None
+        # workload diagnostics repository (server/workload.py):
+        # persistent snapshots + ANALYZE WORKLOAD REPORT.  The snapshot
+        # thread starts with the knob (or later, when ALTER SYSTEM
+        # turns it on — _on_workload_knob); the loop re-reads both
+        # knobs every round, so turning it OFF needs no restart.
+        self.workload = WorkloadRepository(self, root)
+        self.config.watch(self._on_workload_knob)
         # DBMS job scheduler (≙ dbms_job/dbms_scheduler); built-ins
         # register at boot, the thread starts on demand or when enabled
         self.jobs = JobScheduler(self)
@@ -159,6 +183,8 @@ class Database:
                                            _boot=True)
         if bool(self.config["enable_dbms_jobs"]):
             self.jobs.start()
+        if bool(self.config["enable_workload_repo"]):
+            self.workload.start()
         self.virtual_tables = VirtualTables(self)
         if start_ash and bool(self.config["enable_ash"]):
             self.ash.start()
@@ -167,6 +193,10 @@ class Database:
         logging.getLogger("oceanbase_tpu_torch.server").info(
             "boot backend: %s", backend_summary(self.device,
                                                 self.cost_units))
+
+    def _on_workload_knob(self, name: str, value):
+        if name == "enable_workload_repo" and bool(value):
+            self.workload.start()
 
     @staticmethod
     def _on_knob(name: str, value):
@@ -277,9 +307,43 @@ class Database:
             if tenant is None or name == tenant:
                 t.checkpoint()
 
+    def backup(self, dest_root: str):
+        """Physical backup: checkpoint everything, then copy the data tree
+        (≙ data backup, src/storage/backup).  Restore = Database(dest)."""
+        if self.root is None:
+            raise ValueError("in-memory database cannot be backed up")
+        self.checkpoint()
+        os.makedirs(os.path.dirname(dest_root) or ".", exist_ok=True)
+        shutil.copytree(self.root, dest_root, dirs_exist_ok=False)
+
+    def scrubber(self, tenant: str = "sys") -> Scrubber:
+        """A single-node scrub runner over one tenant's engine
+        (``run_once()``: re-read and verify every persisted segment,
+        quarantine a corrupt one, rewrite it from the resident copy),
+        recording into gv$scrub."""
+        return Scrubber(local_node(self.tenants[tenant], self.node_id),
+                        state=self.scrub)
+
+    def arm_disk_faults(self, plane):
+        """Wire a disk-fault plane (``net/faults.FaultPlane``) into every
+        durable writer of this database — each tenant's slog, manifest
+        and segment writers, its WAL replicas, and the backup, spill and
+        workload writers that read ``self.faults`` — or disarm them all
+        with None.  Arming needs ``enable_disk_faults``, as a node's
+        ``fault.inject`` of a disk rule does."""
+        if plane is not None and not bool(self.config["enable_disk_faults"]):
+            raise PermissionError("disk faults are disabled; set "
+                                  "enable_disk_faults = true first")
+        self.faults = plane
+        for t in self.tenants.values():
+            t.engine.faults = plane
+            for r in t.wal.replicas.values():
+                r.faults = plane
+
     def close(self):
         self.jobs.stop()
         self.ash.stop()
+        self.workload.stop()
         for t in self.tenants.values():
             t.close()
 

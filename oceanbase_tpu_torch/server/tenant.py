@@ -11,10 +11,13 @@ its workers and its WAL.
 
 It also wires the sequences (``share/sequence.py``), the table-lock
 manager (``tx/tablelock.py``), the KV front end (``kv.py``) and the
-worker pool parallel DML submits to.  What the reference's tenant also
-wires and the port's does not: the multi-node ``NetPalf`` log (ROADMAP
-Queue 1 item 5b, sub-item 14), the memstore write throttle and the disk
-manager (sub-item 10) and the CDC pump and PX admission (item 10).  Its
+worker pool parallel DML submits to, the memstore write throttle
+(``admission.MemstoreThrottle``) and the disk manager
+(``diskmgr.DiskManager``: the log, data and spill budgets, read-only
+degradation, the log surface's checkpoint-and-recycle reclaim).  What
+the reference's tenant also wires and the port's does not: the
+multi-node ``NetPalf`` log (ROADMAP Queue 1 item 5b, sub-item 14) and
+the CDC pump and PX admission (item 10).  Its
 recovery steps carry the reference's trace spans (``recovery.replay``,
 ``recovery.restore_prepared``, ``recovery.checkpoint``).
 """
@@ -29,6 +32,8 @@ from concurrent.futures import ThreadPoolExecutor
 from oceanbase_tpu_torch.kv import KvTable
 from oceanbase_tpu_torch.palf.cluster import PalfCluster
 from oceanbase_tpu_torch.server import trace as qtrace
+from oceanbase_tpu_torch.server.admission import MemstoreThrottle
+from oceanbase_tpu_torch.server.diskmgr import DiskManager
 from oceanbase_tpu_torch.server.config import Config
 from oceanbase_tpu_torch.share.sequence import SequenceManager
 from oceanbase_tpu_torch.storage.engine import StorageCatalog, StorageEngine
@@ -39,7 +44,11 @@ from oceanbase_tpu_torch.tx.tablelock import LockTable
 
 class Tenant:
     def __init__(self, name: str, root: str | None, cluster_config: Config,
-                 wal_replicas: int = 3, device=None):
+                 wal_replicas: int = 3, device=None,
+                 corrupt_policy: str = "raise"):
+        """``corrupt_policy``: what boot does with a checksum-failing
+        segment — "raise" (no repair source) or "quarantine" (move it
+        aside and let the scrub plane repair it)."""
         self.name = name
         self.config = Config(parent=cluster_config)
         self.recovery = RecoveryState()
@@ -50,7 +59,8 @@ class Tenant:
         wal_dir = os.path.join(root, "wal") if root else None
         if wal_dir:
             os.makedirs(wal_dir, exist_ok=True)
-        self.engine = StorageEngine(data_dir)
+        self.engine = StorageEngine(data_dir,
+                                    corrupt_policy=corrupt_policy)
         self.wal = PalfCluster(wal_replicas, log_root=wal_dir)
         self.wal.elect()
         local = self.wal.replicas[self.wal.leader_id]
@@ -132,6 +142,48 @@ class Tenant:
         self._pool = ThreadPoolExecutor(
             max_workers=int(self.config["tenant_cpu_quota"]),
             thread_name_prefix=f"tnt-{name}")
+
+        # memstore write backpressure (≙ writing throttling): byte
+        # accounting + ramp/hard-limit at the TransService.write choke
+        # point; pressure kicks a horizon-clamped freeze/flush of the
+        # fattest table, and the engine's flush listener re-bases the
+        # accounting when any flush (throttle-kicked, row-threshold or
+        # checkpoint) clears memtable rows
+        self.throttle = MemstoreThrottle(self.config,
+                                         flush_cb=self._pressure_flush)
+        self.tx.throttle = self.throttle
+        self.engine.flush_listener = self.throttle.on_flush
+
+        # disk-pressure plane: per-surface byte budgets (log/data/spill)
+        # with read-only degradation; the log surface reclaims
+        # (aggressive checkpoint + WAL recycle) before it degrades.  The
+        # spill surface is accounted incrementally by TempFileStore, so
+        # it needs no walk paths.
+        self.diskmgr = DiskManager(
+            self.config,
+            paths={"log": [wal_dir] if wal_dir else [],
+                   "data": [data_dir] if data_dir else []},
+            reclaim_cb=self.reclaim_log_disk)
+        self.tx.diskmgr = self.diskmgr
+
+    def _pressure_flush(self, table: str):
+        """Memstore-pressure flush: freeze + flush ``table`` at the
+        flush horizon (never past a live writer's snapshot) so
+        throttled writers unblock without losing conflict checks."""
+        try:
+            self.engine.freeze_and_flush(
+                table, snapshot=self.tx.flush_snapshot())
+            self.catalog.invalidate(table)
+        except KeyError:
+            self.throttle.drop_table(table)  # dropped mid-pressure
+
+    def reclaim_log_disk(self):
+        """Log-disk pressure reclaim: checkpoint aggressively, then
+        recycle the WAL prefix below the persisted replay point — the
+        checkpoint made those entries' effects durable in segments, so
+        boot replay never needs them again."""
+        self.checkpoint()
+        self.wal.recycle(int(self.engine.meta.get("wal_lsn", 0)))
 
     def kv(self, table: str) -> KvTable:
         """OBKV-style table API handle (≙ src/libtable client)."""

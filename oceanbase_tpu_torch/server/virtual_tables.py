@@ -13,14 +13,15 @@ works like any query.  The views read the stores of the port's
 ``Database`` (the measurement plane of ``server/monitor.py``,
 ``server/trace.py``, ``server/metrics.py``, ``server/profiler.py``,
 ``server/calibrate.py`` and ``exec/plan.py``) and its storage, WAL,
-admission and job modules.  A single-node database has no DTL exchange,
-failure detector or disk manager, so ``gv$px_exchange``,
-``gv$cluster_health`` and ``gv$disk`` return no rows, as the
-reference's do without those subsystems.  ``gv$scrub``, ``v$errsim``
-and ``gv$workload_snapshot``/``gv$workload_report`` read modules that
-are not ported and raise ``NotImplementedError`` naming their ROADMAP
-item; ``gv$sysstat`` and ``gv$sysstat_histogram`` read this process's
-metrics only (the cluster-wide scrape waits for item 10).
+admission and job modules, and the durability plane's: each tenant's
+disk manager (``gv$disk``) and memstore throttle
+(``gv$tenant_resource``), the scrub event log (``gv$scrub``), the ERRSIM
+points (``v$errsim``) and the workload repository
+(``gv$workload_snapshot``/``gv$workload_report``).  A single-node
+database has no DTL exchange or failure detector, so ``gv$px_exchange``
+and ``gv$cluster_health`` return no rows, as the reference's do without
+those subsystems; ``gv$sysstat`` and ``gv$sysstat_histogram`` read this
+process's metrics only (the cluster-wide scrape waits for item 10).
 """
 
 from __future__ import annotations
@@ -29,12 +30,7 @@ import time
 
 import numpy as np
 
-
-#: the ROADMAP items the views over unported modules wait for
-_SCRUB = "ROADMAP Queue 1 item 5b, sub-item 12 (scrub and repair)"
-_ERRSIM = "ROADMAP Queue 1 item 5b, sub-item 11 (ERRSIM points)"
-_WORKLOAD = ("ROADMAP Queue 1 item 5b, sub-item 15 (the workload "
-             "repository)")
+from oceanbase_tpu_torch.server.errsim import ERRSIM
 
 
 def _obj(xs):
@@ -155,16 +151,45 @@ class VirtualTables:
         }
 
     def workload_snapshot(self):
-        """Persisted workload snapshots: reads server/workload.py, not
-        ported."""
-        raise NotImplementedError(
-            f"gv$workload_snapshot waits for {_WORKLOAD}")
+        """Catalog of persisted workload snapshots (server/workload.py):
+        id, capture time, merged node set, crc — the ids ANALYZE
+        WORKLOAD REPORT FROM <id> TO <id> accepts."""
+        repo = getattr(self.db, "workload", None)
+        rows = []
+        for sid in (repo.snapshot_ids() if repo is not None else []):
+            try:
+                s = repo.load(sid)
+            except Exception:  # noqa: BLE001 — a quarantined snapshot
+                # is absent from the catalog, not an error in SELECT
+                continue
+            rows.append((s["id"], s["ts"], len(s.get("nodes", [])),
+                         ",".join(str(n) for n in s.get("nodes", [])),
+                         int(s["crc"])))
+        return {
+            "snapshot_id": np.array([r[0] for r in rows], np.int64),
+            "ts": np.array([r[1] for r in rows], np.float64),
+            "node_count": np.array([r[2] for r in rows], np.int64),
+            "nodes": _obj(r[3] for r in rows),
+            "crc64": np.array([r[4] for r in rows], np.uint64),
+        }
 
     def workload_report(self):
-        """The last workload report: reads server/workload.py, not
-        ported."""
-        raise NotImplementedError(
-            f"gv$workload_report waits for {_WORKLOAD}")
+        """The LAST built workload report's structured rows (ANALYZE
+        WORKLOAD REPORT populates; SHOW WORKLOAD REPORT renders the
+        same report as a text tree)."""
+        repo = getattr(self.db, "workload", None)
+        rep = repo.last_report if repo is not None else None
+        rows = rep["rows"] if rep else []
+        fid = rep["from_id"] if rep else 0
+        tid = rep["to_id"] if rep else 0
+        return {
+            "from_id": np.array([fid] * len(rows), np.int64),
+            "to_id": np.array([tid] * len(rows), np.int64),
+            "section": _obj(r["section"] for r in rows),
+            "item": _obj(r["item"] for r in rows),
+            "value": np.array([r["value"] for r in rows], np.float64),
+            "detail": _obj(r["detail"] for r in rows),
+        }
 
     def disk(self):
         """Disk-pressure plane per tenant surface (≙ the log-disk half
@@ -743,8 +768,28 @@ class VirtualTables:
         }
 
     def scrub(self):
-        """Scrub-plane activity: reads storage/scrub.py, not ported."""
-        raise NotImplementedError(f"gv$scrub waits for {_SCRUB}")
+        """Scrub-plane activity (storage/scrub.py): one row per event —
+        verify rounds (segments/bytes re-checked), quarantines,
+        cross-replica digest mismatches, repairs with their peer/bytes,
+        and post-repair parity checks (≙ the replica-checksum
+        verification surfaced by __all_virtual_tablet_checksum)."""
+        st = getattr(self.db, "scrub", None)
+        rows = st.rows() if st is not None else []
+        return {
+            "ts": np.array([r["ts"] for r in rows], np.float64),
+            "node_id": np.array([r["node_id"] for r in rows], np.int64),
+            "table_name": _obj(r["table"] for r in rows),
+            "phase": _obj(r["phase"] for r in rows),
+            "segments": np.array([r["segments"] for r in rows],
+                                 np.int64),
+            "bytes": np.array([r["bytes"] for r in rows], np.int64),
+            "peer": np.array([r["peer"] for r in rows], np.int64),
+            "mismatches": np.array([r["mismatches"] for r in rows],
+                                   np.int64),
+            "elapsed_s": np.array([r["elapsed_s"] for r in rows],
+                                  np.float64),
+            "note": _obj(r["note"] for r in rows),
+        }
 
     def session_history(self):
         ash = getattr(self.db, "ash", None)
@@ -1047,9 +1092,18 @@ class VirtualTables:
         }
 
     def errsim(self):
-        """Armed ERRSIM tracepoints: reads server/errsim.py, not
-        ported."""
-        raise NotImplementedError(f"v$errsim waits for {_ERRSIM}")
+        """ERRSIM tracepoints (server/errsim.py): every registered point
+        with its hits and fires, and whether a rule is armed."""
+        stats = ERRSIM.stats()
+        names = sorted(ERRSIM.registered | set(stats))
+        return {
+            "tracepoint": _obj(names),
+            "hits": np.array([stats.get(n, (0, 0))[0] for n in names],
+                             np.int64),
+            "fired": np.array([stats.get(n, (0, 0))[1] for n in names],
+                              np.int64),
+            "armed": np.array([n in stats for n in names]),
+        }
 
 
 __all__ = ["VirtualTables"]

@@ -1,2 +1,3 @@
 """Shared services of the port (``kvcache``: the device-relation cache;
-``sequence``: sequences and AUTO_INCREMENT counters)."""
+``sequence``: sequences and AUTO_INCREMENT counters; ``external``:
+external tables read at query time)."""

@@ -41,11 +41,6 @@ class BindError(ValueError):
 
 _uid = itertools.count()
 
-#: the ROADMAP item the reference's external tables wait for (the gv$/v$
-#: views are transient catalog tables the session materializes before
-#: binding, server/virtual_tables.py)
-VIRTUAL_TABLES = "ROADMAP Queue 1 item 5b, sub-item 9 (external tables)"
-
 
 def fresh(prefix: str) -> str:
     return f"{prefix}_{next(_uid)}"

@@ -67,10 +67,12 @@ EXPLAIN ANALYZE (with its roofline line), PROFILE (torch.profiler),
 SHOW TRACE / METRICS / PROFILE, ALTER SYSTEM CALIBRATE and the gv$/v$
 views (materialized per statement as transient tables) run.
 
-There is no parallel or pushed-down query execution.  Statements of
-planes not yet ported (ANALYZE / SHOW WORKLOAD REPORT, external tables,
-VECTOR) raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+External tables (CREATE EXTERNAL TABLE: a CSV or Parquet file read at
+query time) and the workload repository's ANALYZE / SHOW WORKLOAD
+REPORT run; a spilled statement's temp files count against the tenant's
+spill budget.  There is no parallel or pushed-down query execution.
+Statements of planes not yet ported (VECTOR) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -130,7 +132,7 @@ from oceanbase_tpu_torch.server import trace as qtrace
 from oceanbase_tpu_torch.server.monitor import AuditRecord
 from oceanbase_tpu_torch.sql import access_path as ap
 from oceanbase_tpu_torch.sql import ast
-from oceanbase_tpu_torch.sql.binder import VIRTUAL_TABLES, Binder, Scope
+from oceanbase_tpu_torch.sql.binder import Binder, Scope
 from oceanbase_tpu_torch.sql.optimizer import (
     CostModel,
     apply_feedback,
@@ -170,27 +172,13 @@ qmetrics.declare("plan_cache.evictions", "counter",
 
 _POW10 = [10**i for i in range(38)]
 
-_WORKLOAD = ("ROADMAP Queue 1 item 5b, sub-item 15 (the workload "
-             "repository)")
 _VECTOR = "ROADMAP Queue 1 items 4 and 8 (VECTOR and side device modules)"
-
-
-def _needs(what: str, item: str):
-    return NotImplementedError(f"{what} waits for {item}")
 
 
 def _needs_db(what: str):
     return NotImplementedError(
         f"{what} needs a Database "
         f"(oceanbase_tpu_torch.server.database.Database)")
-
-
-# statement type -> (what, ROADMAP item) for statements of planes the
-# port has not ported yet, refused with or without a Database
-_UNPORTED = {
-    ast.AnalyzeWorkloadStmt: ("ANALYZE WORKLOAD REPORT", _WORKLOAD),
-    ast.CreateExternalTableStmt: ("CREATE EXTERNAL TABLE", VIRTUAL_TABLES),
-}
 
 
 @dataclass
@@ -557,7 +545,18 @@ class Session:
         if isinstance(stmt, ast.CreateTableStmt):
             return self._create_table(stmt)
         if isinstance(stmt, ast.DropTableStmt):
+            if self.catalog.drop_external(stmt.name):
+                return _ok()
             self.catalog.drop_table(stmt.name, if_exists=stmt.if_exists)
+            return _ok()
+        if isinstance(stmt, ast.CreateExternalTableStmt):
+            td = TableDef(stmt.name,
+                          [ColumnDef(c.name, c.dtype, c.nullable)
+                           for c in stmt.columns])
+            self.catalog.register_external(
+                td, stmt.location, fmt=stmt.format,
+                delimiter=stmt.delimiter, skip_lines=stmt.skip_lines,
+                if_not_exists=stmt.if_not_exists)
             return _ok()
         if isinstance(stmt, ast.CreateViewStmt):
             self.catalog.create_view(stmt.name, stmt.sql_text,
@@ -597,6 +596,8 @@ class Session:
                           rowcount=len(names))
         if isinstance(stmt, ast.DescribeStmt):
             return self._describe(stmt.table)
+        if isinstance(stmt, ast.AnalyzeWorkloadStmt):
+            return self._analyze_workload(stmt)
         if isinstance(stmt, ast.AnalyzeStmt):
             return self._analyze(stmt)
         if isinstance(stmt, ast.TxStmt):
@@ -653,9 +654,6 @@ class Session:
             else:
                 self.db.set_password(stmt.name, stmt.password)
             return _ok()
-        unported = _UNPORTED.get(type(stmt))
-        if unported is not None:
-            raise _needs(*unported)
         raise NotImplementedError(type(stmt).__name__)
 
     # ------------------------------------------------------------------
@@ -1225,7 +1223,10 @@ class Session:
             arrays, valids, dtypes, stats = execute_spilled(
                 plan, providers, sdir,
                 int(self.db.config["sql_work_area_rows"]),
-                device_tables, types_by_table, big, device=self.device)
+                device_tables, types_by_table, big, device=self.device,
+                disk_budget=self.tenant.diskmgr, faults=self.db.faults,
+                label=(self._ash_state.get("sql", "")[:80]
+                       or f"session {self.session_id}"))
         except (NotDistributable, NotImplementedError):
             # unsupported shape OR a non-splittable aggregate
             # (count_distinct) — fall back to the in-memory engine
@@ -1290,6 +1291,44 @@ class Session:
     # ------------------------------------------------------------------
     # metadata: ANALYZE, DESCRIBE, SHOW
     # ------------------------------------------------------------------
+    def _analyze_workload(self, stmt: ast.AnalyzeWorkloadStmt) -> Result:
+        """ANALYZE WORKLOAD REPORT [FROM <id> TO <id>]: build (and
+        remember) the delta report between two workload snapshots.
+        Without ids, a fresh cluster-merged snapshot is taken as the TO
+        side and the previous one is the FROM side, so the statement
+        works with the background thread off.  The structured rows come
+        back directly (the same shape gv$workload_report serves);
+        SHOW WORKLOAD REPORT renders the text tree."""
+        repo = (getattr(self.db, "workload", None)
+                if self.db is not None else None)
+        if repo is None:
+            raise NotImplementedError(
+                "ANALYZE WORKLOAD REPORT needs a Database")
+        rep = repo.build_report(stmt.from_id, stmt.to_id)
+        rows = rep["rows"]
+        return Result(
+            ["section", "item", "value", "detail"],
+            {"section": np.array([r["section"] for r in rows],
+                                 dtype=object),
+             "item": np.array([r["item"] for r in rows], dtype=object),
+             "value": np.array([r["value"] for r in rows], np.float64),
+             "detail": np.array([r["detail"] for r in rows],
+                                dtype=object)},
+            {}, {"section": SqlType.string(), "item": SqlType.string(),
+                 "detail": SqlType.string()}, rowcount=len(rows))
+
+    def _show_workload_report(self) -> Result:
+        """SHOW WORKLOAD REPORT: the last ANALYZE WORKLOAD REPORT's
+        indented text tree, one row per line (SHOW TRACE's style)."""
+        repo = (getattr(self.db, "workload", None)
+                if self.db is not None else None)
+        rep = repo.last_report if repo is not None else None
+        lines = rep["text"].split("\n") if rep else []
+        return Result(
+            ["report"],
+            {"report": np.array(lines, dtype=object)},
+            {}, {"report": SqlType.string()}, rowcount=len(lines))
+
     def _analyze(self, stmt: ast.AnalyzeStmt) -> Result:
         """Refresh a table's optimizer stats on the host: live row count,
         exact NDV, equi-height histograms for non-string columns and
@@ -1456,7 +1495,7 @@ class Session:
         if stmt.what == "profile":
             return self._show_profile()
         if stmt.what == "workload_report":
-            raise _needs("SHOW WORKLOAD REPORT", _WORKLOAD)
+            return self._show_workload_report()
         if stmt.what == "processlist":
             return self._show_processlist()
         if self.db is None:

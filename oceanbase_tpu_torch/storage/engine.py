@@ -6,14 +6,15 @@ manifest format, crc checks, segment files and recovery order.  The
 ``StorageCatalog`` materializes tablet snapshots as the port's device
 relations on its device (``cuda`` unless the caller passes ``"cpu"``).
 Range-partitioned tables (``storage/partition.py``), ALTER TABLE
-ADD/DROP COLUMN and the transient (``gv$``) tables of the catalog come
-with it.  Left out, each waiting for a sub-item of ROADMAP Queue 1 item
-5b: the scrub and repair hooks (12), external tables (9), the
-disk-fault plane and the disk
-manager's typed errors (10; a failed write unwinds and raises its
-``OSError``), the ERRSIM fault point of ``freeze_and_flush`` (11) and
-the memstore throttle's flush listener (10); vector and fulltext index
-specs wait for Queue 1 items 4 and 8.
+ADD/DROP COLUMN, the transient (``gv$``) tables and the external tables
+of the catalog come with it, as do the scrub and repair hooks (the
+quarantine corrupt-segment policy, ``scrub_verify_table``,
+``rewrite_segment_from_memory``, ``repair_table_segments``), the
+disk-fault plane's write checks, the disk manager's typed errors
+(``DiskFull``/``DiskIOError`` out of every durable writer), the ERRSIM
+point of ``freeze_and_flush`` and the memstore throttle's flush
+listener.  The DDL log-stream hook of a cluster node waits for ROADMAP
+Queue 1 item 10; vector and fulltext index specs wait for items 4 and 8.
 
 Reference analog:
 - slog + slog_ckpt (src/storage/slog, ob_server_checkpoint_slog_handler.h):
@@ -37,6 +38,7 @@ import json
 import logging
 import os
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,8 +53,13 @@ from oceanbase_tpu_torch.catalog import (
 )
 from oceanbase_tpu_torch.datatypes import SqlType, TypeKind
 from oceanbase_tpu_torch.native import crc64
+from oceanbase_tpu_torch.server.diskmgr import wrap_disk_error
+from oceanbase_tpu_torch.server.errsim import ERRSIM
 from oceanbase_tpu_torch.share.kvcache import KvCache, relation_bytes
-from oceanbase_tpu_torch.storage.integrity import CorruptionError
+from oceanbase_tpu_torch.storage.integrity import (
+    CorruptionError,
+    prune_quarantine,
+)
 from oceanbase_tpu_torch.storage.lookup import range_rows
 from oceanbase_tpu_torch.storage.memtable import MemTable
 from oceanbase_tpu_torch.storage.partition import PartitionedTablet
@@ -132,13 +139,26 @@ def read_slog(path: str):
             yield d  # legacy unwrapped record
 
 
+def quarantine_file(path: str) -> str:
+    """Move a corrupt artifact aside (never delete — forensics) under a
+    unique .corrupt suffix, retention-capping the directory's older
+    quarantines by count/age; -> the quarantine path."""
+    qpath = f"{path}.corrupt.{time.time_ns():x}"
+    os.replace(path, qpath)
+    prune_quarantine(os.path.dirname(qpath))
+    return qpath
+
+
 class StorageEngine:
-    def __init__(self, root: str | None = None):
-        """A segment file that fails its checksum at boot fails the
-        boot loudly: a single node has no peer to repair it from (the
-        cluster's quarantine-and-refetch policy waits for ROADMAP
-        Queue 1 item 5b)."""
+    def __init__(self, root: str | None = None,
+                 corrupt_policy: str = "raise"):
+        """``corrupt_policy`` decides what boot does with a segment file
+        that fails its checksum: ``"raise"`` (single node — no repair
+        source, fail loudly) or ``"quarantine"`` (move the file aside,
+        boot without it, and let the scrub plane repair it;
+        storage/scrub.py)."""
         self.root = root
+        self.corrupt_policy = corrupt_policy
         self.tables: dict[str, TableStore] = {}
         self.meta: dict = {}  # checkpointed runtime meta (wal replay point…)
         # table -> WAL LSN of the newest TRUNCATE whose slog record this
@@ -146,10 +166,26 @@ class StorageEngine:
         # truncate barriers at/below these (they would drop direct-load
         # segments the slog restored AFTER the truncate)
         self.truncate_barriers: dict[str, int] = {}
+        # segments quarantined at boot or by the scrubber, pending
+        # repair: [{"table", "segment_id", "part", "path"}]
+        self.quarantined: list[dict] = []
+        # scrub fast path: raw-file crc64 of fully verified segment
+        # files (path -> crc); a later round that re-reads identical
+        # bytes skips the decode-and-recheck
+        self._verified_files: dict[str, int] = {}
+        # disk-fault plane hook (net/faults.py FaultPlane or None):
+        # consulted around every persistence write so seeded enospc/eio/
+        # bitflip/truncate rules can target artifacts by kind
+        self.faults = None
+        # flush listener (tenant wiring): called AFTER freeze_and_flush
+        # with (table, rows still resident in the memtables) so the
+        # memstore write-backpressure accounting re-bases when a flush
+        # clears pressure (server/admission.py::MemstoreThrottle)
+        self.flush_listener = None
         self._lock = threading.RLock()
         self._slog_f = None
         # segments installed in memory whose durable save (or slog
-        # publish) failed: memory keeps
+        # publish) failed typed (DiskFull/DiskIOError): memory keeps
         # serving them, and every flush/compact/checkpoint entry point
         # re-attempts the persist FIRST — a manifest must never
         # reference a segment file that does not exist on disk
@@ -179,16 +215,19 @@ class StorageEngine:
         self._slog_f.flush()
         pre_off = os.path.getsize(self._slog_path())
         try:
+            if self.faults is not None:
+                self.faults.check_write("slog", self._slog_path())
             self._slog_f.write(json.dumps(
                 {"crc": crc64(rec.encode()), "rec": rec}) + "\n")
             self._slog_f.flush()
             os.fsync(self._slog_f.fileno())
-        except OSError:
+        except OSError as exc:
             # crash-safe unwind: truncate the line back so the slog
             # never carries a torn record (replay would reject it by
             # crc, but the NEXT append would land mid-line)
             self._unwind_slog(pre_off)
-            raise
+            raise wrap_disk_error(exc, "slog append") from exc
+        self._disk_fault("slog", self._slog_path())
 
     def log_sequence(self, name: str, state: dict | None):
         """Slog a sequence's definition and high-water mark (None: the
@@ -215,10 +254,10 @@ class StorageEngine:
             log.warning("slog unwind to offset %d failed", pre_off)
 
     def _flush_pending_locked(self):
-        """Re-persist segments whose earlier save failed: save is an
-        idempotent overwrite, so a seg whose file landed but whose slog
-        record didn't simply saves again.  Raises when the disk is
-        still failing."""
+        """Re-persist segments whose earlier save failed (disk
+        pressure): save is an idempotent overwrite, so a seg whose file
+        landed but whose slog record didn't simply saves again.  Raises
+        typed when the disk is still failing — the caller sheds."""
         while self._pending_segs:
             name, seg, op = self._pending_segs[0]
             self._save_segment(name, seg)
@@ -226,8 +265,8 @@ class StorageEngine:
             self._pending_segs.pop(0)
 
     def _persist_segs_locked(self, name: str, segs, make_op):
-        """Persist freshly minted in-memory segments; on a failure the
-        unsaved remainder parks in ``_pending_segs`` (the
+        """Persist freshly minted in-memory segments; on a typed disk
+        failure the unsaved remainder parks in ``_pending_segs`` (the
         next flush/compact/checkpoint re-attempts before anything else
         trusts the segment list)."""
         for i, (part, seg) in enumerate(segs):
@@ -241,6 +280,12 @@ class StorageEngine:
                     self._pending_segs.append(
                         (name, s2, make_op(p2, s2, j)))
                 raise
+
+    def _disk_fault(self, kind: str, path: str):
+        """Consult the disk-fault plane after a persistence write (no-op
+        unless a caller armed bitflip/truncate rules)."""
+        if self.faults is not None:
+            self.faults.act_disk(kind, path)
 
     def checkpoint(self):
         """Write an atomic manifest and truncate the slog
@@ -277,19 +322,24 @@ class StorageEngine:
             inner = json.dumps(m, sort_keys=True)
             tmp = self._manifest_path() + ".tmp"
             try:
+                if self.faults is not None:
+                    self.faults.check_write("manifest",
+                                            self._manifest_path())
                 with open(tmp, "w") as f:
                     json.dump({"crc": crc64(inner.encode()), "m": m}, f)
                     f.flush()
                     os.fsync(f.fileno())
                 os.replace(tmp, self._manifest_path())
-            except OSError:
+            except OSError as exc:
                 # the previous manifest generation is still intact (the
                 # tmp never published) — drop the partial tmp and raise
                 try:
                     os.remove(tmp)
                 except OSError:
                     pass
-                raise
+                # typed so the checkpoint caller sheds, not crashes
+                raise wrap_disk_error(exc, "manifest checkpoint") from exc
+            self._disk_fault("manifest", self._manifest_path())
             if self._slog_f:
                 self._slog_f.close()
                 self._slog_f = None
@@ -324,7 +374,8 @@ class StorageEngine:
                     part_idx = entry[2] if len(entry) > 2 else None
                     path = self._segment_file(name, seg_id)
                     if os.path.exists(path):
-                        self._load_segment(name, part_idx, path)
+                        self._load_or_quarantine(name, seg_id, part_idx,
+                                                 path)
                 ts.tdef.row_count = ts.tablet.row_count_estimate()
         # replay metadata ops logged after the checkpoint (each record
         # crc-verified; a torn FINAL line is a crash artifact and
@@ -334,10 +385,22 @@ class StorageEngine:
             for op in read_slog(self._slog_path()):
                 self._replay(op)
 
-    def _load_segment(self, table: str, part_idx, path: str):
-        """Boot-time segment load; raises CorruptionError on a checksum
-        failure."""
-        self.tables[table].tablet.add_segment(Segment.load(path), part_idx)
+    def _load_or_quarantine(self, table: str, seg_id: int, part_idx,
+                            path: str):
+        """Boot-time segment load honoring ``corrupt_policy``: a file
+        failing its checksum either fails the boot loudly or moves
+        aside so the scrub plane can repair it."""
+        ts = self.tables[table]
+        try:
+            ts.tablet.add_segment(Segment.load(path), part_idx)
+        except CorruptionError:
+            if self.corrupt_policy != "quarantine":
+                raise
+            qpath = quarantine_file(path)
+            with self._lock:  # reentrant: boot/replay callers hold it
+                self.quarantined.append(
+                    {"table": table, "segment_id": seg_id,
+                     "part": part_idx, "path": qpath})
 
     def _replay(self, op: dict):
         # boot-time today, but WAL catch-up may replay on a live engine;
@@ -387,14 +450,27 @@ class StorageEngine:
             if ts is not None:
                 path = self._segment_file(op["table"], op["segment_id"])
                 if os.path.exists(path):
-                    self._load_segment(op["table"], op.get("part"), path)
+                    self._load_or_quarantine(op["table"],
+                                             op["segment_id"],
+                                             op.get("part"), path)
         elif kind == "replace_segments":
             ts = self.tables.get(op["table"])
             if ts is not None:
                 ts.tablet.remove_segments(op["removed"])
                 path = self._segment_file(op["table"], op["segment_id"])
                 if os.path.exists(path):
-                    self._load_segment(op["table"], op.get("part"), path)
+                    self._load_or_quarantine(op["table"],
+                                             op["segment_id"],
+                                             op.get("part"), path)
+        elif kind == "repair_segments":
+            ts = self.tables.get(op["table"])
+            if ts is not None:
+                ts.tablet.remove_segments(op["removed"])
+                for sid, _level, part in op["installed"]:
+                    path = self._segment_file(op["table"], sid)
+                    if os.path.exists(path):
+                        self._load_or_quarantine(op["table"], sid, part,
+                                                 path)
         elif kind == "sequence":
             seqs = self.meta.setdefault("sequences", {})
             if op["state"] is None:
@@ -415,28 +491,34 @@ class StorageEngine:
                 except KeyError:
                     pass
         else:
-            # records of planes not ported yet (aux indexes, segment
-            # repair) name their ROADMAP item
+            # the vector/fulltext index records (aux_index,
+            # drop_aux_index) come with their plane
             raise NotImplementedError(
-                f"slog record {kind!r} waits for ROADMAP Queue 1 item 5b")
+                f"slog record {kind!r} waits for ROADMAP Queue 1 items "
+                "4 and 8")
 
     def _segment_file(self, table: str, seg_id: int) -> str:
         return os.path.join(self.root, "segments", f"{table}_{seg_id}.npz")
 
     def _save_segment(self, table: str, seg) -> str:
-        """Persist one segment (the one place segment bytes hit disk)."""
+        """Persist one segment + consult the disk-fault plane (the one
+        place segment bytes hit disk, so bitflip rules by kind cover
+        every flush/compaction/load path)."""
         path = self._segment_file(table, seg.segment_id)
         try:
+            if self.faults is not None:
+                self.faults.check_write("segment", path)
             seg.save(path)
-        except OSError:
+        except OSError as exc:
             # seg.save stages into path+".tmp" and publishes by rename:
             # on failure the current generation (if any) is untouched —
-            # clean the partial tmp
+            # clean the partial tmp and surface the typed plane error
             try:
                 os.remove(path + ".tmp")
             except OSError:
                 pass
-            raise
+            raise wrap_disk_error(exc, f"segment flush {table}") from exc
+        self._disk_fault("segment", path)
         return path
 
     # ------------------------------------------------------------------
@@ -886,6 +968,7 @@ class StorageEngine:
         return list(res)
 
     def freeze_and_flush(self, name: str, snapshot: int):
+        ERRSIM.hit("storage.flush")
         with self._lock:
             self._flush_pending_locked()
             ts = self.tables[name]
@@ -897,6 +980,14 @@ class StorageEngine:
                     lambda part, seg, _i: {
                         "op": "add_segment", "table": name,
                         "segment_id": seg.segment_id, "part": part})
+            tab = ts.tablet
+            remaining = sum(
+                len(t.active) + sum(len(f) for f in t.frozen)
+                for t in getattr(tab, "partitions", None) or [tab])
+        listener = self.flush_listener
+        if listener is not None:
+            # outside the engine lock: the throttle takes its own lock
+            listener(name, remaining)
         return segs[0][1] if segs else None
 
     def _compact(self, name: str, level_filter, method: str):
@@ -925,6 +1016,130 @@ class StorageEngine:
     def major_compact(self, name: str):
         return self._compact(name, lambda lv: True, "major_compact")
 
+    # ------------------------------------------------------------------
+    # scrub plane hooks (storage/scrub.py drives these; ≙ the medium
+    # checker re-reading macro blocks + replica checksum repair)
+    # ------------------------------------------------------------------
+    def scrub_verify_table(self, table: str) -> dict:
+        """Re-read every persisted segment of ``table`` FROM DISK and
+        verify it (the in-memory copy may be healthy while the disk
+        bytes rot — exactly the failure scrub exists to catch).  A
+        corrupt file is quarantined and recorded in ``quarantined``;
+        the in-memory segment keeps serving until repair swaps the set,
+        so no read ever sees a missing-row window.
+
+        Cost shape: the FIRST verification of a file decodes and
+        re-checks every chunk/footer crc, then caches the raw file's
+        crc64; later rounds re-read the bytes (rot detection demands
+        it) but only crc the raw stream — full coverage at raw-IO cost,
+        which is what makes a continuous scrub cadence affordable.
+        -> {"checked", "bytes", "corrupt": [segment_id, ...]}"""
+        with self._lock:
+            ts = self.tables.get(table)
+            if ts is None or self.root is None:
+                return {"checked": 0, "bytes": 0, "corrupt": []}
+            locs = [(s.segment_id, part)
+                    for s, part in ts.tablet.segment_locations()]
+        checked, nbytes, corrupt = 0, 0, []
+        for seg_id, part in locs:
+            path = self._segment_file(table, seg_id)
+            try:
+                with open(path, "rb") as f:
+                    raw = f.read()
+            except OSError:
+                continue  # never persisted / already quarantined
+            checked += 1
+            nbytes += len(raw)
+            raw_crc = crc64(raw)
+            with self._lock:
+                known = self._verified_files.get(path)
+            if known == raw_crc:
+                continue  # bytes unchanged since full verification
+            try:
+                Segment.load(path)  # verify=True re-checks every crc
+                with self._lock:
+                    self._verified_files[path] = raw_crc
+            except CorruptionError:
+                with self._lock:
+                    self._verified_files.pop(path, None)
+                    if not os.path.exists(path):
+                        continue  # repaired/quarantined concurrently
+                    qpath = quarantine_file(path)
+                    self.quarantined.append(
+                        {"table": table, "segment_id": seg_id,
+                         "part": part, "path": qpath})
+                corrupt.append(seg_id)
+        return {"checked": checked, "bytes": nbytes, "corrupt": corrupt}
+
+    def rewrite_segment_from_memory(self, table: str, seg_id: int) -> bool:
+        """Peer-less repair: if the in-memory copy of a quarantined
+        segment is still resident (boot loaded it before the disk bytes
+        rotted), re-persist it from the engine's host segment arrays.
+        The cluster path prefers a peer refetch (storage/scrub.py) —
+        this is the single-node fallback."""
+        with self._lock:
+            ts = self.tables.get(table)
+            if ts is None or self.root is None:
+                return False
+            for seg, _part in ts.tablet.segment_locations():
+                if seg.segment_id == seg_id:
+                    self._save_segment(table, seg)
+                    self.quarantined = [
+                        q for q in self.quarantined
+                        if not (q["table"] == table
+                                and q["segment_id"] == seg_id)]
+                    return True
+            return False
+
+    def repair_table_segments(self, table: str,
+                              installed: list[dict]) -> dict:
+        """Swap ``table``'s whole persisted+resident segment set for a
+        peer baseline already staged and VERIFIED on local disk
+        (storage/scrub.py downloads + checksums before calling).
+
+        ``installed``: [{"segment_id", "level", "part", "src"}] where
+        ``src`` is the staged file path.  Installed segments are
+        re-minted under FRESH local ids — peer ids live in the peer's
+        id space, and reusing them here could collide with local
+        history, breaking the segment-files-are-write-once invariant
+        incremental backups rely on.  Crash-safe order: files land
+        under their new names first, then ONE slog record publishes
+        the swap, then memory swaps and replaced files are deleted —
+        a crash between any two steps boots to either the old set
+        (fresh files orphaned) or the new set (replay applies the
+        record)."""
+        with self._lock:
+            ts = self.tables[table]
+            tab = ts.tablet
+            old_ids = [s.segment_id for s, _ in tab.segment_locations()]
+            segs = []
+            for ent in installed:
+                seg = Segment.load(ent["src"])
+                parts = getattr(tab, "partitions", None)
+                alloc = (parts[0] if parts else tab)._next_seg
+                seg.segment_id = next(alloc)
+                self._save_segment(table, seg)
+                os.remove(ent["src"])
+                segs.append((seg, ent.get("part")))
+            self._log_meta({
+                "op": "repair_segments", "table": table,
+                "removed": old_ids,
+                "installed": [[s.segment_id, s.level, p]
+                              for s, p in segs]})
+            tab.remove_segments(old_ids)
+            for s, p in segs:
+                tab.add_segment(s, p)
+            for sid in old_ids:
+                p = self._segment_file(table, sid)
+                if os.path.exists(p):
+                    os.remove(p)
+                self._verified_files.pop(p, None)
+            ts.tdef.row_count = tab.row_count_estimate()
+            self.quarantined = [q for q in self.quarantined
+                                if q["table"] != table]
+            return {"removed": len(old_ids), "installed": len(segs)}
+
+
 class StorageCatalog(Catalog):
     """Catalog backed by the storage engine: table_data() materializes a
     snapshot Relation from the tablet LSM on the catalog's device, with
@@ -946,11 +1161,63 @@ class StorageCatalog(Catalog):
         # surface engine-persisted tables in the catalog
         for name, ts in engine.tables.items():
             self._defs[name] = ts.tdef
+        self._load_externals()
+
+    # -- external tables persist with the engine root -------------------
+    def _externals_path(self):
+        return (os.path.join(self.engine.root, "externals.json")
+                if self.engine.root else None)
+
+    def _load_externals(self):
+        p = self._externals_path()
+        if not p or not os.path.exists(p):
+            return
+        with open(p) as f:
+            for name, e in json.load(f).items():
+                cols = [ColumnDef(n, SqlType(TypeKind(k), pr, sc), nl)
+                        for n, k, pr, sc, nl in e["columns"]]
+                self._externals[name] = {
+                    "tdef": TableDef(name, cols),
+                    "location": e["location"], "format": e["format"],
+                    "delimiter": e["delimiter"], "skip": e["skip"],
+                    "cache": None}
+
+    def _persist_externals(self):
+        p = self._externals_path()
+        if not p:
+            return
+        out = {}
+        with self._lock:
+            for name, e in self._externals.items():
+                out[name] = {
+                    "columns": [[c.name, c.dtype.kind.value,
+                                 c.dtype.precision, c.dtype.scale,
+                                 c.nullable]
+                                for c in e["tdef"].columns],
+                    "location": e["location"], "format": e["format"],
+                    "delimiter": e["delimiter"], "skip": e["skip"]}
+        tmp = p + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(out, f)
+            os.replace(tmp, p)
+        except OSError as exc:
+            # typed like every durable writer (the reference raises the
+            # bare OSError here; ROADMAP Queue 3 #21)
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise wrap_disk_error(exc, "externals.json") from exc
+
+    def register_external(self, tdef, location, **kw):
+        super().register_external(tdef, location, **kw)
+        self._persist_externals()
 
     # -- views persist in engine meta (slog + manifest) -------------------
     def create_view(self, name, sql, cols=None, or_replace=False):
         with self._lock:
-            if self.has_table(name):
+            if self.has_table(name) or name in self._externals:
                 raise ValueError(f"table {name} already exists")
             views = self.engine.meta.setdefault("views", {})
             if name in views and not or_replace:
@@ -980,7 +1247,7 @@ class StorageCatalog(Catalog):
             # check-then-act closure as Catalog.create_table)
             if self.view_def(tdef.name) is not None:
                 raise ValueError(f"view {tdef.name} already exists")
-            if tdef.name in self._defs:
+            if tdef.name in self._defs or tdef.name in self._externals:
                 if if_not_exists:
                     return
                 raise ValueError(f"table {tdef.name} already exists")
@@ -999,12 +1266,21 @@ class StorageCatalog(Catalog):
             self.invalidate(name)
             self.schema_version += 1
 
+    def drop_external(self, name: str) -> bool:
+        out = super().drop_external(name)
+        if out:
+            self._persist_externals()
+        return out
+
     # -- the engine is the source of truth for definitions ---------------
     def table_def(self, name: str):
         with self._lock:
             t = self._transients.get(name)
             if t is not None:
                 return t[0]
+            e = self._externals.get(name)
+            if e is not None:
+                return e["tdef"]
             ts = self.engine.tables.get(name)
             if ts is not None:
                 self._defs[name] = ts.tdef
@@ -1014,12 +1290,14 @@ class StorageCatalog(Catalog):
 
     def has_table(self, name: str) -> bool:
         with self._lock:
-            return name in self._transients or name in self.engine.tables
+            return name in self._transients or \
+                name in self._externals or name in self.engine.tables
 
     def tables(self) -> list[str]:
         with self._lock:
-            return sorted(n for n in self.engine.tables
-                          if not n.startswith("__idx__"))
+            return sorted([n for n in self.engine.tables
+                           if not n.startswith("__idx__")]
+                          + list(self._externals))
 
     def load_numpy(self, name, arrays, types=None, primary_key=None,
                    valids=None):
@@ -1089,6 +1367,8 @@ class StorageCatalog(Catalog):
             device=self.device))
 
     def table_data(self, name):
+        if name in self._externals:
+            return self._external_data(name)
         with self._lock:
             t = self._transients.get(name)
             if t is not None:
@@ -1129,6 +1409,8 @@ class StorageCatalog(Catalog):
     def table_data_at(self, name, snapshot: int, tx_id: int = 0):
         """Snapshot read at an explicit version (+ own-tx writes) — the
         read path active transactions use."""
+        if name in self._externals:
+            return self._external_data(name)
         t = self.transient(name)
         if t is not None:
             return t[1]  # virtual tables are snapshots of their own

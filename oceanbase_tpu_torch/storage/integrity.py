@@ -1,18 +1,28 @@
 """Data-integrity primitives: checksums at every persistence boundary.
 
-Port of the part of ``oceanbase_tpu/storage/integrity.py`` the storage
-and WAL planes use (≙ the per-micro-block checksums the blocksstable
-layer verifies on every read):
+Reference analog: the per-macro-block / per-micro-block checksums the
+blocksstable layer verifies on every read plus the per-replica column
+checksums compared at major freeze (src/storage/ob_sstable_struct.h
+ObSSTableColumnChecksum* — replica checksum verification), reduced to
+three primitives:
 
-- ``CorruptionError``: the one typed error every read path raises when
-  stored bytes fail their checksum; poisoned rows are never served.
-- ``chunk_crc``: the crc64 (the PALF log's polynomial) of one encoded
-  segment chunk, stored at save and re-checked at load.
-- ``prune_quarantine``: retention of the ``.corrupt`` files the WAL
-  recovery moves aside.
+- ``CorruptionError``: the ONE typed error every read path raises when
+  stored or shipped bytes fail their checksum — callers either repair
+  (scrub plane, DTL slice fallback) or fail loudly; poisoned rows are
+  never served.
+- byte digests (crc64, the PALF log's polynomial) for physical
+  artifacts: segment chunks/footers, manifests, slog records, rebuild
+  transfer chunks, DTL exchange payloads.
+- an order- and layout-independent **logical table digest** for
+  cross-replica comparison: replicas flush memtables on their own
+  schedules, so their segment FILES differ bit-for-bit while holding the
+  same rows — the scrub plane compares content, not files
+  (``storage/scrub.py``; ≙ replica checksum at major freeze).
 
-The logical table digest, the DTL payload digest and the scrub plane
-that uses them wait for ROADMAP Queue 1 item 5b.
+Port of ``oceanbase_tpu/storage/integrity.py``: the segment, manifest,
+slog and WAL checks, the quarantine retention, the workload snapshots'
+byte digest and the logical table digest.  The DTL reply digest
+(``arrays_crc``) comes with the exchange (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -70,6 +80,10 @@ class CorruptionError(RuntimeError):
 # ---------------------------------------------------------------------------
 
 
+def bytes_crc(data: bytes) -> int:
+    return crc64(bytes(data))
+
+
 def chunk_crc(payload: dict, valid, encoding: str, n: int) -> int:
     """Digest of one encoded column chunk (EncodedColumn wire state):
     the encoding tag, row count, every payload buffer in key order, and
@@ -88,3 +102,62 @@ def chunk_crc(payload: dict, valid, encoding: str, n: int) -> int:
         crc = crc64(np.ascontiguousarray(
             np.asarray(valid, dtype=bool)).tobytes(), seed=crc)
     return crc
+
+
+# ---------------------------------------------------------------------------
+# logical table digest (cross-replica scrub)
+# ---------------------------------------------------------------------------
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64 finalizer, vectorized over uint64 (the same mixer the
+    DTL slice hash uses — px/dtl.py — duplicated here so the storage
+    layer never imports the execution stack)."""
+    x = x.astype(np.uint64, copy=True)
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    return x
+
+
+def _col_hash(vals: np.ndarray) -> np.ndarray:
+    if vals.dtype.kind in "iub":
+        return _mix64(vals.astype(np.int64).astype(np.uint64))
+    if vals.dtype.kind == "f":
+        return _mix64(vals.astype(np.float64).view(np.uint64))
+    import zlib
+
+    return _mix64(np.fromiter(
+        (zlib.crc32(str(v).encode("utf-8", "surrogatepass"))
+         for v in vals), np.uint64, len(vals)))
+
+
+def table_digest(arrays: dict, valids: dict | None = None) -> dict:
+    """-> {"rows": n, "crc": int} — an ORDER-INDEPENDENT digest of a
+    table snapshot: per-row hashes (mixing column name + value + NULL
+    bit) XOR-reduced, so two replicas whose physically different
+    segment layouts enumerate the same rows in different orders agree
+    bit-for-bit.  NULL lanes hash by name only (their filler values are
+    replica-local noise and must not contribute)."""
+    n = len(next(iter(arrays.values()))) if arrays else 0
+    if n == 0:
+        return {"rows": 0, "crc": 0}
+    h = np.zeros(n, dtype=np.uint64)
+    for name in sorted(arrays):
+        a = np.asarray(arrays[name])
+        if a.ndim > 1:
+            ch = np.zeros(n, dtype=np.uint64)
+            for j in range(a.shape[1]):
+                ch = _mix64(ch ^ _col_hash(a[:, j]))
+        else:
+            ch = _col_hash(a)
+        name_h = np.uint64(crc64(name.encode()))
+        v = (valids or {}).get(name)
+        if v is not None:
+            ch = np.where(np.asarray(v, dtype=bool), ch, np.uint64(0))
+        h ^= _mix64(ch ^ name_h)
+    row_h = _mix64(h)
+    crc = int(np.bitwise_xor.reduce(row_h))
+    return {"rows": int(n), "crc": crc}

@@ -6,9 +6,11 @@ chunk-at-a-time so peak host memory stays at one chunk per open cursor
 (≙ the tmp-file layer backing sort/hash spill, src/storage/tmp_file).
 
 Accounting is byte-based per store; deletion is eager (``close_run`` /
-``clear``) with a directory sweep on close.  The reference's disk-budget
-(``DiskManager``) and fault-injection (``FaultPlane``) hooks belong to
-the disk-pressure plane and wait for ROADMAP Queue 1 item 5.
+``clear``) with a directory sweep on close.  A store may carry a spill
+budget (``DiskManager``'s spill surface: a chunk is admitted before it
+publishes, so a rejected one leaves no file) and a fault plane
+(``FaultPlane``: seeded ENOSPC/EIO on ``kind="spill"``); a failed write
+raises the disk manager's typed errors.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import threading
 from dataclasses import dataclass
 
 import numpy as np
+
+from oceanbase_tpu_torch.server.diskmgr import wrap_disk_error
 
 
 @dataclass
@@ -32,8 +36,18 @@ class _Run:
 class TempFileStore:
     """One spill directory; runs are subdirectories of chunk files."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, budget=None, faults=None,
+                 label: str = ""):
+        """``budget``: a server/diskmgr.DiskManager whose spill surface
+        accounts every chunk this store writes (admit on append,
+        release on run close) — exhaustion kills only the spilling
+        statement.  ``faults``: a net/faults.FaultPlane consulted
+        before each chunk write (seeded ENOSPC/EIO on kind="spill").
+        ``label`` names this store in gv$disk's per-statement rows."""
         self.root = root
+        self.budget = budget
+        self.faults = faults
+        self.label = label
         os.makedirs(root, exist_ok=True)
         self._lock = threading.Lock()
         self._next = 0
@@ -63,15 +77,28 @@ class TempFileStore:
                 payload[f"v/{k}"] = np.asarray(v)
         path = self._chunk_path(run_id, run.n_chunks)
         try:
+            if self.faults is not None:
+                self.faults.check_write("spill", path)
             with open(path + ".tmp", "wb") as f:
                 np.savez_compressed(f, **payload)
-        except OSError:
+        except OSError as exc:
             try:
                 os.remove(path + ".tmp")
             except OSError:
                 pass
-            raise
+            raise wrap_disk_error(exc, "spill chunk write") from exc
         sz = os.path.getsize(path + ".tmp")
+        if self.budget is not None:
+            # admit BEFORE publishing: a rejected chunk leaves no file
+            # behind and kills only this statement (SpillBudgetExceeded)
+            try:
+                self.budget.admit_spill(sz, store=self, label=self.label)
+            except Exception:
+                try:
+                    os.remove(path + ".tmp")
+                except OSError:
+                    pass
+                raise
         os.replace(path + ".tmp", path)
         with self._lock:
             run.n_chunks += 1
@@ -107,10 +134,15 @@ class TempFileStore:
         run = self._runs.pop(run_id, None)
         if run is not None:
             shutil.rmtree(self._chunk_dir(run_id), ignore_errors=True)
+            if self.budget is not None:
+                self.budget.release_spill(store=self, nbytes=run.nbytes)
 
     def clear(self):
         for rid in list(self._runs):
             self.close_run(rid)
+        if self.budget is not None:
+            # sweep accounting residue (partial runs, failed appends)
+            self.budget.release_spill(store=self)
 
     def total_bytes(self) -> int:
         with self._lock:

@@ -2,10 +2,9 @@
 
 Port of ``oceanbase_tpu/tx/service.py``, with the XA methods,
 ``restore_prepared`` and the table-lock hooks (the implicit IX lock in
-``write``, the release at transaction end).  Left out: the
-memstore-throttle and disk-manager hooks of ``write`` (ROADMAP Queue 1
-item 5b, sub-item 10) and the ERRSIM fault point of ``commit``
-(sub-item 11).  The WAL takes plain JSON: ``_jsonable`` turns numpy
+``write``, the release at transaction end), the memstore-throttle and
+disk-manager gates of ``write`` and the ERRSIM point of ``commit``.  The
+WAL takes plain JSON: ``_jsonable`` turns numpy
 scalars into Python values and refuses a torch tensor, which the
 session must read back before it writes.
 
@@ -35,6 +34,7 @@ import threading
 from dataclasses import dataclass, field
 from enum import Enum
 
+from oceanbase_tpu_torch.server.errsim import ERRSIM
 from oceanbase_tpu_torch.storage.indexes import (
     IndexKeyLocks,
     maintain_indexes,
@@ -121,6 +121,16 @@ class TransService:
         self.index_locks = IndexKeyLocks()
         self.lock_table = None    # tx/tablelock.LockTable when attached
         self.lock_wait_timeout_s = 5.0
+        # memstore write backpressure (server/admission.py::
+        # MemstoreThrottle, wired by the tenant): write() is the one
+        # choke point every writer crosses — session DML, PDML workers,
+        # OBKV — so accounting and the ramp/hard-limit gate live here;
+        # None disables (bare unit use, WAL replay writes bypass write())
+        self.throttle = None
+        # disk-pressure plane (server/diskmgr.DiskManager, wired by the
+        # tenant): the same choke point fails writes fast with typed
+        # TenantReadOnly while a disk budget is exhausted; None disables
+        self.diskmgr = None
         self._next_tx_id = 0
         self._live: dict[int, Transaction] = {}
         self._lock = threading.RLock()
@@ -182,6 +192,16 @@ class TransService:
               op: str, values: dict):
         if tx.state != TxState.ACTIVE:
             raise TxAborted(f"tx {tx.tx_id} is {tx.state.value}")
+        if self.diskmgr is not None and not table.startswith("__idx__"):
+            # read-only degradation gate: fails fast (typed
+            # TenantReadOnly) while a disk budget is exhausted — reads
+            # never cross this point, so they keep serving
+            self.diskmgr.admit_write()
+        if self.throttle is not None and not table.startswith("__idx__"):
+            # BEFORE the append: ramped sleep past the trigger, typed
+            # MemstoreFull at the hard limit (index maintenance rides
+            # its base write's admission — accounting would double)
+            self.throttle.admit_write(table, values)
         if self.lock_table is not None:
             # implicit intent-exclusive table lock: honors LOCK TABLES
             # READ/WRITE held by other transactions (released at tx end)
@@ -228,6 +248,7 @@ class TransService:
     # ------------------------------------------------------------------
     def commit(self, tx: Transaction) -> int:
         """One-phase fast path or full 2PC; returns the commit version."""
+        ERRSIM.hit("tx.commit")
         with self._lock:
             if tx.state != TxState.ACTIVE:
                 raise TxAborted(f"tx {tx.tx_id} is {tx.state.value}")

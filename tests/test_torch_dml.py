@@ -294,9 +294,21 @@ _NEEDS_A_DATABASE = {
 def test_storage_plane_statements_raise(sql):
     """A catalog-only session refuses what the port's ``Database`` runs
     (naming it) and what still waits for the storage plane's second
-    half (naming ROADMAP Queue 1 item 5b and its sub-item)."""
+    half (naming ROADMAP Queue 1 item 5b and its sub-item).  CREATE
+    EXTERNAL TABLE needs no Database: it registers in the catalog, as
+    the reference's catalog session does, and its file is read at query
+    time."""
     ts = TSession(device="cpu")
     ts.execute("create table t (a int)")
+    if sql.startswith("create external"):
+        js = JSession()
+        js.execute("create table t (a int)")
+        for s in (js, ts):
+            s.execute(sql)
+            assert s.catalog.tables() == ["e", "t"]
+            with pytest.raises(FileNotFoundError):
+                s.execute("select * from e")
+        return
     match = ("needs a Database" if sql in _NEEDS_A_DATABASE
              else "ROADMAP Queue 1 item 5b")
     with pytest.raises(NotImplementedError, match=match):
@@ -323,11 +335,20 @@ def test_catalog_only_session_procedures_and_processlist():
     "show workload report", "ANALYZE WORKLOAD REPORT FROM 3 TO 4",
     "profile analyze workload report"])
 def test_measurement_plane_statements_raise(sql):
-    """The measurement plane's workload repository is the part still
-    unported: its statements name the sub-item that holds it."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 5b, sub-item 15"):
-        TSession(device="cpu").execute(sql)
+    """The workload repository lives on a Database: a catalog-only
+    session refuses ANALYZE WORKLOAD REPORT naming that, and SHOW
+    WORKLOAD REPORT has no report to show, as the reference's catalog
+    session does.  (The spellings run against a Database in
+    tests/test_torch_workload.py.)"""
+    got = _outcome(TSession(device="cpu"), sql)
+    assert got == _outcome(JSession(), sql)
+    if "analyze" in sql.lower():
+        assert got == ("error", "NotImplementedError")
+        with pytest.raises(NotImplementedError,
+                           match="ANALYZE WORKLOAD REPORT needs a Database"):
+            TSession(device="cpu").execute(sql)
+    else:
+        assert got == ("ok", 0, ["report"], [])
 
 
 # ---------------------------------------------------------------------------

@@ -111,10 +111,27 @@ def test_tmpfile_roundtrip_matches_jax(tmp_path):
 
 
 def test_tmpfile_has_no_disk_plane_hooks(tmp_path):
-    """The disk-budget and fault hooks wait for the storage plane: the
-    store does not accept them."""
-    with pytest.raises(TypeError):
-        TempFileStore(str(tmp_path / "s"), budget=object())
+    """The disk-budget and fault hooks came with the durability plane:
+    without them (the default) the store writes and accounts nothing
+    beyond its own runs; with a budget, a chunk past it is refused
+    before it publishes (tests/test_torch_diskmgr.py holds the hooks
+    against the reference)."""
+    from oceanbase_tpu_torch.server.diskmgr import (
+        DiskManager,
+        SpillBudgetExceeded,
+    )
+
+    with TempFileStore(str(tmp_path / "s")) as store:
+        assert store.budget is None and store.faults is None
+        rid = store.new_run()
+        store.append_chunk(rid, {"x": np.arange(8)})
+        assert store.total_bytes() > 0
+    dm = DiskManager({"spill_disk_limit_bytes": 1}, paths={})
+    with TempFileStore(str(tmp_path / "b"), budget=dm) as store:
+        rid = store.new_run()
+        with pytest.raises(SpillBudgetExceeded):
+            store.append_chunk(rid, {"x": np.arange(8)})
+        assert store.run(rid).n_chunks == 0 and dm.usage("spill") == 0
 
 
 def test_mix64_np_matches_torch_mix64():
