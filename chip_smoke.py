@@ -99,11 +99,23 @@ Phases, each printing its own lines:
    of one ``execute_plan`` of Q1, Q6 and Q14 with the plane on and off
    (equal); the plane's overhead on the 11 in-memory queries (5
    interleaved pairs); ``q6_filter_sum`` under the profiler;
+8f. vector (after durability; a ``Database`` of its own): 1,000,000
+   VECTOR(128) rows (ANN-Benchmarks' SIFT1M size; synthetic,
+   integer-valued and clustered, from a seed, so float32 holds every
+   distance exactly) direct-loaded by ``catalog.load_numpy``; 100
+   top-10 ``l2_distance`` queries with no index, through an exact vector
+   index (its scan's monitor rows at the 64 candidates) and through an
+   IVF-Flat index (recall@10 gated at 0.99), each answer against numpy,
+   and one query of each path under PROFILE;
+   20 cosine queries and the inner products; 1,000 rows inserted by
+   50-row INSERTs and 10 deleted; a dropped and re-created side table; a
+   fulltext index over the part comments against a host oracle; a
+   reopen without ``close()``; and VECTOR cells over the wire;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
-   and printed after it: the stream, spill, SQL, server and measure
-   paths, like the JAX package's, reach no hand-written kernel but
-   measure's one profiled launch), and each phase's seconds;
+   and printed after it: the stream, spill, SQL, server, durability and
+   vector paths, like the JAX package's, reach no hand-written kernel,
+   and measure makes one profiled launch), and each phase's seconds;
 10. the card's name and power limit, then the result line.
 
 Any mismatch or error exits nonzero before the result line.  Without a
@@ -2884,6 +2896,443 @@ def phase_durability(torch, dev, tables, types, card, want, served, db,
                                               for k, v in steps.items()))
 
 
+# -- phase vector: VECTOR columns and the ANN access path at SIFT1M size --
+
+VECTOR_ROWS = 1_000_000          # ANN-Benchmarks sift-128-euclidean
+VECTOR_DIM = 128
+VECTOR_CENTRES = 1_000           # the synthetic data's clusters
+VECTOR_SPREAD = 12.0             # per-coordinate noise around a centre
+VECTOR_QUERIES = 100             # of SIFT1M's 10,000 (cut for time)
+VECTOR_K = 10
+VECTOR_COSINE_QUERIES = 20
+VECTOR_INSERTS = 1_000
+VECTOR_INSERT_STMT_ROWS = 50
+VECTOR_DELETES = 10
+#: the JAX package's IvfFlatIndex reads recall@10 1.0 on this generator
+#: (100,000 rows on the CPU); its clusters sit far apart, so the gate
+#: catches a lost bucket, not IVF's approximation
+VECTOR_RECALL_GATE = 0.99
+VECTOR_SEED = 20240601
+FULLTEXT_TERMS = ("furiously regular", "carefully ironic packages")
+
+
+def sift_like(rng, n, d, centres):
+    """Integer-valued vectors in [0, 255] around ``centres`` random
+    centres, as float32: every squared distance and dot product of two
+    of them is an integer below 2^24, which float32 holds exactly."""
+    out = np.empty((n, d), dtype=np.float32)
+    step = 1 << 18
+    for lo in range(0, n, step):
+        m = min(step, n - lo)
+        x = centres[rng.integers(0, len(centres), m)]
+        x += rng.standard_normal((m, d), dtype=np.float32) * VECTOR_SPREAD
+        np.clip(np.rint(x, out=x), 0, 255, out=out[lo:lo + m])
+    return out
+
+
+def _vtext(v) -> str:
+    return "[" + ",".join(str(int(x)) for x in v) + "]"
+
+
+def _sq_dists(base, q):
+    """Exact squared l2 distances [len(q), n] (float64 of integers)."""
+    b = base.astype(np.float64)
+    qq = np.asarray(q, dtype=np.float64)
+    return ((qq * qq).sum(1)[:, None] - 2.0 * (qq @ b.T)
+            + (b * b).sum(1)[None, :])
+
+
+def _check_topk(rows, base, ids_live, q, d2_row, tag, exact=True):
+    """An ORDER BY l2_distance LIMIT k answer against the oracle: each
+    returned id's own distance right, ascending, and (``exact``) the k
+    distances the oracle's k smallest, as a multiset.  -> the oracle's
+    k-th distance."""
+    ids = np.array([r[0] for r in rows], dtype=np.int64)
+    got = np.array([r[1] for r in rows], dtype=np.float64)
+    if len(rows) != VECTOR_K:
+        raise AssertionError(f"{tag}: {len(rows)} rows, want {VECTOR_K}")
+    pos = np.searchsorted(ids_live, ids)
+    if (pos >= len(ids_live)).any() or (ids_live[np.minimum(
+            pos, len(ids_live) - 1)] != ids).any():
+        raise AssertionError(f"{tag}: ids {ids} not all live")
+    own = np.sqrt(np.maximum(_sq_dists(base[pos], q[None, :])[0], 0.0))
+    if not np.array_equal(own, got):
+        raise AssertionError(f"{tag}: distances {got} != own {own}")
+    if (np.diff(got) < 0).any():
+        raise AssertionError(f"{tag}: distances not ascending {got}")
+    want = np.sqrt(np.sort(np.partition(d2_row, VECTOR_K)[:VECTOR_K]))
+    if exact and not np.array_equal(got, want):
+        raise AssertionError(f"{tag}: {got} != oracle {want}")
+    return want[-1]
+
+
+def phase_vector(torch, dev, tables, card):
+    """Phase vector: VECTOR(128) columns, the distance functions, the
+    exact and IVF-Flat vector indexes behind ORDER BY <distance> LIMIT k,
+    and a fulltext index, through a ``Database`` on the card at the size
+    of ANN-Benchmarks' SIFT1M (1,000,000 x 128, k = 10; synthetic,
+    integer-valued, clustered data from a seed; 100 of its 10,000
+    queries), each answer held against numpy."""
+    import gc
+    import re
+    import shutil
+    import tempfile
+
+    from oceanbase_tpu_torch.datatypes import SqlType
+    from oceanbase_tpu_torch.server.database import Database
+    from oceanbase_tpu_torch.server.mysql_protocol import MySQLServer
+    from oceanbase_tpu_torch.share.vector_index import IvfFlatIndex
+
+    rng = np.random.default_rng(VECTOR_SEED)
+    t0 = time.perf_counter()
+    centres = rng.integers(0, 256, (VECTOR_CENTRES, VECTOR_DIM)).astype(
+        np.float32)
+    base = sift_like(rng, VECTOR_ROWS, VECTOR_DIM, centres)
+    queries = sift_like(rng, VECTOR_QUERIES, VECTOR_DIM, centres)
+    d2 = _sq_dists(base, queries)
+    gen_s = time.perf_counter() - t0
+    ids_live = np.arange(VECTOR_ROWS, dtype=np.int64)
+    print(f"[vector] {VECTOR_ROWS} x {VECTOR_DIM} vectors around "
+          f"{VECTOR_CENTRES} centres and {VECTOR_QUERIES} queries made, "
+          f"numpy oracle {gen_s:.3f} s")
+    root = tempfile.mkdtemp(prefix="ob_vector_")
+    qsql = ("select id, l2_distance(emb, '{}') as d from items "
+            "order by d limit {}")
+
+    def timed(sess, sql):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows = sess.execute(sql).rows()
+        torch.cuda.synchronize()
+        return rows, (time.perf_counter() - t1) * 1e3
+
+    def run_queries(sess, tag, path, exact=True):
+        """Query 0 (warm-up, printed alone), then all VECTOR_QUERIES
+        timed; every answer checked -> (p50, p99, recall@k, first ms)."""
+        ms, hits, first_ms = [], 0, None
+        for i in [0] + list(range(VECTOR_QUERIES)):
+            rows, t = timed(sess, qsql.format(_vtext(queries[i]), VECTOR_K))
+            if sess.last_ann_path != path:
+                raise AssertionError(f"{tag}: query {i} took path "
+                                     f"{sess.last_ann_path}, want {path}")
+            kth = _check_topk(rows, base, ids_live, queries[i], d2[i],
+                              f"{tag} query {i}", exact)
+            if first_ms is None:
+                first_ms = t
+                continue
+            ms.append(t)
+            # recall@k as ANN-Benchmarks counts it: a returned row whose
+            # distance is within the oracle's k-th distance is a hit
+            got = np.array([r[1] for r in rows])
+            hits += int((got <= kth + 1e-3).sum())
+        return (_pct(ms, 50), _pct(ms, 99),
+                hits / (VECTOR_K * VECTOR_QUERIES), first_ms)
+
+    def profile_one(sess, tag, path):
+        """Query 0 (already run, so its plan is cached) once unprofiled
+        and once under PROFILE: the kernels' and copies' device time
+        against the unprofiled wall, and the three longest kernels."""
+        sql = qsql.format(_vtext(queries[0]), VECTOR_K)
+        _r, wall = timed(sess, sql)
+        out = sess.execute("profile " + sql)
+        if sess.last_ann_path != path:
+            raise AssertionError(f"PROFILE {tag}: path {sess.last_ann_path}")
+        _check_topk(out.rows(), base, ids_live, queries[0], d2[0],
+                    f"PROFILE {tag}", path != "ivf")
+        prof = db.device_profiles.get(sess._last_profile_trace_id)
+        rows = [r for r in (prof.rows if prof is not None else [])
+                if r["kind"] == "kernel"]
+        copy = ("Memcpy", "Memset")
+        kern = sum(r["total_s"] for r in rows
+                   if not r["kernel"].startswith(copy)) * 1e3
+        copies = sum(r["total_s"] for r in rows
+                     if r["kernel"].startswith(copy)) * 1e3
+        if dev.type == "cuda" and kern <= 0.0:
+            raise AssertionError(f"PROFILE {tag}: no kernel rows "
+                                 f"({prof.note if prof else 'no capture'})")
+        top = sorted((r for r in rows if not r["kernel"].startswith(copy)),
+                     key=lambda r: -r["total_s"])[:3]
+        print(f"[vector] PROFILE {tag}: kernels {kern:.3f} ms + copies "
+              f"{copies:.3f} ms of a {wall:.3f} ms unprofiled wall, idle "
+              f"share {1.0 - (kern + copies) / wall:.4f}; longest: " +
+              "; ".join(f"{r['kernel'][:60]} x{r['occurrences']} "
+                        f"{r['total_s'] * 1e3:.3f} ms" for r in top) +
+              f"; {card}", flush=True)
+
+    try:
+        db = Database(root, device=dev)
+        sess = db.session()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db.catalog.load_numpy(
+            "items", {"id": ids_live, "emb": base}, primary_key=["id"],
+            types={"emb": SqlType.vector(VECTOR_DIM)})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        on_disk = _dir_bytes(root)
+        td = db.catalog.table_def("items")
+        if [(c.name, c.dtype.kind.value, c.dtype.precision)
+                for c in td.columns] != [("id", "int", 0),
+                                         ("emb", "vector", VECTOR_DIM)]:
+            raise AssertionError(f"items' columns: {td.columns}")
+        print(f"[vector] step 1 load: items (id int primary key, emb "
+              f"vector({VECTOR_DIM})) through catalog.load_numpy "
+              f"{load_s:.3f} s, {base.nbytes / load_s / 1e6:.1f} MB/s of "
+              f"vectors, {on_disk} bytes on disk; {card}", flush=True)
+
+        # -- step 2: no index, the full sort ---------------------------
+        p50, p99, _r, first = run_queries(sess, "no index", None)
+        rel = db.catalog.table_data("items")
+        print(f"[vector] step 2 no index: {VECTOR_QUERIES} top-{VECTOR_K} "
+              f"queries equal numpy; first {first:.3f} ms (the table onto "
+              f"the card, {rel.capacity} lanes, "
+              f"{db.catalog.device_bytes()} B cached), p50 {p50:.3f} ms, "
+              f"p99 {p99:.3f} ms; {card}", flush=True)
+        full_p50 = p50
+        profile_one(sess, "no index", None)
+
+        # -- step 3: an exact vector index -----------------------------
+        sess.execute("create vector index iv on items (emb) "
+                     "with (metric = 'l2')")
+        p50, p99, _r, first = run_queries(sess, "exact index", "exact")
+        print(f"[vector] step 3 exact index iv: {VECTOR_QUERIES} queries "
+              f"equal numpy; first {first:.3f} ms, p50 {p50:.3f} ms, p99 "
+              f"{p99:.3f} ms (no index p50 {full_p50:.3f} ms); {card}")
+        profile_one(sess, "exact index", "exact")
+        fetch = max(4 * VECTOR_K, 64)
+        # a query text not run before, so the monitor samples it
+        sql = qsql.format(_vtext(queries[1][::-1]), VECTOR_K)
+        prev = db.plan_monitor.recent(1)
+        sess.execute(sql)
+        rec = db.plan_monitor.recent(1)[-1]
+        if prev and rec is prev[-1]:
+            raise AssertionError("the plan monitor skipped the query")
+        scans = [x["rows"] for x in rec.op_stats if x["op"] == "TableScan"]
+        text = sess.execute("explain analyze " + sql).plan_text
+        scan_line = next(ln for ln in text.splitlines() if "TableScan" in ln)
+        if scans != [fetch] or f"act={fetch}" not in scan_line:
+            raise AssertionError(f"ANN scan rows {scans}, EXPLAIN ANALYZE "
+                                 f"{scan_line!r}; want {fetch}")
+        print(f"[vector] step 3 plan monitor: the scan reads {scans[0]} "
+              f"rows (max(4k, 64)), not {VECTOR_ROWS}; EXPLAIN ANALYZE "
+              f"{scan_line.strip()}")
+
+        # -- step 4: IVF-Flat ------------------------------------------
+        sess.execute("drop index iv on items")
+        sess.execute("create vector index ia on items (emb) "
+                     "with (metric = 'l2', approximate = true)")
+        p50, p99, recall, first = run_queries(sess, "ivf", "ivf",
+                                              exact=False)
+        ivf = db.catalog.sidecar("items", ("ann", "emb", "l2"),
+                                 db.catalog.table_data("items"))
+        if not isinstance(ivf, IvfFlatIndex):
+            raise AssertionError(f"ia's structure is {type(ivf)}")
+        print(f"[vector] step 4 approximate index ia: first query "
+              f"{first:.3f} ms (k-means, 10 iterations, c = "
+              f"{ivf.n_clusters}, built in it), bucket capacity {ivf.cap}; "
+              f"p50 {p50:.3f} ms, p99 {p99:.3f} ms, recall@{VECTOR_K} "
+              f"{recall:.4f} (gate {VECTOR_RECALL_GATE}); {card}",
+              flush=True)
+        if recall < VECTOR_RECALL_GATE:
+            raise AssertionError(f"IVF recall {recall} under the gate")
+        del ivf
+        profile_one(sess, "ivf index", "ivf")
+
+        # -- step 5: cosine, inner products ----------------------------
+        sess.execute("create vector index ic on items (emb) "
+                     "with (metric = 'cosine')")
+        bn = np.linalg.norm(base.astype(np.float64), axis=1)
+        cos_ms = []
+        for i in range(VECTOR_COSINE_QUERIES):
+            q = queries[i].astype(np.float64)
+            rows, t = timed(sess, "select id, cosine_distance(emb, '{}') as "
+                            "d from items order by d limit {}".format(
+                                _vtext(queries[i]), VECTOR_K))
+            if sess.last_ann_path != "exact":
+                raise AssertionError(f"cosine query {i}: path "
+                                     f"{sess.last_ann_path}")
+            cd = 1.0 - (base.astype(np.float64) @ q) / (bn * np.linalg.norm(q))
+            ids = np.array([r[0] for r in rows])
+            got = np.array([r[1] for r in rows])
+            want = np.sort(np.partition(cd, VECTOR_K)[:VECTOR_K])
+            if not (np.allclose(got, cd[ids], rtol=0, atol=1e-6)
+                    and np.allclose(got, want, rtol=0, atol=1e-6)):
+                raise AssertionError(f"cosine query {i}: {got} vs {want}")
+            cos_ms.append(t)
+        q = queries[0]
+        rows = sess.execute(
+            "select id, inner_product(emb, '{0}'), negative_inner_product("
+            "emb, '{0}') from items where id < 5 order by id".format(
+                _vtext(q))).rows()
+        ip = base[:5].astype(np.int64) @ q.astype(np.int64)
+        if rows != [(i, float(ip[i]), float(-ip[i])) for i in range(5)]:
+            raise AssertionError(f"inner products {rows} vs {ip}")
+        print(f"[vector] step 5 cosine index ic: {VECTOR_COSINE_QUERIES} "
+              f"queries equal numpy at 1e-6, p50 {_pct(cos_ms, 50):.3f} ms;"
+              f" inner_product and negative_inner_product of ids 0-4 "
+              f"exact; {card}")
+
+        # -- step 6: writes --------------------------------------------
+        new = sift_like(rng, VECTOR_INSERTS, VECTOR_DIM, centres)
+        new_ids = np.arange(VECTOR_ROWS, VECTOR_ROWS + VECTOR_INSERTS)
+        ins_ms = []
+        for lo in range(0, VECTOR_INSERTS, VECTOR_INSERT_STMT_ROWS):
+            vals = ", ".join(f"({new_ids[j]}, '{_vtext(new[j])}')"
+                             for j in range(lo, lo + VECTOR_INSERT_STMT_ROWS))
+            _r, t = timed(sess, f"insert into items values {vals}")
+            ins_ms.append(t)
+        j = 417
+        rows, t = timed(sess, qsql.format(_vtext(new[j]), VECTOR_K))
+        if rows[0][0] != new_ids[j] or rows[0][1] != 0.0:
+            raise AssertionError(f"query of new row {new_ids[j]}: {rows[:2]}")
+        print(f"[vector] step 6 {VECTOR_INSERTS} rows in "
+              f"{len(ins_ms)} INSERTs of {VECTOR_INSERT_STMT_ROWS}: p50 "
+              f"{_pct(ins_ms, 50):.3f} ms per statement; the query of new "
+              f"row {new_ids[j]} returns it first, path "
+              f"{sess.last_ann_path}, {t:.3f} ms (table and IVF rebuilt on "
+              f"the new data version)")
+        gone = np.arange(VECTOR_DELETES) + VECTOR_ROWS // 2
+        n_del = sess.execute(f"delete from items where id >= {gone[0]} and "
+                             f"id <= {gone[-1]}").rowcount
+        if n_del != VECTOR_DELETES:
+            raise AssertionError(f"deleted {n_del} rows")
+        keep = np.ones(VECTOR_ROWS, dtype=bool)
+        keep[gone] = False
+        base = np.concatenate([base[keep], new])
+        ids_live = np.concatenate([ids_live[keep], new_ids])
+        probe = base[np.searchsorted(ids_live, gone[0] - 1)]
+        for tag, sql, exact in (
+                ("after the delete (ANN)", qsql.format(
+                    _vtext(probe), VECTOR_K), False),
+                ("after the delete (filtered, full sort)",
+                 "select id, l2_distance(emb, '{}') as d from items where "
+                 "id >= 0 order by d limit {}".format(_vtext(probe),
+                                                     VECTOR_K), True)):
+            rows, t = timed(sess, sql)
+            path = sess.last_ann_path
+            _check_topk(rows, base, ids_live, probe,
+                        _sq_dists(base, probe[None, :])[0], tag, exact)
+            print(f"[vector] step 6 delete of ids {gone[0]}-{gone[-1]}: "
+                  f"query {tag} right, path {path}, {t:.3f} ms")
+
+        # -- step 7: DROP and CREATE -----------------------------------
+        side_rng = np.random.default_rng(VECTOR_SEED + 7)
+        qv = np.array([0.5, -0.5, 0.25, 1.0], np.float32)
+        for rnd in range(2):
+            side = side_rng.normal(size=(200, 4)).astype(np.float32)
+            sess.execute("create table side (id int primary key, "
+                         "e vector(4))")
+            sess.execute("insert into side values " + ", ".join(
+                f"({i}, '[{', '.join(repr(float(x)) for x in v)}]')"
+                for i, v in enumerate(side)))
+            sess.execute("create vector index sv on side (e) "
+                         "with (metric = 'l2')")
+            got = [r[0] for r in sess.execute(
+                "select id, l2_distance(e, '[0.5, -0.5, 0.25, 1.0]') as d "
+                "from side order by d limit 5").rows()]
+            want = np.argsort(np.linalg.norm(side - qv, axis=1),
+                              kind="stable")[:5].tolist()
+            if got != want or sess.last_ann_path != "exact":
+                raise AssertionError(f"side table round {rnd}: {got} vs "
+                                     f"{want} ({sess.last_ann_path})")
+            sess.execute("drop table side")
+        print("[vector] step 7 DROP and CREATE of a 200-row side table "
+              "with a vector index: both rounds equal numpy")
+
+        # -- step 8: fulltext ------------------------------------------
+        part = tables["part"]
+        sess.catalog.load_numpy(
+            "docs", {"p_partkey": part["p_partkey"],
+                     "p_comment": part["p_comment"]},
+            primary_key=["p_partkey"])
+        sess.execute("create fulltext index ft on docs (p_comment)")
+        toks = [set(re.split(r"\W+", str(c).lower()))
+                for c in part["p_comment"]]
+        for terms in FULLTEXT_TERMS:
+            qt = [t for t in re.split(r"\W+", terms.lower()) if t]
+            score = np.array([sum(t in tk for t in qt) for tk in toks],
+                             dtype=np.float64)
+            order = np.lexsort((part["p_partkey"], -score))
+            order = order[score[order] > 0][:20]
+            want = [(int(part["p_partkey"][i]), float(score[i]))
+                    for i in order]
+            m = f"match(p_comment) against('{terms}')"
+            rows, t = timed(sess, f"select p_partkey, {m} as s from docs "
+                            f"where {m} > 0 order by s desc, p_partkey "
+                            "limit 20")
+            cnt = sess.execute(f"select count(*) from docs where {m} > 0"
+                               ).rows()
+            if rows != want or cnt != [(int((score > 0).sum()),)]:
+                raise AssertionError(f"fulltext {terms!r}: {rows[:3]} "
+                                     f"{cnt} vs {want[:3]}")
+            print(f"[vector] step 8 fulltext {terms!r} over "
+                  f"{len(toks)} part comments: top 20 and count "
+                  f"{cnt[0][0]} equal the host oracle, {t:.3f} ms")
+
+        # -- step 9: reopen without close() -----------------------------
+        cos_sql = ("select id, cosine_distance(emb, '{}') as d from items "
+                   "order by d limit {}")
+        before = {i: [r[0] for r in sess.execute(cos_sql.format(
+            _vtext(queries[i]), VECTOR_K)).rows()] for i in (0, 1)}
+        del sess, db, rel
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        db = Database(root, device=dev)
+        reopen_s = time.perf_counter() - t0
+        sess = db.session()
+        shown = {r[0] for t_ in ("items", "docs")
+                 for r in sess.execute(f"show index from {t_}").rows()}
+        if not {"ia", "ic", "ft"} <= shown or "iv" in shown:
+            raise AssertionError(f"SHOW INDEX after the reopen: {shown}")
+        back = sess.execute(
+            f"select id, emb from items where id >= {VECTOR_ROWS} "
+            "order by id").rows()
+        if len(back) != VECTOR_INSERTS or any(
+                not np.array_equal(np.asarray(v, np.float32), new[k])
+                for k, (_i, v) in enumerate(back)):
+            raise AssertionError("the inserted rows did not come back")
+        rows, t = timed(sess, qsql.format(_vtext(queries[3]), VECTOR_K))
+        if sess.last_ann_path != "ivf":
+            raise AssertionError(f"reopened: path {sess.last_ann_path}")
+        _check_topk(rows, base, ids_live, queries[3],
+                    _sq_dists(base, queries[3][None, :])[0],
+                    "reopened ivf", exact=False)
+        for i, ids in before.items():
+            got = [r[0] for r in sess.execute(cos_sql.format(
+                _vtext(queries[i]), VECTOR_K)).rows()]
+            if got != ids or sess.last_ann_path != "exact":
+                raise AssertionError(f"reopened cosine {i}: {got} vs {ids}")
+        print(f"[vector] step 9 reopen {reopen_s:.3f} s ("
+              f"{db.tenant().replayed_entries} WAL entries): SHOW INDEX "
+              f"lists ia, ic, ft; the {VECTOR_INSERTS} inserted rows are "
+              f"back; ia rebuilt ({t:.3f} ms, IVF) and ic answer as "
+              f"before; {card}", flush=True)
+
+        # -- step 10: the wire -----------------------------------------
+        srv = MySQLServer(db, host="127.0.0.1", port=0).start()
+        try:
+            c = WireClient(srv.host, srv.port)
+            _cols, wrows = c.query("select id, emb from items where id < 3 "
+                                   "order by id")
+            c.close()
+        finally:
+            srv.stop()
+        for i, (wid, cell) in enumerate(wrows):
+            vals = np.array([float(x) for x in cell[1:-1].split(",")],
+                            dtype=np.float32)
+            if int(wid) != i or not (cell.startswith("[") and
+                                     cell.endswith("]")) or \
+                    not np.array_equal(vals, base[i]):
+                raise AssertionError(f"wire row {i}: {wid} {cell[:40]}")
+        print(f"[vector] step 10 the wire: {wrows[0][1][:32]}... parses "
+              f"back to the stored floats for ids 0-2")
+        db.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+
 def main() -> int:
     import torch
 
@@ -2990,6 +3439,9 @@ def main() -> int:
         print(f"[durability] kernel launches: {counts}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _, counts = timed_phase("vector", phase_vector, torch, dev, tables, card)
+    print(f"[vector] kernel launches: {counts}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -110,9 +110,12 @@ class Catalog:
         # views: name -> {"sql": body text, "cols": [alias...]|[]},
         # expanded at bind time
         self._views: dict[str, dict] = {}
-        # IndexProbe sidecars: (table, index) -> (source relation,
-        # sidecar); an entry serves only the relation it was built from
-        self._sidecars: dict[tuple[str, str], tuple[Relation, Relation]] = {}
+        # structures derived from a table's relation: (table, name) ->
+        # (source relation, structure); an entry serves only the
+        # relation it was built from, which it keeps alive.  IndexProbe
+        # sidecars are named by their index, vector search structures by
+        # ("ann", column, metric)
+        self._sidecars: dict[tuple[str, object], tuple[Relation, object]] = {}
         # transient tables: materialized virtual (gv$/v$) relations,
         # refreshed per statement (≙ virtual table iterators)
         self._transients: dict[str, tuple[TableDef, Relation]] = {}
@@ -166,24 +169,24 @@ class Catalog:
         with self._lock:
             return self._transients.get(name)
 
-    # -- index sidecars ---------------------------------------------------
-    def sidecar(self, table: str, index: str, rel: Relation):
-        """The cached sidecar of ``table.index`` built from ``rel``, or
-        None (none cached, or built from another relation)."""
+    # -- index sidecars and vector search structures ---------------------
+    def sidecar(self, table: str, name, rel: Relation):
+        """The cached structure ``name`` of ``table`` built from ``rel``,
+        or None (none cached, or built from another relation)."""
         with self._lock:
-            hit = self._sidecars.get((table, index))
+            hit = self._sidecars.get((table, name))
             return hit[1] if hit is not None and hit[0] is rel else None
 
-    def cache_sidecar(self, table: str, index: str, rel: Relation,
-                      sidecar: Relation):
+    def cache_sidecar(self, table: str, name, rel: Relation, sidecar):
         with self._lock:
-            self._sidecars[(table, index)] = (rel, sidecar)
+            self._sidecars[(table, name)] = (rel, sidecar)
 
-    def drop_sidecars(self, table: str, index: str | None = None):
-        """Free the cached sidecars of ``table`` (of one index if named)."""
+    def drop_sidecars(self, table: str, name=None):
+        """Free the cached structures of ``table`` (only ``name`` if
+        given)."""
         with self._lock:
             for key in [k for k in self._sidecars if k[0] == table
-                        and index in (None, k[1])]:
+                        and name in (None, k[1])]:
                 del self._sidecars[key]
 
     # -- external tables --------------------------------------------------
@@ -310,6 +313,8 @@ class Catalog:
                                   nullable=col.valid is not None))
             if col.sdict is not None:
                 ndv[cname] = col.sdict.size
+            elif col.dtype.kind == TypeKind.VECTOR:
+                ndv[cname] = n
             else:
                 ndv[cname] = sampled_ndv(np.asarray(arrays[cname]), n)
         with self._lock:

@@ -11,6 +11,7 @@ copy).  The physical layout is unchanged:
 - BOOL                -> bool
 - CHAR/VARCHAR/TEXT   -> int32 codes into an order-preserving host
                          dictionary (sorted unique values)
+- VECTOR(d)           -> [n, d] float32
 
 NULLs ride as a separate validity array per column.
 """
@@ -139,6 +140,34 @@ class SqlType:
     @property
     def is_string(self) -> bool:
         return self.kind == TypeKind.STRING
+
+    @property
+    def null_fill(self):
+        """The host value a NULL lane stores behind its validity: ""
+        for strings, a zero embedding for VECTOR(d), else 0."""
+        if self.is_string:
+            return ""
+        if self.kind == TypeKind.VECTOR:
+            return [0.0] * (self.precision or 1)
+        return 0
+
+    def host_zeros(self, n: int) -> np.ndarray:
+        """``n`` NULL-fill lanes as a host column: an object array of ""
+        for strings, [n, d] float32 for VECTOR(d), else zeros."""
+        if self.is_string:
+            return np.array([""] * n, dtype=object)
+        if self.kind == TypeKind.VECTOR:
+            return np.zeros((n, self.precision or 1), dtype=np.float32)
+        return np.zeros(n, dtype=self.np_dtype)
+
+    def host_array(self, values: list) -> np.ndarray:
+        """A list of stored values (NULLs already filled) as a host
+        column of this type (a VECTOR's rows stack to [n, d])."""
+        if self.is_string:
+            return np.array(values, dtype=object)
+        if self.kind == TypeKind.VECTOR and not values:
+            return self.host_zeros(0)
+        return np.asarray(values, dtype=self.np_dtype)
 
     def __str__(self) -> str:  # pragma: no cover - debug aid
         if self.kind == TypeKind.DECIMAL:

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from oceanbase_tpu_torch import default_device
+from oceanbase_tpu_torch.datatypes import TypeKind
 from oceanbase_tpu_torch.exec import diag, ops
 from oceanbase_tpu_torch.exec import plan as pp
 from oceanbase_tpu_torch.exec.external_sort import external_sort
@@ -205,6 +206,14 @@ def execute_spilled(plan: pp.PlanNode, providers: dict, spill_dir: str,
     big = set(big_tables if big_tables is not None else providers)
     if not big:
         raise NotDistributable("no over-budget table to stream")
+    for t in sorted(big):
+        vec = [c for c, ty in types_by_table.get(t, {}).items()
+               if ty.kind == TypeKind.VECTOR]
+        if vec:
+            # granules, runs and host batches are [n] columns
+            raise NotDistributable(
+                f"{t}.{vec[0]} is a VECTOR column: the spill tier "
+                "streams no [n, d] column")
 
     def _split(aggs):
         # the spill tier's public contract is NotDistributable for every

@@ -10,8 +10,9 @@ dictionary plus a device gather.
 
 Scope: every node kind, the scalar functions (dates through Hinnant's
 civil-date arithmetic with floor division, math, string functions as
-dictionary transforms) and the UDF registry.  The VECTOR distance
-functions wait for ROADMAP Queue 1 item 8.
+dictionary transforms), the UDF registry, MATCH ... AGAINST and the
+VECTOR distance functions (``l2_distance``, ``cosine_distance``,
+``inner_product``, ``negative_inner_product``).
 """
 
 from __future__ import annotations
@@ -689,7 +690,7 @@ def _eval_func(e: ir.FuncCall, rel: Relation, n: int) -> Column:
             data = torch.where(c.valid, data, torch.zeros_like(data))
         return Column(data, c.valid, SqlType.double())
     if name in _VECTOR_FUNCS:
-        raise NotImplementedError(f"function {name}: {_VECTOR_TODO}")
+        return _vector_distance(name, e, rel)
     if name in ("extract_year", "year", "extract_month", "month",
                 "extract_day", "day", "quarter", "dayofyear", "dayofweek",
                 "weekday"):
@@ -974,8 +975,51 @@ def _eval_func(e: ir.FuncCall, rel: Relation, n: int) -> Column:
 
 _VECTOR_FUNCS = ("l2_distance", "inner_product", "negative_inner_product",
                  "cosine_distance")
-_VECTOR_TODO = ("VECTOR columns and their distance functions wait for "
-                "ROADMAP Queue 1 item 8 (side device modules)")
+
+
+def parse_vector_text(s: str) -> np.ndarray:
+    """'[0.1, 0.2, ...]' -> float32 ndarray (the vector literal format)."""
+    body = s.strip()
+    if body.startswith("[") and body.endswith("]"):
+        body = body[1:-1]
+    if not body.strip():
+        return np.zeros(0, dtype=np.float32)
+    return np.asarray([float(x) for x in body.split(",")],
+                      dtype=np.float32)
+
+
+def _vector_distance(name: str, e: ir.FuncCall, rel: Relation) -> Column:
+    """A distance between a VECTOR column and a '[...]' literal or a
+    second VECTOR column: [n, d] x [d] (or [n, d] x [n, d]) -> [n]
+    DOUBLE, computed in float32 as the JAX package does; NULL where
+    either argument is."""
+    def arg(x):
+        if isinstance(x, ir.Literal) and isinstance(x.value, str):
+            v = parse_vector_text(x.value)
+            return Column(_host_lut(v, torch.float32, rel.device), None,
+                          SqlType.vector(len(v)))
+        return eval_expr(x, rel)
+
+    a, b = arg(e.args[0]), arg(e.args[1])
+    va, vb = a.data.to(torch.float32), b.data.to(torch.float32)
+    if va.ndim == 1 and vb.ndim == 2:
+        va, vb = vb, va
+    if vb.ndim == 1:
+        vb = vb[None, :]
+    if name == "l2_distance":
+        diff = va - vb
+        out = torch.sqrt((diff * diff).sum(dim=-1).to(torch.float64))
+    elif name == "cosine_distance":
+        num = (va * vb).sum(dim=-1)
+        na = torch.sqrt((va * va).sum(dim=-1))
+        nb = torch.sqrt((vb * vb).sum(dim=-1))
+        out = (1.0 - num / torch.clamp(na * nb, min=1e-12)).to(torch.float64)
+    else:
+        out = (va * vb).sum(dim=-1).to(torch.float64)
+        if name == "negative_inner_product":
+            out = -out
+    return Column(out, _merge_valid(a, b), SqlType.double())
+
 
 _UNARY_DOUBLE = {"sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log,
                  "log2": torch.log2, "log10": torch.log10, "sin": torch.sin,

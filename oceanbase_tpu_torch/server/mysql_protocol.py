@@ -498,6 +498,15 @@ def format_datetime(us: int) -> str:
     return out + f".{frac:06d}" if frac else out
 
 
+def format_vector(row) -> str:
+    """A VECTOR cell as OceanBase's text, ``[x,y,...]``: each float32 in
+    the shortest form that reads back to the same float32 (the literal a
+    client can send back)."""
+    return "[" + ",".join(
+        np.format_float_positional(x, unique=True, trim="-")
+        for x in np.asarray(row, dtype=np.float32)) + "]"
+
+
 def _column_texts(arr, t) -> list:
     """Every cell of one ``Result.arrays`` column as its wire text (NULLs
     are applied by the caller).  Whole columns convert at once: a large
@@ -514,6 +523,8 @@ def _column_texts(arr, t) -> list:
         return [format_datetime(x) for x in a.tolist()]
     if kind == TypeKind.BOOL or a.dtype.kind == "b":
         return np.where(a.astype(bool), "1", "0").tolist()
+    if kind == TypeKind.VECTOR:
+        return [format_vector(x) for x in a.tolist()]
     # ints and doubles as Python prints them (``Result.rows()``'s values)
     return [str(x) for x in a.tolist()]
 

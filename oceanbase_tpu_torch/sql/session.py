@@ -71,8 +71,12 @@ External tables (CREATE EXTERNAL TABLE: a CSV or Parquet file read at
 query time) and the workload repository's ANALYZE / SHOW WORKLOAD
 REPORT run; a spilled statement's temp files count against the tenant's
 spill budget.  There is no parallel or pushed-down query execution.
-Statements of planes not yet ported (VECTOR) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+
+VECTOR(d) columns take '[x, y, ...]' literals; CREATE VECTOR INDEX ...
+WITH (metric = ..., approximate = ...) serves ORDER BY <distance> LIMIT
+k through the ANN access path (``_try_ann_prefilter``: exact search, or
+IVF-Flat when the index opts in), and CREATE FULLTEXT INDEX records the
+index beside MATCH ... AGAINST.
 """
 
 from __future__ import annotations
@@ -122,6 +126,7 @@ from oceanbase_tpu_torch.expr.compile import (
     eval_expr,
     eval_predicate,
     literal_value,
+    parse_vector_text,
 )
 from oceanbase_tpu_torch.px.planner import NotDistributable
 from oceanbase_tpu_torch.server import admission as qadmission
@@ -130,6 +135,7 @@ from oceanbase_tpu_torch.server import metrics as qmetrics
 from oceanbase_tpu_torch.server import profiler as qprofiler
 from oceanbase_tpu_torch.server import trace as qtrace
 from oceanbase_tpu_torch.server.monitor import AuditRecord
+from oceanbase_tpu_torch.share.vector_index import IvfFlatIndex, exact_search
 from oceanbase_tpu_torch.sql import access_path as ap
 from oceanbase_tpu_torch.sql import ast
 from oceanbase_tpu_torch.sql.binder import Binder, Scope
@@ -171,8 +177,6 @@ qmetrics.declare("plan_cache.evictions", "counter",
                  "session plan-cache LRU evictions")
 
 _POW10 = [10**i for i in range(38)]
-
-_VECTOR = "ROADMAP Queue 1 items 4 and 8 (VECTOR and side device modules)"
 
 
 def _needs_db(what: str):
@@ -277,6 +281,9 @@ class Session:
         #: {table: AccessChoice} of the last SELECT, UPDATE or DELETE
         #: whose relation came from the access path (sql/access_path.py)
         self.last_access_paths: dict = {}
+        #: "exact" | "ivf" when the last SELECT's scan took the ANN
+        #: access path (a vector index), else None
+        self.last_ann_path = None
         #: capacity of the relation the last UPDATE/DELETE evaluated
         self.last_dml_capacity = 0
         #: {"route": "native" | "python", "rows", "bytes"} of the last
@@ -853,6 +860,7 @@ class Session:
         tables = {t: self._table_snapshot(t)
                   for t in referenced_tables(plan)
                   if self.catalog.has_table(t)}
+        self.last_ann_path = self._try_ann_prefilter(plan, tables)
         self.last_access_paths = self._index_prefilter(plan, tables)
         prepare_index_probes(self.catalog, plan, tables)
         factor = 1
@@ -1101,6 +1109,119 @@ class Session:
                 name, self._tx.snapshot, self._tx.tx_id)
         return self.catalog.table_data(name)
 
+    # -- the ANN access path (vector index) -----------------------------
+    _ANN_FETCH_FACTOR = 4
+    _IVF_MIN_ROWS = 4096
+
+    def _try_ann_prefilter(self, plan, tables) -> str | None:
+        """ORDER BY <distance>(vcol, '[...]') [ASC] LIMIT k over one
+        vector-indexed scan: replace the scanned relation with the
+        index's ``max(4k, 64)`` best candidates (row order kept), so the
+        unchanged plan re-sorts those few rows by the exact distance.
+        Exact search unless the index opted in with ``approximate =
+        true`` and the table has 4,096 live rows or more (then IVF-Flat,
+        approximate by design).  -> "exact" | "ivf" when it ran, else
+        None."""
+        if not isinstance(plan, qplan.Limit):
+            return None
+        node = plan.child
+        k = plan.k + (plan.offset or 0)
+        if not isinstance(node, qplan.Sort) or len(node.keys) != 1 or \
+                not (node.ascending[0] if node.ascending else True):
+            return None
+        key = node.keys[0]
+        if not isinstance(key, ir.ColumnRef):
+            return None
+        # the sort key through one Project (and any Compact) to the scan
+        expr, cur = None, node.child
+        while isinstance(cur, (qplan.Project, qplan.Compact)):
+            if isinstance(cur, qplan.Project):
+                if expr is not None:
+                    return None  # nested projects: keep the simple shape
+                expr = cur.outputs.get(key.name)
+                if expr is None:
+                    return None
+            cur = cur.child
+        if not isinstance(cur, qplan.TableScan) or \
+                not isinstance(expr, ir.FuncCall):
+            return None
+        metric = {"l2_distance": "l2",
+                  "cosine_distance": "cosine"}.get(expr.name.lower())
+        colref = next((a for a in expr.args
+                       if isinstance(a, ir.ColumnRef)), None)
+        lit = next((a for a in expr.args if isinstance(a, ir.Literal)
+                    and isinstance(a.value, str)), None)
+        if metric is None or colref is None or lit is None:
+            return None
+        inv = {cid: base for base, cid in (cur.rename or {}).items()}
+        base_col = inv.get(colref.name, colref.name)
+        td = self.catalog.table_def(cur.table)
+        vix = [v for v in td.aux_indexes.values()
+               if v["kind"] == "vector" and v["column"] == base_col
+               and v["metric"] == metric]
+        rel = tables.get(cur.table)
+        if not vix or rel is None:
+            return None
+        fetch = max(k * self._ANN_FETCH_FACTOR, 64)
+        approx = any(v.get("options", {}).get("approximate") for v in vix)
+        idx = self._ann_runtime(cur.table, base_col, metric, rel, fetch,
+                                approx)
+        if idx is None:
+            return None
+        q = parse_vector_text(lit.value)[None, :]
+        if isinstance(idx, IvfFlatIndex):
+            _s, ids = idx.search(q, fetch)
+            rows = ids[0]
+            # the one host read of the access path, before the plan runs:
+            # the probed buckets may hold fewer than ``fetch`` rows
+            rows = rows[rows >= 0]
+            if rows.numel() == 0:
+                return None
+        else:
+            _s, ids = exact_search(q, idx, fetch, metric=metric)
+            rows = ids[0]
+        # every candidate lies in the live prefix the structure indexes
+        tables[cur.table] = rel.gather(torch.sort(rows).values)
+        return "ivf" if isinstance(idx, IvfFlatIndex) else "exact"
+
+    def _ann_runtime(self, table: str, col: str, metric: str, rel,
+                     fetch: int, approx: bool):
+        """The search structure of (table, col, metric) for ``rel``,
+        cached on the catalog per source relation: an IvfFlatIndex when
+        the index opted in and the table is large enough, else a view of
+        the live vectors (exact search).  None when the live rows fit in
+        ``fetch``, the column is not a [n, d] tensor, dead rows sit
+        inside the live prefix (row ids would need a remap) or a live
+        embedding is NULL (its distance is NULL, which the full sort
+        puts first; its stored zero vector would rank as a vector).
+        The last two refusals are cached too."""
+        name = ("ann", col, metric)
+        hit = self.catalog.sidecar(table, name, rel)
+        if hit is None:
+            hit = self._build_ann(rel, col, metric, approx)
+            self.catalog.cache_sidecar(table, name, rel, hit)
+        if hit is False:
+            return None
+        n_live = hit.n if isinstance(hit, IvfFlatIndex) else hit.shape[0]
+        return hit if n_live > fetch else None
+
+    def _build_ann(self, rel, col: str, metric: str, approx: bool):
+        """-> the search structure over ``rel``'s live prefix, or False
+        where the ANN path cannot serve ``rel`` (see ``_ann_runtime``)."""
+        colv = rel.columns.get(col)
+        if colv is None or colv.data.ndim != 2:
+            return False
+        # the structure's one host read of the live rows
+        n_live = (rel.capacity if rel.mask is None
+                  else int(rel.mask.sum()))
+        if rel.mask is not None and not bool(rel.mask[:n_live].all()):
+            return False
+        if colv.valid is not None and not bool(colv.valid[:n_live].all()):
+            return False
+        vecs = colv.data[:n_live]
+        return (IvfFlatIndex(vecs, metric=metric)
+                if approx and n_live >= self._IVF_MIN_ROWS else vecs)
+
     def _index_prefilter(self, plan, tables) -> dict:
         """Candidate-superset access paths (sql/access_path.py): replace
         a filtered table's device relation with a small host-pruned
@@ -1332,7 +1453,8 @@ class Session:
     def _analyze(self, stmt: ast.AnalyzeStmt) -> Result:
         """Refresh a table's optimizer stats on the host: live row count,
         exact NDV, equi-height histograms for non-string columns and
-        most-common-values frequency lists for dictionary columns."""
+        most-common-values frequency lists for dictionary columns (a
+        VECTOR column's NDV is the row count, with no histogram)."""
         td = self.catalog.table_def(stmt.table)
         rel = self.catalog.table_data(stmt.table)
         mask = rel.mask_or_true().cpu().numpy()
@@ -1340,6 +1462,13 @@ class Session:
         for c in td.columns:
             col = rel.columns.get(c.name)
             if col is None:
+                continue
+            if c.dtype.kind == TypeKind.VECTOR:
+                # load_numpy's rule: every embedding counts as distinct,
+                # and a histogram over its loose floats would mean
+                # nothing (the reference flattens the [n, d] array here)
+                td.ndv[c.name] = max(td.row_count, 1)
+                td.histograms.pop(c.name, None)
                 continue
             valid = None if col.valid is None else col.valid.cpu().numpy()
             data = col.data.cpu().numpy()[mask]
@@ -1475,6 +1604,11 @@ class Session:
                 cols.append(",".join(ix.columns))
                 uniq.append(1 if ix.unique else 0)
                 kinds.append("unique" if ix.unique else "normal")
+            for nm, spec in td.aux_indexes.items():
+                names.append(nm)
+                cols.append(spec["column"])
+                uniq.append(0)
+                kinds.append(spec["kind"])
             return Result(
                 ["key_name", "columns", "unique", "index_type"],
                 {"key_name": _strings(names), "columns": _strings(cols),
@@ -1561,8 +1695,7 @@ class Session:
         session without a storage engine."""
         td = self.catalog.table_def(stmt.table)
         if stmt.kind in ("vector", "fulltext"):
-            raise NotImplementedError(
-                f"{stmt.kind} indexes wait for {_VECTOR}")
+            return self._create_aux_index(stmt, td)
         if any(ix.name == stmt.name for ix in td.indexes):
             if stmt.if_not_exists:
                 return _ok()
@@ -1589,8 +1722,47 @@ class Session:
         self.catalog.schema_version += 1
         return _ok()
 
+    def _create_aux_index(self, stmt: ast.CreateIndexStmt,
+                          td: TableDef) -> Result:
+        """CREATE VECTOR / FULLTEXT INDEX: metadata only (the search
+        structure builds at a query's first use per relation, MATCH reads
+        none), persisted through the slog with a Database."""
+        if stmt.name in td.aux_indexes:
+            if stmt.if_not_exists:
+                return _ok()
+            raise ValueError(f"index {stmt.name} exists")
+        if len(stmt.columns) != 1:
+            raise ValueError(f"{stmt.kind} index takes one column")
+        col = td.column(stmt.columns[0])  # existence check
+        if stmt.kind == "vector" and col.dtype.kind != TypeKind.VECTOR:
+            raise ValueError("vector index needs a VECTOR column")
+        if stmt.kind == "fulltext" and not col.dtype.is_string:
+            raise ValueError("fulltext index needs a string column")
+        spec = {"kind": stmt.kind, "column": stmt.columns[0],
+                "metric": str(stmt.options.get("metric", "l2")),
+                "options": dict(stmt.options)}
+        td.aux_indexes[stmt.name] = spec
+        # the exact or IVF structure follows the metric's indexes
+        self.catalog.drop_sidecars(
+            stmt.table, ("ann", spec["column"], spec["metric"]))
+        if self.db is not None and stmt.table in self._engine.tables:
+            self._engine._log_meta({"op": "aux_index", "table": stmt.table,
+                                    "name": stmt.name, "spec": spec})
+        self.catalog.schema_version += 1
+        return _ok()
+
     def _drop_index(self, stmt: ast.DropIndexStmt) -> Result:
         td = self.catalog.table_def(stmt.table)
+        if stmt.name in td.aux_indexes:
+            spec = td.aux_indexes.pop(stmt.name)
+            self.catalog.drop_sidecars(
+                stmt.table, ("ann", spec["column"], spec["metric"]))
+            if self.db is not None and stmt.table in self._engine.tables:
+                self._engine._log_meta({"op": "drop_aux_index",
+                                        "table": stmt.table,
+                                        "name": stmt.name})
+            self.catalog.schema_version += 1
+            return _ok()
         if self.db is not None:
             try:
                 self._engine.drop_index(stmt.table, stmt.name)
@@ -1629,11 +1801,8 @@ class Session:
                 dtype = td.column(c).dtype
                 new_valid[c] = np.array([x is not None for x in vals[c]],
                                         dtype=bool)
-                fill = "" if dtype.is_string else 0
-                new[c] = np.array([fill if x is None else x
-                                   for x in vals[c]],
-                                  dtype=object if dtype.is_string
-                                  else dtype.np_dtype)
+                new[c] = dtype.host_array([dtype.null_fill if x is None
+                                           else x for x in vals[c]])
             n_new = len(stmt.rows)
         else:
             rel, outputs = self._run_select(stmt.select, params)
@@ -1661,15 +1830,19 @@ class Session:
             oldv = raw.get(c.name)
             oldvalid = raw.get("__valid__" + c.name)
             if oldv is None:
-                oldv = np.zeros(0, dtype=c.dtype.np_dtype)
+                oldv = c.dtype.host_zeros(0)
             if oldvalid is None:
                 oldvalid = np.ones(len(oldv), dtype=bool)
             if c.name in new:
                 newv, newvalid = new[c.name], new_valid[c.name]
             else:
                 newvalid = np.zeros(n_new, dtype=bool)
-                newv = np.zeros(n_new, dtype=object if c.dtype.is_string
-                                else c.dtype.np_dtype)
+                newv = c.dtype.host_zeros(n_new)
+            if c.dtype.kind == TypeKind.VECTOR:
+                # decoded embeddings are object rows (None when NULL)
+                oldv, newv = (c.dtype.host_array(
+                    [c.dtype.null_fill if x is None else x for x in a])
+                    if a.dtype == object else a for a in (oldv, newv))
             valid = np.concatenate([oldvalid, newvalid])
             if c.dtype.is_string:
                 # decoded NULL lanes hold None; the validity says NULL
@@ -1831,7 +2004,7 @@ class Session:
                     if vd is not None and not vd[i]:
                         values[c] = None
                     else:
-                        values[c] = x.item() if hasattr(x, "item") else x
+                        values[c] = _py(x)
                 for c in td.columns:
                     values.setdefault(c.name, None)
                 self._fill_auto_increment(td, values)
@@ -2728,7 +2901,10 @@ def _with_feedback(plan, corrections: dict):
 
 
 def _py(x):
-    """A numpy scalar as its Python value (strings stay strings)."""
+    """A numpy scalar as its Python value (strings stay strings; a
+    VECTOR cell, a float32 row, becomes a list of floats)."""
+    if isinstance(x, np.ndarray):
+        return x.tolist()
     return x.item() if hasattr(x, "item") else x
 
 
@@ -2824,8 +3000,13 @@ def _coerce_value(v, t, target: SqlType):
         return v
     if target.kind == TypeKind.BOOL:
         return bool(v)
-    if target.kind == TypeKind.VECTOR:
-        raise NotImplementedError(f"VECTOR values wait for {_VECTOR}")
+    if target.kind == TypeKind.VECTOR and isinstance(v, str):
+        vec = parse_vector_text(v)
+        if len(vec) != target.precision:
+            raise ValueError(
+                f"vector literal has dim {len(vec)}, column wants "
+                f"{target.precision}")
+        return [float(x) for x in vec]
     return v
 
 

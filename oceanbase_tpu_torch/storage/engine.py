@@ -12,9 +12,10 @@ quarantine corrupt-segment policy, ``scrub_verify_table``,
 ``rewrite_segment_from_memory``, ``repair_table_segments``), the
 disk-fault plane's write checks, the disk manager's typed errors
 (``DiskFull``/``DiskIOError`` out of every durable writer), the ERRSIM
-point of ``freeze_and_flush`` and the memstore throttle's flush
-listener.  The DDL log-stream hook of a cluster node waits for ROADMAP
-Queue 1 item 10; vector and fulltext index specs wait for items 4 and 8.
+point of ``freeze_and_flush``, the memstore throttle's flush
+listener and the vector and fulltext index specs (``aux_index`` and
+``drop_aux_index`` slog records).  The DDL log-stream hook of a cluster
+node waits for ROADMAP Queue 1 item 10.
 
 Reference analog:
 - slog + slog_ckpt (src/storage/slog, ob_server_checkpoint_slog_handler.h):
@@ -445,6 +446,14 @@ class StorageEngine:
                 "sql": op["sql"], "cols": op.get("cols", [])}
         elif kind == "drop_view":
             self.meta.get("views", {}).pop(op["name"], None)
+        elif kind == "aux_index":
+            ts = self.tables.get(op["table"])
+            if ts is not None:
+                ts.tdef.aux_indexes[op["name"]] = op["spec"]
+        elif kind == "drop_aux_index":
+            ts = self.tables.get(op["table"])
+            if ts is not None:
+                ts.tdef.aux_indexes.pop(op["name"], None)
         elif kind == "add_segment":
             ts = self.tables.get(op["table"])
             if ts is not None:
@@ -490,12 +499,6 @@ class StorageEngine:
                                      op["column"], log=False)
                 except KeyError:
                     pass
-        else:
-            # the vector/fulltext index records (aux_index,
-            # drop_aux_index) come with their plane
-            raise NotImplementedError(
-                f"slog record {kind!r} waits for ROADMAP Queue 1 items "
-                "4 and 8")
 
     def _segment_file(self, table: str, seg_id: int) -> str:
         return os.path.join(self.root, "segments", f"{table}_{seg_id}.npz")
@@ -1332,6 +1335,8 @@ class StorageCatalog(Catalog):
                 col = rel.columns[c.name]
                 if col.sdict is not None:
                     nd = col.sdict.size
+                elif col.dtype.kind == TypeKind.VECTOR:
+                    nd = rel.capacity
                 else:
                     nd = sampled_ndv(np.asarray(arrays[c.name]),
                                      rel.capacity)
@@ -1434,9 +1439,7 @@ class StorageCatalog(Catalog):
     def _empty_rel(self, ts):
         arrays, valids = {}, {}
         for c in ts.tdef.columns:
-            arrays[c.name] = (np.array([""], dtype=object)
-                              if c.dtype.is_string else
-                              np.zeros(1, dtype=c.dtype.np_dtype))
+            arrays[c.name] = c.dtype.host_zeros(1)
             valids[c.name] = np.array([False])
         rel = from_numpy(arrays,
                          types={c.name: c.dtype for c in ts.tdef.columns},
@@ -1453,7 +1456,8 @@ class StorageCatalog(Catalog):
 
     def invalidate(self, name: str | None = None):
         """Drop the cached relation of ``name`` (of every table when
-        None) and the index sidecars built from it."""
+        None) and the index sidecars and vector search structures built
+        from it."""
         with self._lock:
             self._cache.invalidate(name)
             if name is None:

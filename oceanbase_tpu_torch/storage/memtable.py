@@ -174,16 +174,13 @@ class MemTable:
                     val = v.values.get(c)
                     if val is None:
                         valids[c][i] = False
-                        arrays[c].append("" if types[c].is_string else 0)
+                        arrays[c].append(types[c].null_fill)
                     else:
                         arrays[c].append(val)
                 i += 1
         out = {}
         for c in columns:
-            if types[c].is_string:
-                out[c] = np.array(arrays[c], dtype=object)
-            else:
-                out[c] = np.asarray(arrays[c], dtype=types[c].np_dtype)
+            out[c] = types[c].host_array(arrays[c])
         out["__deleted__"] = deleted
         out["__version__"] = versions
         return out, valids

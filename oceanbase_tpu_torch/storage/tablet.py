@@ -268,9 +268,7 @@ class Tablet:
                     mt_parts.append((a, v, None))
         parts = seg_parts + mt_parts
         if not parts:
-            return ({c: np.zeros(0, dtype=object if self.types[c].is_string
-                                 else self.types[c].np_dtype)
-                     for c in self.columns},
+            return ({c: self.types[c].host_zeros(0) for c in self.columns},
                     {c: None for c in self.columns})
         arrays, valids = _stack_parts(parts, self.columns, self.types)
         n = len(next(iter(arrays.values())))
@@ -334,15 +332,12 @@ def _rows_to_arrays(rows: dict, columns, types):
             val = v.values.get(c)
             if val is None:
                 valids[c][i] = False
-                arrays[c].append("" if types[c].is_string else 0)
+                arrays[c].append(types[c].null_fill)
             else:
                 arrays[c].append(val)
     out = {}
     for c in columns:
-        if types[c].is_string:
-            out[c] = np.array(arrays[c], dtype=object)
-        else:
-            out[c] = np.asarray(arrays[c], dtype=types[c].np_dtype)
+        out[c] = types[c].host_array(arrays[c])
     out["__deleted__"] = deleted
     return out, valids
 
@@ -371,10 +366,7 @@ def _stack_parts(parts, columns, types):
                 elif c == "__version__":
                     arrs.append(np.zeros(n, dtype=np.int64))
                 else:
-                    arrs.append(
-                        np.array([""] * n, dtype=object)
-                        if types[c].is_string
-                        else np.zeros(n, dtype=types[c].np_dtype))
+                    arrs.append(types[c].host_zeros(n))
                 missing.append(True)
         if any(x.dtype == object for x in arrs):
             arrs = [x.astype(object) for x in arrs]

@@ -34,6 +34,8 @@ import threading
 from dataclasses import dataclass, field
 from enum import Enum
 
+import numpy as np
+
 from oceanbase_tpu_torch.server.errsim import ERRSIM
 from oceanbase_tpu_torch.storage.indexes import (
     IndexKeyLocks,
@@ -670,7 +672,9 @@ def _jsonable(values: dict) -> dict:
             # write boundary, never per row here
             raise TypeError(f"column {k!r}: a torch value reached the "
                             f"WAL ({type(v).__name__})")
-        if hasattr(v, "item"):
+        if isinstance(v, np.ndarray):
+            v = v.tolist()  # a VECTOR cell
+        elif hasattr(v, "item"):
             v = v.item()
         out[k] = v
     return out

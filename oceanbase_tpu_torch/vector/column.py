@@ -7,7 +7,9 @@ instead of compacting, so every capacity stays static and identical to
 the JAX package's: the bucket ladder and ``StringDict`` codes are
 reproduced exactly (``bucket_capacity``, ``StringDict.encode``).
 
-Strings are int32 dictionary codes with the dictionary on the host.
+Strings are int32 dictionary codes with the dictionary on the host; a
+VECTOR(d) column is one [n, d] float32 tensor (its mask and validity stay
+[n]).
 """
 
 from __future__ import annotations
@@ -127,7 +129,7 @@ def take(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class Column:
     """One column vector: dense data + optional validity, plus metadata.
 
-    ``data``  — tensor, shape [n]
+    ``data``  — tensor, shape [n] ([n, d] float32 for VECTOR(d))
     ``valid`` — optional bool tensor, shape [n]; None means all-valid
     ``dtype`` — SqlType
     ``sdict`` — StringDict for string columns (host-side)
@@ -282,11 +284,26 @@ def from_numpy(
     for name, arr in arrays.items():
         arr = np.asarray(arr)
         want = types.get(name) if types else None
-        if arr.ndim != 1 or (want is not None
-                             and want.kind == TypeKind.VECTOR):
-            raise NotImplementedError(
-                "VECTOR columns wait for ROADMAP Queue 1 item 8 (side "
-                "device modules)")
+        vec_t = want is not None and want.kind == TypeKind.VECTOR
+        if arr.dtype == object and arr.ndim == 1 and len(arr) and \
+                isinstance(arr[0], (list, tuple, np.ndarray)):
+            # an object array of per-row embeddings -> [n, d] float32
+            arr = np.stack([np.asarray(v, dtype=np.float32) for v in arr])
+            vec_t = True
+        if arr.ndim == 2 or vec_t:
+            if arr.ndim == 1:
+                # a VECTOR column seeded from a flat placeholder (a typed
+                # empty table): shape it [n, dim]
+                arr = np.zeros((len(arr), want.precision or 1),
+                               dtype=np.float32)
+            data = np.ascontiguousarray(arr, dtype=np.float32)
+            valid = None
+            if valids and valids.get(name) is not None:
+                valid = torch.from_numpy(np.ascontiguousarray(
+                    valids[name], dtype=np.bool_)).to(dev)
+            cols[name] = Column(torch.from_numpy(data).to(dev), valid,
+                                SqlType.vector(data.shape[1]))
+            continue
         sdict = None
         if arr.dtype.kind in ("U", "S", "O"):
             data, sdict = StringDict.encode(arr)
@@ -310,6 +327,8 @@ def empty_relation(types: dict[str, SqlType], device=None) -> Relation:
     for name, t in types.items():
         if t.is_string:
             arrays[name] = np.array([""], dtype=object)
+        elif t.kind == TypeKind.VECTOR:
+            arrays[name] = np.zeros((1, t.precision or 1), dtype=np.float32)
         else:
             arrays[name] = np.zeros(1, dtype=t.np_dtype)
         valids[name] = np.array([False])
@@ -332,6 +351,19 @@ def to_numpy(rel: Relation, limit: int | None = None) -> dict[str, np.ndarray]:
     if limit is not None:
         idx = idx[:limit]
     for name, col in rel.columns.items():
+        if col.dtype.kind == TypeKind.VECTOR:
+            # live rows gathered on the device first; embeddings come
+            # back as a 1-D object array of float32 rows
+            rows = take(col.data, torch.from_numpy(idx).to(col.device))
+            host = rows.cpu().numpy()
+            data = np.empty(len(idx), dtype=object)
+            for i in range(len(idx)):
+                data[i] = host[i]
+            out[name] = data
+            if col.valid is not None:
+                out.setdefault("__valid__" + name,
+                               col.valid.cpu().numpy()[idx])
+            continue
         data = col.data.cpu().numpy()[idx]
         if col.sdict is not None:
             codes = np.clip(data, 0, col.sdict.size - 1)

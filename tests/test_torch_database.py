@@ -497,18 +497,33 @@ def test_point_update_takes_the_primary_key_path(tmp_path):
     ("create vector index if not exists iv on t (k)", "items 4 and 8"),
 ])
 def test_unported_statements_raise_with_a_database(tmp_path, sql, item):
-    """What a Database still refuses: the vector and fulltext indexes of
-    ROADMAP Queue 1 items 4 and 8.  (The durability plane's statements
-    run now; their parity cases are in tests/test_torch_{external_tables,
-    scrub,errsim,workload}.py.)"""
-    db = Database(str(tmp_path / "db"), device="cpu")
-    s = db.session()
-    s.execute("create table t (k int primary key, v int, g varchar(8))")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        s.execute(sql)
-    assert s.catalog.tables() == ["t"]  # nothing half-created
-    assert not s.catalog.table_def("t").indexes
-    db.close()
+    """The vector and fulltext index DDL of ROADMAP Queue 1 ``item``
+    against the reference's: the same outcome (a
+    VECTOR or string column takes its index, an INT column is refused
+    with ValueError), the same SHOW INDEX, and nothing half-created; the
+    index is replayed from the slog by a reopen."""
+    outs = []
+    for db in (_jdb(tmp_path / "jax"),
+               Database(str(tmp_path / "port"), device="cpu")):
+        s = db.session()
+        s.execute("create table t (k int primary key, v vector(4), "
+                  "g varchar(8))")
+        out = [_outcome(s, sql), s.execute("show index from t").rows(),
+               s.catalog.tables(), s.catalog.table_def("t").indexes]
+        root = db.root
+        db.close()
+        again = (Database(root, device="cpu") if isinstance(db, Database)
+                 else JDatabase(root))
+        out.append(again.session().execute("show index from t").rows())
+        again.close()
+        outs.append(out)
+    assert outs[0] == outs[1]
+    assert outs[1][2] == ["t"] and outs[1][3] == []
+    assert outs[1][4] == outs[1][1]
+    if "(k)" in sql:
+        assert outs[1][0] == ("error", "ValueError")
+    else:
+        assert outs[1][0] == ("ok", 0, []) and len(outs[1][1]) == 2
 
 
 def test_unported_knobs_are_refused(tmp_path):

@@ -283,8 +283,30 @@ def test_civil_date_helpers_match(seed):
 
 
 def test_vector_functions_wait():
-    trel = bridge.relation_from_parts(
-        {"a": (np.arange(4), None, ("int", 0, 0), None)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        tcomp.eval_expr(tir.FuncCall("l2_distance",
-                                     [tir.col("a"), tir.lit("[1,2]")]), trel)
+    """The VECTOR distance functions against the JAX package's on a [n, d] column with NULL lanes, over a
+    literal and over a second column: float64 at 1e-6 relative (float32
+    sums underneath, summed in another order), with a 1e-6 absolute
+    floor where an inner product cancels; validity exactly."""
+    rng = np.random.default_rng(17)
+    n, d = 64, 12
+    arrays = {"a": rng.normal(size=(n, d)).astype(np.float32),
+              "b": rng.normal(size=(n, d)).astype(np.float32)}
+    valids = {"a": rng.random(n) > 0.2, "b": rng.random(n) > 0.2}
+    jrel = jcol.from_numpy(arrays, valids=valids)
+    trel = bridge.relation_from_parts(jax_parts(jrel)[0], device="cpu")
+    lit = "[" + ", ".join(f"{x:.4f}" for x in rng.normal(size=d)) + "]"
+    for name in ("l2_distance", "cosine_distance", "inner_product",
+                 "negative_inner_product"):
+        for args in (("a", lit), (lit, "a"), ("a", "b")):
+            def ir_args(mod):
+                return [mod.col(x) if not x.startswith("[") else mod.lit(x)
+                        for x in args]
+
+            j = jcomp.eval_expr(jir.FuncCall(name, ir_args(jir)), jrel)
+            t = tcomp.eval_expr(tir.FuncCall(name, ir_args(tir)), trel)
+            assert t.dtype.kind == tdt.TypeKind.DOUBLE
+            assert t.data.dtype == torch.float64
+            np.testing.assert_allclose(t.data.numpy(), np.asarray(j.data),
+                                       rtol=1e-6, atol=1e-6)
+            np.testing.assert_array_equal(
+                t.valid.numpy(), np.asarray(j.valid))

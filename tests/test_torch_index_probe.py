@@ -278,8 +278,16 @@ def test_catalog_only_create_and_drop_index():
     with pytest.raises(KeyError):
         s.execute("drop index ix on t")
     s.execute("drop index if exists ix on t")  # idempotent
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        s.execute("create vector index vx on t (k)")
+    # a vector index needs a VECTOR column: on an INT column both
+    # packages refuse it, and nothing is left behind
+    js = JSession()
+    js.catalog.load_numpy("t", {"a": np.arange(10, dtype=np.int64),
+                                "k": np.arange(10, dtype=np.int64)})
+    for sess in (js, s):
+        with pytest.raises(ValueError, match="needs a VECTOR column"):
+            sess.execute("create vector index vx on t (k)")
+        assert not sess.catalog.table_def("t").aux_indexes
+        assert sess.execute("show index from t").rows() == []
 
 
 def test_sidecar_cache_lifecycle():
