@@ -24,7 +24,7 @@ Phases, each printing its own lines:
 6. sql: all eight TPC-H tables in the port's ``Catalog`` on the card,
    ANALYZEd, and the 22 TPC-H queries through ``Session.execute(sql).rows()``, each
    held against the SQLite oracle (built and run meanwhile, from the
-   same seed, in two more processes that share out every SQL statement
+   same seed, in four more processes that share out every SQL statement
    of phases 6-8) and timed, with its capacity re-plans and peak device
    memory;
 6b. spill (the JAX package's ``Database`` at its default work area of
@@ -32,9 +32,20 @@ Phases, each printing its own lines:
    tier runs, through ``exec/spill_exec.py::execute_spilled`` with
    lineitem streamed from the host, held against SQLite; the 8 queries
    it refuses raise ``NotDistributable``; the S1 external sort against
-   SQLite and the J1 co-partitioned disk join against numpy (one timed
-   run each after the warm-up); each with its ``SpillStats`` and peak
-   device memory;
+   SQLite and the J1 co-partitioned disk join against numpy (each
+   timed by its one checked, cold run); each with its ``SpillStats`` and
+   peak device memory;
+6c. px: on the same catalog (before any index: an ``IndexProbe`` plan
+   does not distribute), ``px.exchange.set_mesh_size(8)`` puts 8 PX
+   shards on the card and ``px_dop = 8`` runs the 22 queries through
+   ``Session.execute`` as shard programs with collectives between them,
+   each held against SQLite, timed beside phase sql's serial ms, and all
+   22 must run distributed; then at SF1 the reference dryrun's
+   Q1-shaped step (distributed group-by, HASH join with part, psum)
+   against numpy, an ORDER BY on a two-valued first key whose range
+   exchange overflows and re-plans through the session's retry ladder,
+   and a join whose probe key is 30% one value through the bloom filter
+   and the hybrid hot-key exchange, both against numpy;
 7. sql-index: on the same catalog, a secondary index on every ``*key``
    column (the JAX package's SF1 parity configuration,
    ``scripts/sf_parity.py``), each sorted sidecar built and timed, then
@@ -56,7 +67,8 @@ Phases, each printing its own lines:
    conflict between two sessions), a checkpoint, more commits, and a
    reopen from the same directory without ``close()`` that replays the
    WAL tail and must read back every committed row and Q6;
-8c. load: the eight tables written as ``|``-delimited files and loaded
+8c. load: the eight tables written as ``|``-delimited files (by a
+   process of their own, started with the SQLite oracles) and loaded
    by LOAD DATA INFILE (the native CSV tokenizer) into a fresh
    ``Database`` whose lineitem and orders are RANGE-partitioned on the
    order key into 8 partitions, ANALYZEd, the 22 queries against
@@ -113,8 +125,8 @@ Phases, each printing its own lines:
    reopen without ``close()``; and VECTOR cells over the wire;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
-   and printed after it: the stream, spill, SQL, server, durability and
-   vector paths, like the JAX package's, reach no hand-written kernel,
+   and printed after it: the stream, spill, SQL, PX, server, durability
+   and vector paths, like the JAX package's, reach no hand-written kernel,
    and measure makes one profiled launch), and each phase's seconds;
 10. the card's name and power limit, then the result line.
 
@@ -125,10 +137,13 @@ and prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -137,13 +152,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 PLAN_RUNS = 5
 SQL_RUNS = 3                     # timed runs per query, after a warm-up
 STREAM_RUNS = 5                  # timed streamed runs, after a warm-up
-# timed spilled runs after a warm-up: one, since phase durability the
-# whole run has to stay inside its limit
+# timed spilled runs after the checked warm-up: one per TPC-H query; none
+# for the spilled S1 sort and J1 join (about 21 and 11 s a run), which are
+# timed by their checked, cold run: with phase "px" the whole run has to
+# stay inside its limit on the slower chip hosts
 SPILL_RUNS = 1
-# the spilled S1 sort and J1 join (about 23 and 12 s a run) time one run
-# after the warm-up: with phase "server" the whole run has to stay inside
-# its limit
-SPILL_LONG_RUNS = 1
+SPILL_LONG_RUNS = 0
 # bench.py's BENCH_MODE=stream: its granule size and the columns it streams
 STREAM_CHUNK_ROWS = 1 << 21
 STREAM_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
@@ -419,14 +433,18 @@ def _gbs(nbytes, ms) -> float:
 
 
 def _timed_spill(torch, fn, runs):
-    """One checked warm-up (peak memory from it), then the median of
-    ``runs`` -> (warm-up result, ms, peak bytes)."""
+    """One checked run (peak memory from it), then the median of ``runs``
+    more, or the checked run's time with ``runs`` 0 -> (checked result,
+    ms, peak bytes)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
+    times = [(time.perf_counter() - t1) * 1e3]
     peak = torch.cuda.max_memory_allocated()
-    times = []
+    if runs:
+        times = []
     for _ in range(runs):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -434,6 +452,10 @@ def _timed_spill(torch, fn, runs):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
     return res, statistics.median(times), peak
+
+
+def _runs_text(runs) -> str:
+    return f"median of {runs}" if runs else "one checked run, cold"
 
 
 def _stats_text(st) -> str:
@@ -484,7 +506,7 @@ def phase_spill(torch, dev, sess, tables, card, sql_stats, want):
         if not ok:
             raise AssertionError(f"spilled {label} differs from SQLite: "
                                  f"{why}")
-        print(f"[spill] {label}: {ms:.3f} ms/query (median of {runs}), "
+        print(f"[spill] {label}: {ms:.3f} ms/query ({_runs_text(runs)}), "
               f"rows={len(res.rows())} equal SQLite, {_stats_text(st)}, "
               f"peak_mem={peak} B; in memory {mem_ms}; {card}", flush=True)
         return ms
@@ -496,7 +518,7 @@ def phase_spill(torch, dev, sess, tables, card, sql_stats, want):
         total += statement(q, sql, ordered,
                            f"{sql_stats[q][0]:.3f} ms (phase sql)")
     print(f"[spill] all {len(SPILL_QUERIES)} queries equal SQLite; "
-          f"{total:.3f} ms in all (sum of medians) on {card}")
+          f"{total:.3f} ms in all (sum of the per-query times) on {card}")
     for q in SPILL_REFUSED:
         sess.execute(QUERIES[q])
         try:
@@ -539,17 +561,23 @@ def phase_spill(torch, dev, sess, tables, card, sql_stats, want):
     if (rows, price) != (want_rows, want_price):
         raise AssertionError(f"J1 ({rows}, {price}) != numpy ({want_rows}, "
                              f"{want_price})")
-    print(f"[spill] J1: {ms:.3f} ms (median of {SPILL_LONG_RUNS}), {rows} "
+    print(f"[spill] J1: {ms:.3f} ms ({_runs_text(SPILL_LONG_RUNS)}), {rows} "
           f"rows, sum(l_extendedprice)={price} equal numpy, {_stats_text(st)}, "
           f"peak_mem={peak} B; {card}", flush=True)
 
 
-# The SQLite oracle runs in two processes beside the card's phases
-# (SQLite is single-threaded).  The first takes these TPC-H queries and
-# the statements of bench/surface_queries.py but S1, the second the other
-# TPC-H queries and S1: about equal SQLite time each, by per-query times
-# taken at SF0.1.
-ORACLE_FIRST = (1, 2, 3, 4, 5, 6, 7, 10, 11, 12, 13)
+# The SQLite oracle runs in four processes beside the card's phases
+# (SQLite is single-threaded), each taking one group of the TPC-H
+# queries and the statements of bench/surface_queries.py: "D1" is that
+# file's DML script (in order, in one process), "W1".."U2" its reads.
+# The groups hold about equal SQLite time each, by SQLite's time per
+# statement at SF0.1 on the CPU.
+ORACLE_GROUPS = (
+    (8, "W1", 13, "S1", "U1", 2, 4),
+    (7, "W4", 12, 3, 6, 16, 20),
+    (9, 15, "W3", 18, 5, "IP1", 17, 22),
+    (14, "W2", 1, 10, "D1", 21, 11, 19, "U2"),
+)
 
 
 def oracle_jobs() -> list:
@@ -558,11 +586,18 @@ def oracle_jobs() -> list:
     from oceanbase_tpu_torch.bench import surface_queries as sq
     from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
 
-    first = [(q, QUERIES[q]) for q in ORACLE_FIRST]
-    first += [("IP1", sq.IP1)] + sorted(sq.READS.items()) + sq.D1
-    second = [(q, sql) for q, sql in sorted(QUERIES.items())
-              if q not in ORACLE_FIRST] + [("S1", sq.S1)]
-    return [first, second]
+    named = dict(sq.READS, IP1=sq.IP1, S1=sq.S1)
+    jobs = []
+    for group in ORACLE_GROUPS:
+        stmts = []
+        for key in group:
+            if key == "D1":
+                stmts += sq.D1
+            else:
+                stmts.append((key, QUERIES[key] if isinstance(key, int)
+                              else named[key]))
+        jobs.append(stmts)
+    return jobs
 
 
 def _oracle_worker(repo, sf, stmts, queue):
@@ -610,6 +645,42 @@ def oracle_results(oracles) -> dict:
     return want
 
 
+def _tbl_worker(repo, sf, root, queue):
+    """Phase load's ``.tbl`` files, written by a process of their own
+    while the card runs the phases before it: TPC-H regenerated from the
+    same seed, each table as ``root/<table>.tbl``."""
+    sys.path.insert(0, repo)
+    from oceanbase_tpu_torch.bench.tbl import write_tbl
+    from oceanbase_tpu_torch.bench.tpch import gen_tpch
+
+    tables, types = gen_tpch(sf=sf)
+    t0 = time.perf_counter()
+    for name, arrays in tables.items():
+        write_tbl(os.path.join(root, f"{name}.tbl"), arrays,
+                  {k: v for k, v in types.items() if k in arrays})
+    queue.put(time.perf_counter() - t0)
+
+
+def start_tbl_writer(repo, sf, root):
+    """Start ``_tbl_worker`` -> (process, queue) for ``phase_load``."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_tbl_worker, args=(repo, sf, root, queue),
+                       daemon=True)
+    proc.start()
+    return proc, queue
+
+
+def _stop_tbl_writer(writer, root):
+    proc, _queue = writer
+    if proc.is_alive():
+        proc.terminate()
+        proc.join(timeout=30)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_sql(dev, tables, types, card, oracles):
     """Phase 6: the 22 TPC-H queries through the port's SQL session."""
     from oceanbase_tpu_torch.bench.harness import (
@@ -653,6 +724,228 @@ def check_tpch(got, want, tag):
         if not ok:
             raise AssertionError(f"Q{q}{tag} differs from the SQLite "
                                  f"oracle: {why}")
+
+
+PX_SHARDS = 8        # the reference's 8-device dryrun mesh, on one card
+PX_HOT_SHARE = 0.3   # the hot-key step's skewed probe share
+PX_SEED = 8          # which probe rows take the hot key
+
+
+def phase_px(torch, dev, sess, tables, card, sql_stats, want):
+    """Phase 6c: PX over an 8-shard mesh on the card.  The 22 queries with
+    ``px_dop = 8`` on phase sql's catalog (before phase sql-index adds
+    indexes: ``IndexProbe`` plans do not distribute), each against
+    SQLite and beside phase sql's serial ms, all 22 distributed; then the
+    reference dryrun's Q1-shaped step over lineitem, a skewed range sort
+    through the session's retry ladder and a hybrid hot-key join."""
+    from oceanbase_tpu_torch.bench.harness import timed_statement
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.px.exchange import set_mesh_size
+
+    set_mesh_size(PX_SHARDS)
+    try:
+        sess.variables["px_dop"] = PX_SHARDS
+        got, px_qs, fallback = {}, [], []
+        total_ms = serial_ms = 0.0
+        for q, sql in sorted(QUERIES.items()):
+            res, ms, retries, peak = timed_statement(sess, sql, SQL_RUNS)
+            got[q] = res.rows()
+            used = bool(sess._last_px)
+            (px_qs if used else fallback).append(q)
+            total_ms += ms
+            serial_ms += sql_stats[q][0]
+            print(f"[px] q{q}: {ms:.3f} ms/query (median of {SQL_RUNS}) "
+                  f"vs {sql_stats[q][0]:.3f} serial (phase sql), "
+                  f"rows={len(got[q])}, retries={retries}, "
+                  f"peak_mem={peak} B, "
+                  f"{'DISTRIBUTED' if used else 'serial fallback'}; {card}",
+                  flush=True)
+        check_tpch(got, want, " (px)")
+        print(f"[px] all 22 queries match SQLite; {len(px_qs)}/22 ran "
+              f"distributed over {PX_SHARDS} shards on {dev}; {total_ms:.3f} "
+              f"ms in all (sum of medians) vs {serial_ms:.3f} serial; {card}")
+        if fallback:
+            raise AssertionError(f"PX fell back to serial for {fallback}")
+        _px_q1_step(torch, dev, sess, tables, card)
+        _px_skew_sort(torch, sess, tables, card)
+        _px_hot_join(torch, dev, sess, tables, card)
+    finally:
+        sess.variables["px_dop"] = 0
+        set_mesh_size(None)
+
+
+def _px_q1_step(torch, dev, sess, tables, card):
+    """The reference dryrun's Q1-shaped step (``__graft_entry__.py``)
+    over SF1's lineitem: sharded scan -> filter -> partial agg -> HASH
+    all_to_all -> final agg, a HASH-HASH join with part and a datahub
+    psum, against numpy."""
+    from oceanbase_tpu_torch.exec import ops
+    from oceanbase_tpu_torch.expr import ir
+    from oceanbase_tpu_torch.px.dist_ops import (
+        dist_groupby_shard, dist_join_shard,
+    )
+    from oceanbase_tpu_torch.px.exchange import (
+        datahub_psum, default_mesh, shard_relation, unshard_relation,
+    )
+    from oceanbase_tpu_torch.vector import to_numpy
+
+    mesh = default_mesh(PX_SHARDS, dev)
+    li = sess.catalog.table_data("lineitem").select(
+        ["l_returnflag", "l_quantity", "l_extendedprice", "l_partkey"])
+    pt = sess.catalog.table_data("part").select(["p_partkey", "p_size"])
+    qty40 = ir.Cmp("<", ir.col("l_quantity"), ir.lit(40))  # 40.00
+    aggs = [ops.AggSpec("s", "sum", ir.col("l_extendedprice")),
+            ops.AggSpec("c", "count_star"),
+            ops.AggSpec("a", "avg", ir.col("l_quantity"))]
+    per = li.capacity // PX_SHARDS
+    cap = max(per, pt.capacity // PX_SHARDS) * 2 // PX_SHARDS
+    times = []
+    for _ in range(1 + SQL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        li_s = shard_relation(li, mesh)
+        pt_s = shard_relation(pt, mesh)
+        grouped, g_ovf = dist_groupby_shard(
+            [ops.filter_rows(r, qty40) for r in li_s],
+            {"l_returnflag": ir.col("l_returnflag")}, aggs, mesh,
+            local_cap=32, out_cap=32)
+        joined, j_ovf = dist_join_shard(
+            [r.select(["l_partkey", "l_quantity"]) for r in li_s], pt_s,
+            [ir.col("l_partkey")], [ir.col("p_partkey")], mesh,
+            cap_per_dest=cap, out_capacity=per * 2)
+        total = datahub_psum([r.count() for r in joined])
+        size_sum = datahub_psum([
+            torch.where(r.mask_or_true(), r.columns["p_size"].data, 0).sum()
+            for r in joined])
+        overflow = datahub_psum(g_ovf + j_ovf)
+        res = to_numpy(unshard_relation(grouped))
+        total, size_sum, overflow = (int(total), int(size_sum),
+                                     int(overflow))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    a = tables["lineitem"]
+    sel = a["l_quantity"] < 4000
+    flags = a["l_returnflag"]
+    if overflow:
+        raise AssertionError(f"PX Q1 step: exchange overflow {overflow}")
+    order = np.argsort(res["l_returnflag"])
+    keys = np.unique(flags[sel])
+    want_s = [int(a["l_extendedprice"][sel & (flags == k)].sum())
+              for k in keys]
+    want_c = [int((sel & (flags == k)).sum()) for k in keys]
+    if res["l_returnflag"][order].tolist() != keys.tolist() or \
+            res["s"][order].tolist() != want_s or \
+            res["c"][order].tolist() != want_c:
+        raise AssertionError("PX Q1 step: group sums differ from numpy")
+    want_avg = [a["l_quantity"][sel & (flags == k)].mean() / 100
+                for k in keys]
+    if not np.allclose(res["a"][order], want_avg, rtol=1e-9):
+        raise AssertionError("PX Q1 step: avg differs from numpy")
+    n = len(a["l_partkey"])
+    want_size = int(tables["part"]["p_size"][a["l_partkey"] - 1].sum())
+    if total != n or size_sum != want_size:
+        raise AssertionError(f"PX Q1 step: join rows {total} (want {n}), "
+                             f"sum(p_size) {size_sum} (want {want_size})")
+    print(f"[px] Q1-shaped step: group-by of {int(sel.sum())} rows into "
+          f"{len(keys)} groups, join of {n} lineitem rows with part "
+          f"(cap {cap}/dest), psum, all equal numpy; "
+          f"{statistics.median(times[1:]):.3f} ms (median of {SQL_RUNS}); "
+          f"{card}", flush=True)
+
+
+def _px_skew_sort(torch, sess, tables, card):
+    """A range-distributed ORDER BY whose first key has two values
+    (l_linestatus), so the range exchange funnels each shard's rows into
+    two destinations and overflows its budget; the session's retry
+    ladder re-plans it with a 4x budget and it runs distributed.  The
+    plan is built by hand: the binder puts a Project under every Sort,
+    so a SQL ORDER BY sorts the gathered rows instead."""
+    from oceanbase_tpu_torch.exec import plan as pp
+    from oceanbase_tpu_torch.expr import ir
+    from oceanbase_tpu_torch.vector import to_numpy
+
+    cols = ["l_linestatus", "l_orderkey", "l_linenumber"]
+    plan = pp.Sort(pp.TableScan("lineitem", columns=cols),
+                   [ir.col(c) for c in cols], [True, True, True])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rel, _out = sess._run_plan(plan, [(c, c) for c in cols])
+    res = to_numpy(rel)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    a = tables["lineitem"]
+    status = (a["l_linestatus"] == "O").astype(np.int64)
+    order = np.lexsort((a["l_linenumber"], a["l_orderkey"], status))
+    if not sess._last_px or sess.last_retries < 1:
+        raise AssertionError(f"skew sort: px={sess._last_px} retries="
+                             f"{sess.last_retries}, want PX after a retry")
+    if res["l_orderkey"].tolist() != a["l_orderkey"][order].tolist() or \
+            res["l_linenumber"].tolist() != \
+            a["l_linenumber"][order].tolist():
+        raise AssertionError("skew sort: order differs from numpy")
+    print(f"[px] skew sort: {len(order)} rows by (l_linestatus, l_orderkey, "
+          f"l_linenumber) range-exchanged over {PX_SHARDS} shards, "
+          f"retries={sess.last_retries} (range exchange overflow -> 4x "
+          f"budget), DISTRIBUTED, equal numpy's order; {ms:.3f} ms "
+          f"(one run, both attempts); {card}", flush=True)
+
+
+def _px_hot_join(torch, dev, sess, tables, card):
+    """A HASH-HASH join whose probe key is skewed: 30% of lineitem's
+    order keys replaced by one hot key, joined with orders (above the
+    broadcast threshold, so bloom + HYBRID_HASH): the hot key is found by
+    the global top-k, its probe rows stay home and its build row is
+    broadcast; the answer against numpy."""
+    from oceanbase_tpu_torch.exec import plan as pp
+    from oceanbase_tpu_torch.expr import ir
+    from oceanbase_tpu_torch.px.dist_ops import _global_hot_keys
+    from oceanbase_tpu_torch.px.exchange import default_mesh, shard_relation
+    from oceanbase_tpu_torch.datatypes import SqlType
+    from oceanbase_tpu_torch.px.planner import execute_plan_distributed
+    from oceanbase_tpu_torch.vector import bucket_capacity, from_numpy, to_numpy
+
+    a = tables["lineitem"]
+    n = len(a["l_orderkey"])
+    rng = np.random.default_rng(PX_SEED)
+    hot_key = int(a["l_orderkey"][n // 2])
+    keys = a["l_orderkey"].copy()
+    keys[rng.random(n) < PX_HOT_SHARE] = hot_key
+    probe = from_numpy({"hk": keys, "hq": a["l_quantity"]},
+                       types={"hq": SqlType.decimal(15, 2)}, device=dev)
+    # three columns put the build side above the broadcast threshold
+    orders = sess.catalog.table_data("orders").select(
+        ["o_orderkey", "o_totalprice", "o_custkey"])
+    plan = pp.HashJoin(
+        pp.Project(pp.TableScan("probe"), {"hk": ir.col("hk"),
+                                           "hq": ir.col("hq")}),
+        pp.TableScan("orders"), [ir.col("hk")], [ir.col("o_orderkey")],
+        how="inner", out_capacity=bucket_capacity(n))
+    rels = {"probe": probe, "orders": orders}
+    mesh = default_mesh(PX_SHARDS, dev)
+    hot, _k, _m = _global_hot_keys(shard_relation(probe, mesh),
+                                   [ir.col("hk")], 8, mesh)
+    if hot_key not in hot[0].tolist():
+        raise AssertionError(f"hot key {hot_key} not in the hot set")
+    times = []
+    for _ in range(1 + SQL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = to_numpy(execute_plan_distributed(plan, rels, dop=PX_SHARDS,
+                                                device=dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    price = tables["orders"]["o_totalprice"]
+    want = int(price[keys - 1].sum())
+    got = int(res["o_totalprice"].sum())
+    if len(res["hk"]) != n or got != want:
+        raise AssertionError(f"hot-key join: {len(res['hk'])} rows (want "
+                             f"{n}), sum(o_totalprice) {got} (want {want})")
+    print(f"[px] hot-key join: {n} probe rows, {int((keys == hot_key).sum())}"
+          f" on hot key {hot_key} (in the global top-8), joined with "
+          f"{len(price)} orders through bloom + HYBRID_HASH over "
+          f"{PX_SHARDS} shards, rows and sum(o_totalprice) equal numpy; "
+          f"{statistics.median(times[1:]):.3f} ms (median of {SQL_RUNS}); "
+          f"{card}", flush=True)
 
 
 def phase_sql_index(torch, sess, tables, want, card):
@@ -970,7 +1263,7 @@ def _order_row(k, price="123.45", note="load phase") -> str:
             f"'Clerk#000000001', 0, '{note}')")
 
 
-def phase_load(torch, dev, tables, types, card, want, root):
+def phase_load(torch, dev, tables, types, card, want, root, writer):
     """Phase load: TPC-H as OceanBase's users load it — ``|``-delimited
     files, ``lineitem`` and ``orders`` RANGE-partitioned on the order key
     (``LOAD_PARTITIONS`` partitions of equal key width), LOAD DATA INFILE
@@ -981,12 +1274,13 @@ def phase_load(torch, dev, tables, types, card, want, root):
     TABLES, an XA branch left prepared) and a reopen without ``close()``
     that recovers all of it.  Last, the rows the statement surface
     changed are put back as loaded, and the open database, its ``.tbl``
-    files (under ``root``) and the 22 in-process results go on to phase
-    server."""
+    files (under ``root``, written by ``writer``, the process
+    ``start_tbl_writer`` started) and the 22 in-process results go on to
+    phase server."""
     import gc
     import threading
 
-    from oceanbase_tpu_torch.bench.tbl import create_table_sql, write_tbl
+    from oceanbase_tpu_torch.bench.tbl import create_table_sql
     from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
     from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
     from oceanbase_tpu_torch.server.database import Database
@@ -999,12 +1293,15 @@ def phase_load(torch, dev, tables, types, card, want, root):
         print(f"[load] step {name}: {steps[name]:.3f} s", flush=True)
 
     t0 = time.perf_counter()
-    files = {}
-    for name, arrays in tables.items():
-        files[name] = os.path.join(root, f"{name}.tbl")
-        write_tbl(files[name], arrays,
-                  {k: v for k, v in types.items() if k in arrays})
-    step("write .tbl files", t0)
+    proc, queue = writer
+    write_s = queue.get(timeout=900)
+    proc.join(timeout=60)
+    if proc.exitcode != 0:
+        raise RuntimeError(f".tbl writer exited {proc.exitcode}")
+    files = {name: os.path.join(root, f"{name}.tbl") for name in tables}
+    print(f"[load] .tbl files written in {write_s:.3f} s by their own "
+          f"process beside the phases before this one", flush=True)
+    step("wait for the .tbl files", t0)
     torch.cuda.reset_peak_memory_stats()
     db = Database(os.path.join(root, "db"), device=dev)
     sess = db.session()
@@ -3365,6 +3662,9 @@ def main() -> int:
 
     sf = float(os.environ.get("OB_SMOKE_SF", "1"))
     oracles = start_oracles(here, sf)
+    root = tempfile.mkdtemp(prefix="ob_load_")
+    writer = start_tbl_writer(here, sf, root)
+    atexit.register(_stop_tbl_writer, writer, root)
     t0 = time.perf_counter()
     tables, types = gen_tpch(sf=sf)
     li = tables["lineitem"]
@@ -3378,14 +3678,25 @@ def main() -> int:
     kernels = phase_kernels(torch, dev, sf_cols)
     del sf_cols
 
+    def host_load() -> str:
+        """What else runs on the host beside a phase: its host-bound
+        times are taken under this load."""
+        alive = sum(proc.is_alive() for proc, _q in oracles)
+        return (f"{os.cpu_count()} CPU cores; {alive} of {len(oracles)} "
+                f"SQLite oracle processes and {int(writer[0].is_alive())} "
+                f"of 1 .tbl writer running")
+
     def timed_phase(name, fn, *args):
         """Run one phase with the launch counts set to 0 just before it;
-        print its seconds -> (its result, its launch counts)."""
+        print its seconds and the host's load at its start and end
+        -> (its result, its launch counts)."""
+        print(f"[host] phase {name} starts: {host_load()}")
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
         print(f"[time] phase {name}: {time.perf_counter() - t0:.3f} s")
+        print(f"[host] phase {name} ends: {host_load()}")
         return out, _build.launch_counts()
 
     whole_ms, counts = timed_phase("main", phase_main_path, torch, dev,
@@ -3405,6 +3716,9 @@ def main() -> int:
     _, counts = timed_phase("spill", phase_spill, torch, dev, sess, tables,
                             card, sql_stats, want)
     print(f"[spill] kernel launches: {counts}")
+    _, counts = timed_phase("px", phase_px, torch, dev, sess, tables, card,
+                            sql_stats, want)
+    print(f"[px] kernel launches: {counts}")
     ip1_rows, counts = timed_phase("sql-index", phase_sql_index, torch, sess,
                                    tables, want, card)
     print(f"[sql-index] kernel launches: {counts}")
@@ -3417,13 +3731,9 @@ def main() -> int:
                             want)
     print(f"[db] kernel launches: {counts}")
     torch.cuda.empty_cache()
-    import shutil
-    import tempfile
-
-    root = tempfile.mkdtemp(prefix="ob_load_")
     try:
         loaded, counts = timed_phase("load", phase_load, torch, dev, tables,
-                                     types, card, want, root)
+                                     types, card, want, root, writer)
         print(f"[load] kernel launches: {counts}")
         served, counts = timed_phase("server", phase_server, torch, dev,
                                      tables, types, card, want, loaded)

@@ -307,12 +307,15 @@ def hash_groupby(
     group_by: dict[str, ir.Expr],
     aggs: Sequence[AggSpec],
     out_capacity: int | None = None,
-) -> Relation:
+    return_overflow: bool = False,
+):
     """GROUP BY via sort + segment reduce, with the direct-code fast path
     for small dictionary/bool key spaces (``_lowcard_groupby``).
 
     Output relation: one row per group, capacity = min(n, out_capacity),
-    mask marks real groups.
+    mask marks real groups.  ``return_overflow`` also returns the group
+    overflow scalar (pushed to the diagnostics lane either way), for the
+    PX shard operators.
     """
     n = rel.capacity
     m = rel.mask_or_true()
@@ -320,6 +323,8 @@ def hash_groupby(
 
     fast = _lowcard_groupby(rel, group_by, aggs, out_capacity, n, m)
     if fast is not None:
+        if return_overflow:
+            return fast, torch.zeros((), dtype=torch.int64, device=dev)
         return fast
 
     key_cols = {name: eval_expr(e, rel) for name, e in group_by.items()}
@@ -408,7 +413,10 @@ def hash_groupby(
         else:  # count
             out_cols[spec.name] = Column(res, None, rt)
 
-    return Relation(columns=out_cols, mask=out_mask)
+    result = Relation(columns=out_cols, mask=out_mask)
+    if return_overflow:
+        return result, gb_overflow
+    return result
 
 
 def _lowcard_groupby(rel, group_by, aggs, out_capacity, n, m):

@@ -838,6 +838,12 @@ def compile_flag() -> bool:
     return bool(getattr(_exec_flags, "compiled", False))
 
 
+def mark_compiled():
+    """Flag this thread's statement as having paid a first execution at
+    a new signature (a PX program's first run at its signature)."""
+    _exec_flags.compiled = True
+
+
 # ---------------------------------------------------------------------------
 # host/device time split: when enabled, execute_plan records a CUDA event
 # pair around its launches and reads it after the result boundary, so

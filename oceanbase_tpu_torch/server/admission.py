@@ -31,10 +31,12 @@ ObSQLSessionInfo::check_session_status at operator boundaries):
   ``MemstoreFull`` until the flush catches up (≙ ob_tenant_freezer's
   writing throttling).  On by default (``enable_rate_limit``).
 
-The ``admission.*`` metrics are the reference's series.  The
-reference's module also holds ``RemoteCtx`` (a DTL fragment's cancel
-context; ROADMAP Queue 1 item 10), so ``admission.px_downgrades`` is
-declared and stays at zero.
+The ``admission.*`` metrics are the reference's series;
+``admission.px_downgrades`` counts the PX statements the tenant's
+``px_admission`` semaphore turned away to serial execution
+(``sql/session.py::_try_px``).  The reference's module also holds
+``RemoteCtx`` (a DTL fragment's cancel context; ROADMAP Queue 1 item
+10c), which is not ported.
 """
 
 from __future__ import annotations

@@ -61,6 +61,7 @@ from dataclasses import asdict, dataclass, field
 import numpy as np
 import torch
 
+from oceanbase_tpu_torch import default_device
 from oceanbase_tpu_torch.native import crc64
 from oceanbase_tpu_torch.server import metrics as qmetrics
 from oceanbase_tpu_torch.storage.integrity import CorruptionError
@@ -132,10 +133,11 @@ def _probe_mask(n: int, device):
     return torch.as_tensor(np.arange(n) % 8 != 7, device=device)
 
 
-def probe_cases(preset: str = "boot", device="cpu"):
+def probe_cases(preset: str = "boot", device=None):
     """-> list of (name, rows, build() -> (fn, args), analytic_flops,
-    analytic_bytes); ``build`` materializes the inputs on ``device``."""
-    device = torch.device(device)
+    analytic_bytes); ``build`` materializes the inputs on ``device``
+    (``cuda`` unless the caller asks for the CPU)."""
+    device = default_device(device)
     p = PRESETS[preset]
     cases = []
     for n in _ladder(p["rows"]):
@@ -320,11 +322,11 @@ def _backend(device) -> str:
     return "gpu" if device.type == "cuda" else device.type
 
 
-def run_probe(preset: str = "boot", device="cpu") -> CostUnits:
-    """Run the canonical suite on ``device`` -> fresh CostUnits.  Pure
-    measurement: no caching, no persistence (ensure_units layers
-    those)."""
-    device = torch.device(device)
+def run_probe(preset: str = "boot", device=None) -> CostUnits:
+    """Run the canonical suite on ``device`` (``cuda`` unless the caller
+    asks for the CPU) -> fresh CostUnits.  Pure measurement: no caching,
+    no persistence (ensure_units layers those)."""
+    device = default_device(device)
     t_start = time.perf_counter()
     on_cuda = device.type == "cuda"
     units = CostUnits(
@@ -485,12 +487,14 @@ def set_cost_units(units: CostUnits | None):
 
 
 def ensure_units(root: str | None = None, preset: str = "boot",
-                 force: bool = False, device="cpu") -> CostUnits:
+                 force: bool = False, device=None) -> CostUnits:
     """Boot/CALIBRATE entry point: adopt valid persisted constants for
-    this backend, else probe once per process; persist to ``root`` when
-    given.  ``force`` re-probes (ALTER SYSTEM CALIBRATE)."""
+    this backend (``device``'s; ``cuda`` unless the caller asks for the
+    CPU), else probe once per process; persist to ``root`` when given.
+    ``force`` re-probes (ALTER SYSTEM CALIBRATE)."""
     global _PROC_UNITS
-    backend = _backend(torch.device(device))
+    device = default_device(device)
+    backend = _backend(device)
     with _PROC_LOCK:
         if not force:
             if _PROC_UNITS is not None and \

@@ -6,10 +6,12 @@ SYSTEM SET, persisted, with per-tenant overlays): the same ``Config``
 (typed, validated, persisted to ``config.json``, ``watch`` hooks, tenant
 overlays) over only the knobs the ported modules read, the measurement
 and durability planes' among them.  Every other knob of the reference
-(the cluster, PX, rpc and rebuild knobs, ``tenant_memory_limit``, ...)
+(the cluster, DTL, rpc and rebuild knobs, ``tenant_memory_limit``, ...)
 raises the reference's ``KeyError("unknown parameter ...")`` on get, set
 and load: a knob of a plane that is not ported is refused, never
-accepted and ignored.
+accepted and ignored.  So is ``px_exchange_capacity_per_dest``, which
+the reference declares and no module of either package reads (the PX
+planner sizes every exchange budget from its input's capacity).
 """
 
 from __future__ import annotations
@@ -85,6 +87,12 @@ DEF("pdml_min_rows", 8192, "int",
     "+ the PDML DFO split, src/sql/engine/pdml)", _pos)
 DEF("pdml_dop", 4, "int", "parallel-DML worker count", _pos)
 DEF("tenant_cpu_quota", 4, "int", "worker threads per tenant unit", _pos)
+# PX intra-query parallelism (sql/session.py::_px_dop, server/tenant.py)
+DEF("px_default_dop", 0, "int",
+    "degree of parallelism (0 or 1 = serial; capped at the mesh size)",
+    _nonneg)
+DEF("px_workers_per_tenant", 64, "int",
+    "PX admission quota (≙ px_workers_per_cpu_quota)", _pos)
 # table locks (tx/tablelock.py)
 DEF("lock_wait_timeout_s", 5.0, "float",
     "implicit DML table-lock wait budget (≙ lock_wait_timeout)", _pos)

@@ -22,6 +22,12 @@ time is named differently across torch releases (``device_time_total``/
 ``self_device_time_total`` from 2.4 on, ``cuda_time_total`` before):
 ``_device_us`` reads whichever exists.
 
+A capture on the card keeps CUPTI attached after it ends
+(``TEARDOWN_CUPTI=0``, torch's own switch, unless the caller set it):
+torch's default detaches CUPTI at the end of every capture, and a later
+capture in the same process then lost its first kernels, or all of
+them (on an H100, ``scripts/torch_profile_repeat.py``).
+
 The statement always executes: a profiler that cannot start yields a
 note instead of rows.  One capture per process at a time: concurrent
 PROFILEs serialize on a non-blocking lock — the loser runs unprofiled
@@ -31,6 +37,7 @@ with a note, it never deadlocks a session.
 from __future__ import annotations
 
 import collections
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -101,6 +108,9 @@ def profile_statement(run, cuda: bool = False):
             acts = [ProfilerActivity.CPU]
             if cuda:
                 acts.append(ProfilerActivity.CUDA)
+                # read when the capture stops: CUPTI stays attached, so
+                # the next capture sees the statement's first kernels
+                os.environ.setdefault("TEARDOWN_CUPTI", "0")
             prof = profile(activities=acts)
             prof.__enter__()
         except Exception as e:  # noqa: BLE001 — no profiler here: the

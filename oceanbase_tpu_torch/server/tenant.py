@@ -11,13 +11,14 @@ its workers and its WAL.
 
 It also wires the sequences (``share/sequence.py``), the table-lock
 manager (``tx/tablelock.py``), the KV front end (``kv.py``) and the
-worker pool parallel DML submits to, the memstore write throttle
+worker pool parallel DML submits to, the PX admission semaphore
+(``px_workers_per_tenant`` permits), the memstore write throttle
 (``admission.MemstoreThrottle``) and the disk manager
 (``diskmgr.DiskManager``: the log, data and spill budgets, read-only
 degradation, the log surface's checkpoint-and-recycle reclaim).  What
 the reference's tenant also wires and the port's does not: the
 multi-node ``NetPalf`` log (ROADMAP Queue 1 item 5b, sub-item 14) and
-the CDC pump and PX admission (item 10).  Its
+the CDC pump (item 10a).  Its
 recovery steps carry the reference's trace spans (``recovery.replay``,
 ``recovery.restore_prepared``, ``recovery.checkpoint``).
 """
@@ -142,6 +143,10 @@ class Tenant:
         self._pool = ThreadPoolExecutor(
             max_workers=int(self.config["tenant_cpu_quota"]),
             thread_name_prefix=f"tnt-{name}")
+        # PX admission quota (≙ px target monitor): a PX statement holds
+        # one permit while it runs; a denied one runs serially
+        self.px_admission = threading.BoundedSemaphore(
+            int(self.config["px_workers_per_tenant"]))
 
         # memstore write backpressure (≙ writing throttling): byte
         # accounting + ramp/hard-limit at the TransService.write choke

@@ -70,7 +70,14 @@ views (materialized per statement as transient tables) run.
 External tables (CREATE EXTERNAL TABLE: a CSV or Parquet file read at
 query time) and the workload repository's ANALYZE / SHOW WORKLOAD
 REPORT run; a spilled statement's temp files count against the tenant's
-spill budget.  There is no parallel or pushed-down query execution.
+spill budget.
+
+PX: a session whose ``px_dop`` (SET px_dop = N, else the database's
+``px_default_dop``) is above 1 runs each distributable plan as P shard
+programs over the process mesh (``px/planner.py``; P is capped at the
+mesh size, ``px.exchange.set_mesh_size``), under a tenant's
+``px_admission`` permit; a plan shape PX refuses, or a denied permit,
+runs serially.  There is no pushed-down (DTL) execution.
 
 VECTOR(d) columns take '[x, y, ...]' literals; CREATE VECTOR INDEX ...
 WITH (metric = ..., approximate = ...) serves ORDER BY <distance> LIMIT
@@ -128,7 +135,11 @@ from oceanbase_tpu_torch.expr.compile import (
     literal_value,
     parse_vector_text,
 )
-from oceanbase_tpu_torch.px.planner import NotDistributable
+from oceanbase_tpu_torch.px.exchange import mesh_size
+from oceanbase_tpu_torch.px.planner import (
+    NotDistributable,
+    execute_plan_distributed,
+)
 from oceanbase_tpu_torch.server import admission as qadmission
 from oceanbase_tpu_torch.server import calibrate as qcalibrate
 from oceanbase_tpu_torch.server import metrics as qmetrics
@@ -272,6 +283,10 @@ class Session:
             db.ash.register(self.session_id, self._ash_state)
         #: CapacityOverflow re-plans the last statement needed
         self.last_retries = 0
+        #: did the last SELECT run through PX?
+        self._last_px = False
+        #: was the last SELECT's PX permit denied (run serially)?
+        self._last_px_downgrade = False
         #: the plan the last SELECT ran (after any capacity re-plans)
         self.last_plan: PlanNode | None = None
         #: its output columns, [(column id, output name)]
@@ -807,7 +822,12 @@ class Session:
                 rel, outputs = self._run_plan(
                     plan, outputs, monitor=monitor,
                     mon_collect=mon_collect, feedback=feedback_on)
-                xsp.tags.update(attempts=self.last_retries + 1)
+                xsp.tags.update(attempts=self.last_retries + 1,
+                                px=int(self._last_px))
+                if self._last_px_downgrade:
+                    # a px_admission denial is visible on the
+                    # statement's trace span, not silently serial
+                    xsp.tags["px_downgrade"] = 1
         except CapacityOverflow:
             # backstop: re-plan retries exhausted -> disk spill tier,
             # largest input as the stream
@@ -821,6 +841,7 @@ class Session:
         res = self._materialize(rel, outputs)
         qplan.resolve_pending()
         exec_elapsed = time.monotonic() - t0
+        path = "px" if self._last_px else "serial"
         if monitor is not None and mon_collect:
             # roofline prediction vs the measured device half: the TIME
             # q-error beside the cardinality one
@@ -828,11 +849,13 @@ class Session:
             self.db.plan_monitor.record(
                 qplan.plan_fingerprint(plan)[:64], monitor, exec_elapsed,
                 logical_hash=lhash, retries=self.last_retries,
-                path="serial", host_s=times.host_s,
+                path=path, host_s=times.host_s,
                 device_s=times.device_s, pred_s=pred_s, time_q=time_q)
             # validate the CHOICE, not just the plan
             self.db.plan_choice.observe(lhash, times.device_s)
-            if feedback_on and monitor:
+            if feedback_on and monitor and path == "serial":
+                # a PX ledger has one PxExecute row, not the plan's
+                # postorder: only serial ledgers teach the feedback store
                 self.db.plan_feedback.observe(lhash, monitor)
         if self.last_retries == 0 and not qplan.compile_flag():
             # plan-regression watchdog: latency baselines per logical
@@ -852,17 +875,25 @@ class Session:
         return self._run_plan(plan, outputs)
 
     def _run_plan(self, plan: PlanNode, outputs, monitor=None,
-                  mon_collect: bool = True, feedback: bool = False):
+                  mon_collect: bool = True, feedback: bool = False,
+                  px: bool = True):
         """Run ``plan`` on the device under the capacity-retry ladder
         (4x per retry, or straight to the budget the overflow report
         asks for with ``feedback``); ``monitor`` collects the ledger
-        rows of the successful attempt."""
+        rows of the successful attempt.  With ``px`` and a ``px_dop``
+        above 1 each attempt first tries the PX path (``_try_px``),
+        whose exchange budgets scale with the same factor."""
         tables = {t: self._table_snapshot(t)
                   for t in referenced_tables(plan)
                   if self.catalog.has_table(t)}
         self.last_ann_path = self._try_ann_prefilter(plan, tables)
         self.last_access_paths = self._index_prefilter(plan, tables)
         prepare_index_probes(self.catalog, plan, tables)
+        dop = 1
+        if px:  # EXPLAIN ANALYZE runs serially and keeps the last flags
+            dop = self._px_dop()
+            self._last_px = False
+            self._last_px_downgrade = False
         factor = 1
         max_retry = int(self.variables["max_capacity_retry"])
         for attempt in range(max_retry + 1):
@@ -871,8 +902,20 @@ class Session:
             qadmission.checkpoint()
             try:
                 p = plan if factor == 1 else scale_capacities(plan, factor)
-                rel = execute_plan(p, tables, monitor_out=monitor,
-                                   monitor_collect=mon_collect)
+                rel = None
+                if dop > 1:
+                    try:
+                        rel = self._try_px(p, tables, dop, factor=factor,
+                                           monitor=monitor if mon_collect
+                                           else None)
+                    except (NotDistributable, NotImplementedError):
+                        # a shape PX refuses stays refused on a retry:
+                        # the remaining attempts run serially at once
+                        dop = 1
+                    self._last_px = rel is not None
+                if rel is None:
+                    rel = execute_plan(p, tables, monitor_out=monitor,
+                                       monitor_collect=mon_collect)
                 break
             except CapacityOverflow as ovf:
                 if attempt >= max_retry:
@@ -886,6 +929,51 @@ class Session:
         self.last_plan = p
         self.last_outputs = outputs
         return rel, outputs
+
+    def _px_dop(self) -> int:
+        """Effective degree of parallelism.  A session px_dop wins over the
+        config default; setting it to 0/1 EXPLICITLY forces serial
+        execution (≙ the /*+ no_parallel */ hint).  Capped at the
+        process mesh size (1 per visible device unless
+        ``px.exchange.set_mesh_size`` says otherwise)."""
+        if "px_dop" in self.variables:
+            dop = int(self.variables["px_dop"] or 0)
+        elif self.db is not None:
+            dop = int(self.db.config["px_default_dop"])
+        else:
+            dop = 0
+        if dop <= 1:
+            return 1
+        return min(dop, mesh_size(self.device))
+
+    def _try_px(self, plan, tables, dop, factor=1, monitor=None):
+        """Attempt distributed execution; None -> fall back to single-node
+        for this attempt (a denied PX admission permit).  A plan shape
+        PX refuses (≙ the optimizer declining a PX plan) raises
+        ``NotDistributable`` or ``NotImplementedError``."""
+        if self.tenant is not None:
+            if not self.tenant.px_admission.acquire(blocking=False):
+                # admission denied: run serial (≙ px downgrade) — but
+                # VISIBLY: counted, span-tagged, shown by EXPLAIN ANALYZE
+                qmetrics.inc("admission.px_downgrades",
+                             tenant=getattr(self.tenant, "name", "sys"))
+                self._last_px_downgrade = True
+                return None
+        try:
+            rel = execute_plan_distributed(plan, tables, dop=dop,
+                                           budget_factor=factor,
+                                           device=self.device)
+        finally:
+            if self.tenant is not None:
+                self.tenant.px_admission.release()
+        if monitor is not None:
+            est = getattr(plan, "est_rows", None)
+            act = int(rel.count())
+            monitor.append({"op": f"PxExecute(dop={dop})",
+                            "pos": len(monitor), "est": est,
+                            "rows": act, "q_error": qplan.q_error(est, act),
+                            "elapsed_s": 0.0})
+        return rel
 
     def _roofline(self, plan):
         """Roofline prediction for THIS statement's accumulated device
@@ -919,6 +1007,16 @@ class Session:
         if analyze:
             row_counts, extra = self._explain_analyze(plan, outputs)
         text = format_plan(plan, row_counts=row_counts) + extra
+        if analyze and self.tenant is not None and self._px_dop() > 1:
+            # surface the px_admission verdict the statement would get
+            # RIGHT NOW: a denied probe means concurrent PX statements
+            # hold the tenant quota and this plan runs serial
+            if self.tenant.px_admission.acquire(blocking=False):
+                self.tenant.px_admission.release()
+            else:
+                text += ("\npx: admission denied "
+                         f"(dop={self._px_dop()} downgraded to serial; "
+                         "see admission.px_downgrades)")
         if row_counts:
             worst = max(row_counts.values(),
                         key=lambda r: r.get("q_error", 0.0))
@@ -948,7 +1046,8 @@ class Session:
         an0 = time.monotonic()  # ledger total_s (step-proof)
         # the same retry ladder as execution: a CapacityOverflow IS the
         # finding EXPLAIN ANALYZE exists to expose, not a failure
-        self._run_plan(plan, outputs, monitor=monitor, feedback=True)
+        self._run_plan(plan, outputs, monitor=monitor, feedback=True,
+                       px=False)
         # this statement reads no result, so its execution's event pair
         # (if it had no overflow lane to read) is waited for here
         qplan.resolve_pending(block=True)

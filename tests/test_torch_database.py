@@ -530,7 +530,9 @@ def test_unported_knobs_are_refused(tmp_path):
     db = Database(str(tmp_path / "db"), device="cpu")
     s = db.session()
     for sql in ("alter system set tenant_memory_limit = 1",
-                "alter system set px_default_dop = 2",
+                # declared by the reference, read by neither package:
+                # the planner sizes exchange budgets itself
+                "alter system set px_exchange_capacity_per_dest = 1",
                 "alter system set enable_fault_injection = true",
                 "set global fault_seed = 1",
                 "alter system set enable_dtl_pushdown = false",
@@ -547,6 +549,8 @@ def test_unported_knobs_are_refused(tmp_path):
                      "shape_bucket_floor", "memstore_limit_rows",
                      "minor_compact_trigger", "kv_cache_limit_bytes",
                      "pdml_min_rows", "pdml_dop", "tenant_cpu_quota",
+                     # PX
+                     "px_default_dop", "px_workers_per_tenant",
                      "lock_wait_timeout_s", "enable_plan_cache",
                      "plan_cache_mem_limit", "query_timeout_s",
                      "enable_admission", "admission_slots",
@@ -580,7 +584,8 @@ def test_unported_knobs_are_refused(tmp_path):
     # each new knob has the reference's default
     from oceanbase_tpu.server.config import Config as JConfig
 
-    for name in ("enable_rate_limit", "memstore_limit_bytes",
+    for name in ("px_default_dop", "px_workers_per_tenant",
+                 "enable_rate_limit", "memstore_limit_bytes",
                  "writing_throttle_trigger_pct",
                  "writing_throttle_max_sleep_s", "log_disk_limit_bytes",
                  "data_disk_limit_bytes", "spill_disk_limit_bytes",
@@ -595,7 +600,7 @@ def test_unported_knobs_are_refused(tmp_path):
     assert db2.config["sql_work_area_rows"] == 4096
     db2.close()
     (tmp_path / "db" / "config.json").write_text(
-        json.dumps({"px_default_dop": 2}))
+        json.dumps({"enable_dtl_pushdown": False}))
     with pytest.raises(KeyError, match="unknown parameter"):
         Database(str(tmp_path / "db"), device="cpu")
 

@@ -182,6 +182,21 @@ def test_units_roundtrip_and_corruption(tmp_path, monkeypatch):
     assert tcal.load_units(str(tmp_path / "none")) is None
 
 
+def test_probe_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """Without a device the probes run on ``cuda``: with no card they
+    raise instead of probing the CPU, and nothing is cached or written."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tcal, "_PROC_UNITS", None)
+    root = str(tmp_path)
+    for call in (lambda: tcal.probe_cases("boot"),
+                 lambda: tcal.run_probe("boot"),
+                 lambda: tcal.ensure_units(root)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert tcal._PROC_UNITS is None
+    assert tcal.load_units(root) is None
+
+
 def test_cost_units_file_is_byte_equal_to_the_reference(tmp_path):
     fields = dict(backend="cpu", device_kind="cpu", device_count=1,
                   peak_flops_s=1.5e11, peak_bytes_s=1.25e10,
@@ -356,6 +371,20 @@ def test_concurrent_profile_runs_unprofiled_with_a_note():
     finally:
         tprof._PROFILE_LOCK.release()
     assert (out, rows) == (7, []) and "busy" in note
+
+
+@pytest.mark.parametrize("preset", [None, "1"])
+def test_cuda_capture_keeps_cupti_attached(monkeypatch, preset):
+    """A capture with CUDA activity sets torch's ``TEARDOWN_CUPTI`` to 0
+    before it starts, unless the caller set it: torch's default detaches
+    CUPTI after each capture and the next capture then loses kernels."""
+    if preset is None:
+        monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    else:
+        monkeypatch.setenv("TEARDOWN_CUPTI", preset)
+    out, _rows, _note = tprof.profile_statement(lambda: 7, cuda=True)
+    assert out == 7
+    assert os.environ["TEARDOWN_CUPTI"] == (preset or "0")
 
 
 def test_profile_with_tracing_off_still_joinable(db):
