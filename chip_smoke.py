@@ -46,6 +46,19 @@ Phases, each printing its own lines:
    exchange overflows and re-plans through the session's retry ladder,
    and a join whose probe key is 30% one value through the bloom filter
    and the hybrid hot-key exchange, both against numpy;
+6d. obcheck: on the same catalog, obcheck over the port: the static
+   gate (``scripts/torch_obcheck.py --ci --json``, the eight rule
+   families over ``oceanbase_tpu_torch/``) must report no new finding;
+   every table is padded to its capacity bucket (lineitem's 6,002,357
+   rows in 8,388,608 lanes) and the 22 TPC-H plans as the session binds
+   them, the hand-built Q1, Q6 and Q14, and Q1, Q3, Q14 and Q18 through
+   ``execute_plan_distributed`` on the 8-shard mesh must give
+   bit-identical results with their dead lanes poisoned
+   (``analysis/poison.py``); then one warm ``execute_plan`` of each of
+   the 22 plans runs under ``torch.cuda.set_sync_debug_mode("warn")``
+   and every synchronizing call's site must be a line on which the
+   static rule ``trace.host-sync`` fires, as a finding or under a
+   pragma;
 7. sql-index: on the same catalog, a secondary index on every ``*key``
    column (the JAX package's SF1 parity configuration,
    ``scripts/sf_parity.py``), each sorted sidecar built and timed, then
@@ -125,8 +138,9 @@ Phases, each printing its own lines:
    reopen without ``close()``; and VECTOR cells over the wire;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
-   and printed after it: the stream, spill, SQL, PX, server, durability
-   and vector paths, like the JAX package's, reach no hand-written kernel,
+   and printed after it: the stream, spill, SQL, PX, obcheck, server,
+   durability and vector paths, like the JAX package's, reach no
+   hand-written kernel,
    and measure makes one profiled launch), and each phase's seconds;
 10. the card's name and power limit, then the result line.
 
@@ -946,6 +960,196 @@ def _px_hot_join(torch, dev, sess, tables, card):
           f"{PX_SHARDS} shards, rows and sum(o_totalprice) equal numpy; "
           f"{statistics.median(times[1:]):.3f} ms (median of {SQL_RUNS}); "
           f"{card}", flush=True)
+
+
+PX_POISON_QUERIES = (1, 3, 14, 18)  # through execute_plan_distributed
+
+
+def _start_obcheck_gate(here):
+    """(a) of phase obcheck: ``scripts/torch_obcheck.py --ci --json`` over
+    the checkout, started in a process of its own; it runs on a spare
+    core while the card does (b) and (c) -> (the process, its start)."""
+    import subprocess
+
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "scripts", "torch_obcheck.py"),
+         "--ci", "--json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=here)
+    return proc, time.perf_counter()
+
+
+def _finish_obcheck_gate(gate):
+    """Wait for the gate -> its JSON summary; fails on a new finding."""
+    proc, t0 = gate
+    out, err = proc.communicate(timeout=600)
+    lines = out.splitlines()
+    print(f"[obcheck] static {lines[0] if lines else '(no output)'}")
+    summary = json.loads(lines[0])
+    if proc.returncode != 0 or summary["new"] > 0:
+        raise AssertionError(f"obcheck gate: rc {proc.returncode}, "
+                             f"{summary['new']} new findings:\n{err}")
+    print(f"[obcheck] static gate green: {summary['files']} files, "
+          f"{summary['findings']} findings, {summary['new']} new, in "
+          f"{time.perf_counter() - t0:.3f} s (beside (b) and (c))")
+    return summary
+
+
+def _sync_spans(here) -> dict:
+    """{path: [(first, last) line]}: the statements (a compound
+    statement's header alone) holding a ``trace.host-sync`` finding of
+    the port's tree, before pragmas apply."""
+    import ast
+
+    from oceanbase_tpu_torch.analysis.core import (
+        load_package_files, run_all_marked,
+    )
+    from oceanbase_tpu_torch.analysis.trace_safety import check_trace_safety
+
+    files = load_package_files(here)
+    lines = {}
+    for f, _sup in run_all_marked(files, [check_trace_safety]):
+        if f.rule == "trace.host-sync":
+            lines.setdefault(f.path, set()).add(f.line)
+    spans = {}
+    for path, found in lines.items():
+        ranges = []
+        for node in ast.walk(ast.parse(files[path])):
+            if not isinstance(node, ast.stmt):
+                continue
+            body = getattr(node, "body", None)
+            last = (body[0].lineno - 1 if isinstance(body, list) and body
+                    and isinstance(body[0], ast.stmt) else node.end_lineno)
+            ranges.append((node.lineno, max(last, node.lineno)))
+        for ln in found:
+            inner = min((r for r in ranges if r[0] <= ln <= r[1]),
+                        key=lambda r: r[1] - r[0], default=(ln, ln))
+            spans.setdefault(path, []).append(inner)
+    return spans
+
+
+def _padded_catalog(torch, sess, tables):
+    """Each catalog table padded to its capacity bucket with dead lanes
+    (``bench/harness.py::dead_lane_padded``, as the storage engine
+    materializes a snapshot) unless it already has dead lanes; prints
+    live and dead lanes per table."""
+    from oceanbase_tpu_torch.bench.harness import dead_lane_padded
+
+    padded = {}
+    for name in tables:
+        rel = sess.catalog.table_data(name)
+        live = int(rel.count())
+        if live == rel.capacity:
+            rel = dead_lane_padded(rel)
+        padded[name] = rel
+        print(f"[obcheck] {name}: {live} live rows in {rel.capacity} lanes, "
+              f"{rel.capacity - live} dead")
+        if live == rel.capacity:
+            raise AssertionError(f"{name} has no dead lane to poison")
+    return padded
+
+
+def phase_obcheck(torch, dev, sess, tables, card, here):
+    """Phase obcheck: obcheck over the port, on the card.  (a) the static
+    gate (``scripts/torch_obcheck.py --ci --json``) over this checkout;
+    (b) the poison-lane invariant at SF1 with every table padded to its
+    capacity bucket: the 22 TPC-H plans as the session binds them and
+    the hand-built Q1, Q6 and Q14 through ``execute_plan``, and Q1, Q3,
+    Q14 and Q18 through ``execute_plan_distributed`` on phase px's
+    8-shard mesh (whose receive lanes are mostly dead), each clean and
+    poisoned result bit-identical; (c) one warm ``execute_plan`` of
+    each of the 22 plans under ``torch.cuda.set_sync_debug_mode
+    ("warn")``, every synchronizing call's site a line on which
+    ``trace.host-sync`` fires (as a finding or under a pragma)."""
+    gate = _start_obcheck_gate(here)
+    try:
+        _obcheck_card(torch, dev, sess, tables, card, here)
+    except BaseException:
+        gate[0].kill()
+        gate[0].communicate()
+        raise
+    _finish_obcheck_gate(gate)
+
+
+def _obcheck_card(torch, dev, sess, tables, card, here):
+    """(b) and (c) of phase obcheck, on the card."""
+    from oceanbase_tpu_torch.bench import queries as hand
+    from oceanbase_tpu_torch.bench.harness import poison_checked
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+    from oceanbase_tpu_torch.exec.plan import (
+        execute_plan, prepare_index_probes, referenced_tables,
+        resolve_pending,
+    )
+    from oceanbase_tpu_torch.px.exchange import set_mesh_size
+    from oceanbase_tpu_torch.px.planner import execute_plan_distributed
+    from oceanbase_tpu_torch.sql.optimizer import scale_capacities
+    from oceanbase_tpu_torch.sql.parser import parse_sql
+    from oceanbase_tpu_torch.vector import to_numpy
+
+    padded = _padded_catalog(torch, sess, tables)
+
+    def serial(p, t, _factor):
+        return execute_plan(p, t)
+
+    def px(p, t, factor):
+        return execute_plan_distributed(p, t, dop=PX_SHARDS,
+                                        budget_factor=factor, device=dev)
+
+    plans, factors = {}, {}
+    t0 = time.perf_counter()
+    for q, sql in sorted(QUERIES.items()):
+        plans[q] = sess._plan_select(parse_sql(sql), None)[0]
+        sub = {t: padded[t] for t in referenced_tables(plans[q])}
+        retries = poison_checked(serial, plans[q], sub)
+        factors[q] = 4 ** retries
+        print(f"[obcheck] poison q{q} ok (execute_plan, retries={retries})",
+              flush=True)
+    li_rows = len(tables["lineitem"]["l_orderkey"])
+    for name, plan in (("q1", hand.q1_plan()), ("q6", hand.q6_plan()),
+                       ("q14", hand.q14_plan(li_rows))):
+        poison_checked(serial, plan, padded)
+        print(f"[obcheck] poison {name} ok (hand-built, execute_plan)")
+    set_mesh_size(PX_SHARDS)
+    try:
+        for q in PX_POISON_QUERIES:
+            sub = {t: padded[t] for t in referenced_tables(plans[q])}
+            retries = poison_checked(px, plans[q], sub)
+            print(f"[obcheck] poison q{q} ok (execute_plan_distributed over "
+                  f"{PX_SHARDS} shards, retries={retries})", flush=True)
+    finally:
+        set_mesh_size(None)
+    del padded
+    torch.cuda.empty_cache()
+    print(f"[obcheck] poison: 22 + 3 + {len(PX_POISON_QUERIES)} plans "
+          f"bit-identical clean and poisoned in "
+          f"{time.perf_counter() - t0:.3f} s; {card}")
+
+    spans = _sync_spans(here)
+    total, uncovered = 0, []
+    for q in sorted(plans):
+        p = plans[q] if factors[q] == 1 else \
+            scale_capacities(plans[q], factors[q])
+        tabs = {t: sess._table_snapshot(t) for t in referenced_tables(p)}
+        prepare_index_probes(sess.catalog, p, tabs)
+        to_numpy(execute_plan(p, tabs))  # warm: first signature's reads
+        resolve_pending(block=True)
+        sites = []
+        n = _sync_calls(torch, lambda: execute_plan(p, tabs), sites)
+        resolve_pending(block=True)
+        total += n
+        counted = {}
+        for site in sites:
+            counted[site] = counted.get(site, 0) + 1
+            path, _, line = site.rpartition(":")
+            if not any(a <= int(line) <= b for a, b in spans.get(path, ())):
+                uncovered.append(f"q{q} {site}")
+        text = ",".join(f"{k}x{v}" if v > 1 else k
+                        for k, v in sorted(counted.items()))
+        print(f"[obcheck] syncs q{q} n={n} sites={text or '-'}", flush=True)
+    if uncovered:
+        raise AssertionError("synchronizing calls on lines trace.host-sync "
+                             "does not flag: " + "; ".join(uncovered))
+    print(f"[obcheck] {total} synchronizing calls over 22 warm executions, "
+          f"every site flagged by trace.host-sync; {card}")
 
 
 def phase_sql_index(torch, sess, tables, want, card):
@@ -2303,20 +2507,45 @@ MEASURE_PLANE_OFF = {"enable_metrics": False,
                      "enable_profiling": False, "trace_sample_rate": 0.0}
 
 
-def _sync_calls(torch, fn) -> int:
+def _port_site(here, stack) -> str:
+    """"path:line" of the innermost frame of the port's package on
+    ``stack`` (the warning's own file may lie inside torch)."""
+    pkg = os.path.join(here, "oceanbase_tpu_torch") + os.sep
+    for fr in reversed(stack):
+        if os.path.abspath(fr.filename).startswith(pkg):
+            rel = os.path.relpath(os.path.abspath(fr.filename), here)
+            return f"{rel.replace(os.sep, '/')}:{fr.lineno}"
+    return "outside-the-port:0"
+
+
+def _sync_calls(torch, fn, sites=None) -> int:
     """Synchronizing CUDA calls ``fn`` makes, counted by
-    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    ``torch.cuda.set_sync_debug_mode("warn")``.  With a list ``sites``,
+    each call's site (``_port_site``) is appended."""
+    import traceback
     import warnings
 
-    with warnings.catch_warnings(record=True) as caught:
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = 0
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        nonlocal n
+        # the mode's own one-time "prototype feature" warning is not a call
+        if "called a synchronizing" not in str(message):
+            return
+        n += 1
+        if sites is not None:
+            sites.append(_port_site(here, traceback.extract_stack()))
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = hook
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    # the mode's own one-time "prototype feature" warning is not a call
-    return sum("called a synchronizing" in str(w.message) for w in caught)
+    return n
 
 
 def phase_measure(torch, dev, tables, types, card, want, served):
@@ -3719,6 +3948,9 @@ def main() -> int:
     _, counts = timed_phase("px", phase_px, torch, dev, sess, tables, card,
                             sql_stats, want)
     print(f"[px] kernel launches: {counts}")
+    _, counts = timed_phase("obcheck", phase_obcheck, torch, dev, sess,
+                            tables, card, here)
+    print(f"[obcheck] kernel launches: {counts}")
     ip1_rows, counts = timed_phase("sql-index", phase_sql_index, torch, sess,
                                    tables, want, card)
     print(f"[sql-index] kernel launches: {counts}")

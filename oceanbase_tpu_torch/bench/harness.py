@@ -11,7 +11,10 @@
   ``pcie_link``: its host link and that link's nominal rate;
 - ``spill_inputs`` and ``spilled_result``: a bound plan's inputs to
   ``exec/spill_exec.py::execute_spilled`` and its host columns back as a
-  ``Result``, as the reference session's spill route builds them.
+  ``Result``, as the reference session's spill route builds them;
+- ``dead_lane_padded`` and ``poison_checked``: a table padded to its
+  capacity bucket with dead lanes, and a plan held to the poison-lane
+  invariant under the session's capacity-retry ladder.
 
 The timer, ``card_line`` and ``pcie_link`` need a CUDA device.
 """
@@ -24,11 +27,15 @@ import time
 
 import torch
 
+from oceanbase_tpu_torch.analysis.poison import assert_poison_invariant
 from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
+from oceanbase_tpu_torch.exec.diag import CapacityOverflow
 from oceanbase_tpu_torch.exec.granule import numpy_chunk_provider
 from oceanbase_tpu_torch.exec.plan import referenced_tables
 from oceanbase_tpu_torch.sql import Session
+from oceanbase_tpu_torch.sql.optimizer import scale_capacities
 from oceanbase_tpu_torch.sql.session import materialize_host
+from oceanbase_tpu_torch.vector import Relation, bucket_capacity
 
 
 def card_line() -> str:
@@ -137,3 +144,41 @@ def spill_inputs(catalog, plan, host_tables: dict):
 #: ``execute_spilled``'s host columns -> a ``Result`` over the
 #: statement's outputs, as the session's spill route builds it
 spilled_result = materialize_host
+
+
+def dead_lane_padded(rel: Relation) -> Relation:
+    """``rel`` padded to its capacity bucket with the added lanes dead in
+    the mask, as ``storage/engine.py::StorageCatalog._bucketed``
+    materializes a snapshot (the next rung when the rows fill one
+    exactly, so there are lanes to poison)."""
+    cap = bucket_capacity(rel.capacity)
+    if cap == rel.capacity:
+        cap = bucket_capacity(rel.capacity + 1)
+    return rel.pad_to(cap)
+
+
+def poison_checked(run, plan, tables: dict) -> int:
+    """``assert_poison_invariant`` for ``run(plan, tables, factor)``
+    under the session's capacity-retry ladder (as many re-plans as
+    ``max_capacity_retry`` allows by default): a clean run that
+    overflows re-plans with 4x the capacities (``factor`` scales a PX
+    run's exchange budgets too); an overflow of the poisoned run alone
+    is a dead lane influencing the result and fails -> the retries."""
+    max_retry = Session.MAX_CAPACITY_RETRIES
+    factor = 1
+    for attempt in range(max_retry + 1):
+        p = plan if factor == 1 else scale_capacities(plan, factor)
+        calls = []
+
+        def once(t, p=p, f=factor):
+            calls.append(t)
+            return run(p, t, f)
+
+        try:
+            assert_poison_invariant(once, tables)
+            return attempt
+        except CapacityOverflow:
+            if len(calls) > 1:
+                raise  # the poisoned run alone overflowed
+        factor *= 4
+    raise CapacityOverflow(f"still overflowing after {max_retry} re-plans")

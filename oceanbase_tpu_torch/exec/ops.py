@@ -897,6 +897,8 @@ def merge_dicts(cols: Sequence[Column]) -> tuple[list, StringDict | None]:
             continue
         remap = np.searchsorted(merged.values,
                                 c.sdict.values).astype(np.int32)
+        # the merged remap is uploaded per execution, ROADMAP (l)
+        # obcheck: ok(trace.host-sync)
         codes = take(torch.from_numpy(remap).to(c.device), c.data)
         out.append(Column(codes, c.valid, c.dtype, merged))
     return out, merged

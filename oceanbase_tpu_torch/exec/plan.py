@@ -746,6 +746,8 @@ def build_sidecar(catalog, node: IndexProbe, rel: Relation) -> Relation:
     ix = next(i for i in td.indexes if i.name == node.index)
     col = rel.columns[ix.columns[0]]
     live = col.valid_or_true() & rel.mask_or_true()
+    # the sidecar's one read sizes it, once per build (catalog-cached)
+    # obcheck: ok(trace.host-sync)
     pos = torch.nonzero(live).reshape(-1)
     keys, order = torch.sort(col.data.to(torch.int64).index_select(0, pos),
                              stable=True)
@@ -1010,6 +1012,8 @@ def resolve_pending(block: bool = False):
             if not block:
                 keep.append(ex)
                 continue
+            # only block=True waits (EXPLAIN ANALYZE, exec_times)
+            # obcheck: ok(trace.host-sync)
             ex.done.synchronize()
         _finish(ex)
     pend[:] = keep
@@ -1189,7 +1193,8 @@ def execute_plan(plan: PlanNode, tables: dict[str, Relation],
             if split:
                 ex.ev1.record()
             tw = time.perf_counter()
-            vals = vec.tolist()  # the one host read of the execution
+            # obcheck: ok(trace.host-sync) the one host read of the execution
+            vals = vec.tolist()
             wait = time.perf_counter() - tw
         elif counts:
             ex.n_mon, ex.pinned = len(counts), on_cuda
@@ -1274,7 +1279,9 @@ def check_overflow(entries: list) -> None:
         return
     lanes = torch.stack([torch.clamp(v.to(torch.int64), min=0)
                          for _n, v, _cap in entries])
+    # obcheck: ok(trace.host-sync) the one host read of a chunk plan
     if int(lanes.sum()) > 0:
+        # obcheck: ok(trace.host-sync) the error path's per-lane detail
         vals = lanes.cpu().tolist()
         drops = [(n, cap, v)
                  for (n, _v, cap), v in zip(entries, vals) if v > 0]

@@ -48,6 +48,7 @@ def _full(n: int, value, dtype, device) -> torch.Tensor:
 
 def _host_lut(values: np.ndarray, dtype, device) -> torch.Tensor:
     """Upload a host lookup table built over a dictionary."""
+    # obcheck: ok(trace.host-sync) pageable upload per execution, ROADMAP (l)
     return torch.from_numpy(np.ascontiguousarray(values)).to(
         device=device, dtype=dtype)
 
@@ -320,6 +321,7 @@ def _eval_inlist(e: ir.InList, rel: Relation, n: int) -> Column:
     if not vals:
         val = _full(n, False, torch.bool, c.device)
     else:
+        # obcheck: ok(trace.host-sync) IN-list literals, ROADMAP (l)
         test = torch.tensor(vals, device=c.device)
         ct = torch.promote_types(c.data.dtype, test.dtype)
         val = torch.isin(c.data.to(ct), test.to(ct))
@@ -618,6 +620,7 @@ _MONTH_DAYS = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
 def _days_in_month(y, m):
     leap = (((torch.remainder(y, 4) == 0) & (torch.remainder(y, 100) != 0))
             | (torch.remainder(y, 400) == 0))
+    # obcheck: ok(trace.host-sync) a 12-entry table per call, ROADMAP (l)
     lengths = torch.tensor(_MONTH_DAYS, dtype=torch.int64, device=m.device)
     base = take(lengths, torch.clamp(m - 1, 0, 11))
     return torch.where((m == 2) & leap, 29, base)
@@ -656,6 +659,7 @@ def _eval_func(e: ir.FuncCall, rel: Relation, n: int) -> Column:
     if name in _UDFS:
         fn, rt = _UDFS[name]
         cols = [eval_expr(a, rel) for a in e.args]
+        # obcheck: ok(trace.host-sync) a user function's host result
         data = torch.as_tensor(fn(*[c.data for c in cols]), device=dev)
         valid = None
         for c in cols:

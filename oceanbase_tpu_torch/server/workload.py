@@ -266,6 +266,8 @@ class WorkloadRepository:
             if health is not None and health.state(pid) == "down":
                 continue
             try:
+                # a read: the reference's POLICIES declares it idempotent
+                # obcheck: ok(rpc.nonidempotent-resend)
                 r = peers[pid].call("workload.snapshot", _deadline_s=5.0)
                 # the bulk reply carries its own digest: a merge must
                 # never fold in bytes the peer did not mean to send

@@ -55,6 +55,7 @@ def _top_k(s: torch.Tensor, k: int):
 def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
+    # obcheck: ok(trace.host-sync) query vectors arrive from the host
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(
         device)
 
@@ -77,6 +78,7 @@ def _kmeans(vectors: torch.Tensor, init_idx, n_clusters: int,
     maximum on a tie as ``jnp.argmax``) and update (the one-hot product
     of the JAX package; an empty cluster keeps its centroid) ->
     (centroids [c,d], assignment [n])."""
+    # obcheck: ok(trace.host-sync) the seeded centres, once per build
     init = torch.as_tensor(np.asarray(init_idx), dtype=torch.int64,
                            device=vectors.device)
     cent = vectors[init]
@@ -115,6 +117,7 @@ class IvfFlatIndex:
         rng = np.random.default_rng(seed)
         init = rng.choice(n, size=c, replace=n < c)
         cent, assign = _kmeans(v, init, c, kmeans_iters)
+        # obcheck: ok(trace.host-sync) an IVF build buckets on the host
         assign_np = assign.cpu().numpy()
         order = np.argsort(assign_np, kind="stable")
         counts = np.bincount(assign_np, minlength=c)

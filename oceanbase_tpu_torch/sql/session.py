@@ -968,6 +968,7 @@ class Session:
                 self.tenant.px_admission.release()
         if monitor is not None:
             est = getattr(plan, "est_rows", None)
+            # obcheck: ok(trace.host-sync) EXPLAIN ANALYZE's PX row count
             act = int(rel.count())
             monitor.append({"op": f"PxExecute(dop={dop})",
                             "pos": len(monitor), "est": est,
@@ -2207,6 +2208,7 @@ class Session:
             new_cols[cname] = cast_column(c, td.column(cname).dtype)
         matched = to_numpy(rel.with_mask(mask))
         n_upd = len(next(iter(matched.values()))) if matched else 0
+        # obcheck: ok(trace.host-sync) an UPDATE reads its matched rows
         midx = torch.nonzero(mask).reshape(-1)
         new_host = {}
         for cname, c in new_cols.items():
