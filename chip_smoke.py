@@ -79,7 +79,10 @@ Phases, each printing its own lines:
    latencies, a multi-statement transaction, a rolled-back one, a write
    conflict between two sessions), a checkpoint, more commits, and a
    reopen from the same directory without ``close()`` that replays the
-   WAL tail and must read back every committed row and Q6;
+   WAL tail and must read back every committed row and Q6; a CDC
+   consumer (``tenant.cdc().poll()``) over the OLTP mix must return
+   every committed change in commit order and none of the rolled-back
+   transaction's;
 8c. load: the eight tables written as ``|``-delimited files (by a
    process of their own, started with the SQLite oracles) and loaded
    by LOAD DATA INFILE (the native CSV tokenizer) into a fresh
@@ -136,11 +139,31 @@ Phases, each printing its own lines:
    50-row INSERTs and 10 deleted; a dropped and re-created side table; a
    fulltext index over the part comments against a host oracle; a
    reopen without ``close()``; and VECTOR cells over the wire;
+8g. cluster (last; its nodes boot at the start of the run and its
+   loader loads beside the earlier phases): three ``python -m
+   oceanbase_tpu_torch.net.node`` processes on the card, a 3-replica
+   PALF log stream (lease 1500 ms), the first 200,000 rows of the run's
+   lineitem (all 16 columns) INSERTed on node 1 in 2,000-row statements;
+   (a) boot seconds and the first leader, each node on ``cuda``; (b)
+   rows/s and every node's weak count; (c) Q6 and Q1 three times on the
+   leader and routed from a follower, pushed down over DTL to 3 parts
+   with no fallback and ``remote_device_s`` > 0, each equal to numpy,
+   then serially, with their wire bytes against ``das.pull``'s; (g)
+   gv$sysstat's ``rpc.calls`` merged over the nodes and a pushed-down
+   Q6's remote ``dtl.fragment`` spans under its statement span; (d) a
+   seeded 30% drop of the leader's ``dtl.execute`` frames to one node,
+   a ``kill -9`` of a follower (Q6 with its slice re-run locally) and
+   its restart and catch-up, a committed INSERT and a ``kill -9`` of the
+   leader (a new leader inside the detector's bound, the row read back,
+   a write landing there); (e) the killed leader restarted over a wiped
+   root rebuilds from a peer and answers a weak Q6; (f) a seeded bit
+   flip in its segment file found by ``scrub.run``, repaired from a peer
+   to equal digests;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
    and printed after it: the stream, spill, SQL, PX, obcheck, server,
-   durability and vector paths, like the JAX package's, reach no
-   hand-written kernel,
+   durability, vector and cluster paths, like the JAX package's, reach
+   no hand-written kernel,
    and measure makes one profiled launch), and each phase's seconds;
 10. the card's name and power limit, then the result line.
 
@@ -1325,6 +1348,10 @@ def phase_db(torch, dev, tables, types, card, want):
               f"through the spill route; {total_ms:.3f} ms in all")
 
         # -- OLTP on orders ----------------------------------------------
+        # a change-data-capture consumer over the sys tenant's WAL from
+        # here: every change the mix below commits, none it rolls back
+        pump = db.tenant("sys").cdc()
+        pump.poll()
         od = tables["orders"]
         n_ord = len(od["o_orderkey"])
         rng = np.random.default_rng(DB_SEED)
@@ -1408,6 +1435,29 @@ def phase_db(torch, dev, tables, types, card, want):
         price[k5] += 200
         print("[db] multi-statement transaction committed, rolled-back "
               "one invisible")
+        t1 = time.perf_counter()
+        events = pump.poll()
+        cdc_ms = (time.perf_counter() - t1) * 1e3
+        got_ev = [(e.op, e.key[0]) for e in events
+                  if e.table == "orders"]
+        want_ev = ([("update", k) for k in keys[:DB_POINT_OPS]]
+                   + [("update", k1), ("update", k2),
+                      ("insert", new_key), ("update", k5)])
+        versions = [e.commit_version for e in events]
+        if sorted(got_ev, key=str) != sorted(want_ev, key=str) or \
+                versions != sorted(versions) or \
+                len(events) != len(want_ev):
+            raise AssertionError(f"CDC events {got_ev[-6:]} ({len(events)})"
+                                 f" != the committed changes "
+                                 f"{want_ev[-6:]} ({len(want_ev)})")
+        last = {e.key[0]: e.values for e in events}
+        for k in (k1, k2, k5):
+            if int(last[k]["o_totalprice"]) != price[k]:
+                raise AssertionError(f"CDC value of {k}: {last[k]}")
+        print(f"[db] CDC: cdc().poll() returned the {len(events)} committed "
+              f"changes of the mix in commit order ({DB_POINT_OPS} point "
+              f"UPDATEs, the transaction's 3, the conflict winner's 1), "
+              f"none of the rolled-back transaction's, in {cdc_ms:.3f} ms")
 
         t0 = time.perf_counter()
         db.checkpoint()
@@ -3859,6 +3909,492 @@ def phase_vector(torch, dev, tables, card):
 
 
 
+# ---------------------------------------------------------------------------
+# phase cluster: three node processes on the card over the rpc frame
+# ---------------------------------------------------------------------------
+
+CLUSTER_ROWS = 200_000           # of SF1 lineitem's 6,001,215 (PERF §4)
+CLUSTER_BATCH = 2_000            # rows per INSERT from the loader
+CLUSTER_LEASE_MS = 1500          # tests/test_multinode.py's lease
+CLUSTER_RUNS = 3                 # timed runs per query and route
+CLUSTER_DROP_PROB = 0.3          # the seeded dtl.execute drop
+CLUSTER_DROP_RUNS = 5
+CLUSTER_FAULT_SEED = 13
+CLUSTER_DETECT_BOUND_S = 15.0    # the reference's re-election bound
+CLUSTER_DEADLINE_S = 300.0       # each wait of the phase
+CLUSTER_MARK_SHIPDATE = "1998-11-30"  # marker rows: outside Q1 and Q6
+
+
+def start_cluster(device="cuda"):
+    """Spawn the three node processes at the start of the run, so they
+    boot while the card runs the earlier phases -> the cluster."""
+    from oceanbase_tpu_torch.bench.cluster import NodeCluster
+
+    root = tempfile.mkdtemp(prefix="ob_cluster_")
+    cluster = NodeCluster(root, n=3, device=device,
+                          lease_ms=CLUSTER_LEASE_MS, wait=False)
+
+    def _close():
+        cluster.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    atexit.register(_close)
+    return cluster
+
+
+def cluster_slice(tables, types, n=CLUSTER_ROWS):
+    """The first ``n`` rows of the run's lineitem, all 16 columns, and
+    their types."""
+    li = tables["lineitem"]
+    n = min(n, len(li["l_orderkey"]))
+    rows = {c: np.ascontiguousarray(a[:n]) for c, a in li.items()}
+    return rows, {c: types[c] for c in rows if c in types}
+
+
+def _cluster_loader(repo, ports, rows, types, queue):
+    """The loader process: wait for a leader, CREATE TABLE lineitem on
+    node 1, INSERT the rows in ``CLUSTER_BATCH``-row statements, then
+    wait until each follower's weak count reads them all."""
+    sys.path.insert(0, repo)
+    try:
+        from oceanbase_tpu_torch.bench.cluster import ClusterClient
+        from oceanbase_tpu_torch.bench.tbl import create_table_sql
+
+        c = ClusterClient(ports)
+        t0 = time.perf_counter()
+        c.leader(CLUSTER_DEADLINE_S)
+        leader_s = time.perf_counter() - t0
+        c.execute(1, create_table_sql(
+            "lineitem", rows, types, ["l_orderkey", "l_linenumber"]))
+        n = len(rows["l_orderkey"])
+        t0 = time.perf_counter()
+        for s in range(0, n, CLUSTER_BATCH):
+            vals = ", ".join(_loaded_row(rows, types, i)
+                             for i in range(s, min(s + CLUSTER_BATCH, n)))
+            c.execute(1, f"insert into lineitem values {vals}")
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c.wait_count("lineitem", n, nodes=(2, 3),
+                     deadline_s=CLUSTER_DEADLINE_S)
+        converge_s = time.perf_counter() - t0
+        c.close()
+        queue.put(("ok", {"leader_s": leader_s, "load_s": load_s,
+                          "converge_s": converge_s, "rows": n}))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+
+        queue.put(("error", traceback.format_exc()))
+
+
+def start_cluster_loader(repo, cluster, rows, types):
+    """Start ``_cluster_loader`` -> (process, queue) for
+    ``phase_cluster``."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_cluster_loader,
+                       args=(repo, cluster.ports, rows, types, queue),
+                       daemon=True)
+    proc.start()
+    return proc, queue
+
+
+def _compute_pids():
+    """Pids holding a context on the card per nvidia-smi, or None when
+    it cannot say."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if out.returncode != 0:
+        return None
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def _exchange(c, node):
+    """The newest pushdown row of ``node``'s gv$px_exchange."""
+    from oceanbase_tpu_torch.bench.cluster import rows as crows
+
+    got = crows(c.execute(node, (
+        "select pushdown_hit, parts, fallback_parts, avoided_parts, "
+        "bytes_shipped, rows_shipped, remote_device_s from gv$px_exchange "
+        "where mode = 'pushdown' order by ts desc limit 1")))
+    keys = ("hit", "parts", "fallback", "avoided", "bytes", "rows",
+            "remote_device_s")
+    return dict(zip(keys, got[0])) if got else None
+
+
+def _check_cluster_q6(res, want, tag):
+    got = int(np.asarray(res["arrays"][res["names"][0]])[0])
+    if got != want:
+        raise AssertionError(f"{tag}: Q6 {got} != numpy {want}")
+
+
+def _check_cluster_q1(res, want, tag):
+    if list(res["names"]) != list(want):
+        raise AssertionError(f"{tag}: Q1 columns {res['names']}")
+    for k, v in want.items():
+        g = np.asarray(res["arrays"][k])
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(g.astype(np.float64), v, rtol=1e-12,
+                                       err_msg=f"{tag} {k}")
+        elif [str(x) for x in g.tolist()] != [str(x) for x in v.tolist()]:
+            raise AssertionError(f"{tag}: Q1 {k}: {g.tolist()} != "
+                                 f"{v.tolist()}")
+
+
+def _flip_segment_file(path) -> int:
+    """Flip one seeded bit that the segment's checksums catch (a zip
+    container has don't-care padding a flip could hit) -> the seed."""
+    from oceanbase_tpu_torch.net.faults import bitflip_file
+    from oceanbase_tpu_torch.storage.integrity import CorruptionError
+    from oceanbase_tpu_torch.storage.segment import Segment
+
+    for seed in range(1, 64):
+        probe = path + ".probe"
+        shutil.copyfile(path, probe)
+        bitflip_file(probe, seed=seed)
+        try:
+            Segment.load(probe)
+        except CorruptionError:
+            bitflip_file(path, seed=seed)
+            return seed
+        finally:
+            os.remove(probe)
+    raise AssertionError(f"no seeded flip of {path} was detectable")
+
+
+def _rpc_counter(c, node, name, **labels) -> int:
+    """One node's counter ``name`` summed over the series whose labels
+    include ``labels`` (its own ``metrics.scrape``)."""
+    w = c.clients[node].call("metrics.scrape")["wire"]
+    return int(sum(v for n, lbl, v in w["counters"] if n == name and
+                   all(lbl.get(k) == x for k, x in labels.items())))
+
+
+def phase_cluster(torch, cluster, loader, rows, types, card):
+    """Phase cluster (steps a-g): the port's cluster plane, three node
+    processes each running a ``Database`` tenant on the card over a
+    networked PALF log stream, driven over the rpc frame."""
+    import glob
+
+    from oceanbase_tpu_torch.bench.cluster import rows as crows
+    from oceanbase_tpu_torch.bench.oracle_np import numpy_q1, numpy_q6
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+
+    import threading
+
+    c = cluster
+    n = len(rows["l_orderkey"])
+    want6, want1 = numpy_q6(rows), numpy_q1(rows)
+    steps = {}
+
+    def step_done(name, t0):
+        steps[name] = time.perf_counter() - t0
+        print(f"[cluster] step {name}: {steps[name]:.3f} s", flush=True)
+
+    def q6_on(node, tag, consistency="strong"):
+        res = c.execute(node, QUERIES[6], consistency=consistency)
+        _check_cluster_q6(res, want6, tag)
+        return res
+
+    try:
+        # -- (a) boot: three nodes answer ping, one leads -----------------
+        t0 = time.perf_counter()
+        c.wait_ready(CLUSTER_DEADLINE_S)
+        leader = c.leader(CLUSTER_DEADLINE_S)
+        print(f"[cluster] boot: seconds from spawn to the first ping "
+              f"answered {[round(c.boot_s[i], 3) for i in (1, 2, 3)]} "
+              f"(nodes 1-3); a leader (node {leader}) "
+              f"{c.first_leader_s:.3f} s after the first spawn")
+        on_card = c.device == "cuda"
+        devs = {i: s.get("device") for i, s in c.states().items()}
+        if sorted(devs) != [1, 2, 3] or any(
+                str(d).split(":")[0] != c.device for d in devs.values()):
+            raise AssertionError(f"node devices {devs}")
+        step_done("boot", t0)
+
+        # -- (b) load: the loader's INSERTs and the followers' convergence
+        t0 = time.perf_counter()
+        proc, queue = loader
+        status, got = queue.get(timeout=CLUSTER_DEADLINE_S)
+        proc.join(timeout=60)
+        if status != "ok":
+            raise AssertionError(f"the cluster loader failed:\n{got}")
+        print(f"[cluster] load: {got['rows']} lineitem rows (16 columns) "
+              f"in {-(-got['rows'] // CLUSTER_BATCH)} INSERTs on node 1 in "
+              f"{got['load_s']:.3f} s = {got['rows'] / got['load_s']:.1f} "
+              f"rows/s (3 WAL replicas); followers converged "
+              f"{got['converge_s']:.3f} s after the last INSERT; the "
+              f"loader waited {got['leader_s']:.3f} s for a leader; {card}")
+        counts = [c.count(i, "lineitem") for i in (1, 2, 3)]
+        if counts != [n, n, n]:
+            raise AssertionError(f"weak counts {counts} != {n}")
+        print(f"[cluster] weak count(*) on nodes 1, 2, 3: {counts}")
+        pids, node_pids = _compute_pids(), [c.pid(i) for i in (1, 2, 3)]
+        if pids and os.getpid() in pids:
+            missing = [p for p in node_pids if p not in pids]
+            if missing:
+                raise AssertionError(f"node pids {missing} hold no context"
+                                     f" on the card (nvidia-smi: {pids})")
+            print(f"[cluster] nvidia-smi compute apps {pids}: the node "
+                  f"pids {node_pids} each hold a context on the card")
+        else:
+            print(f"[cluster] nvidia-smi compute apps {pids}: not this "
+                  f"container's pids (a pid namespace hides them, or "
+                  f"there is no nvidia-smi); the nodes report devices "
+                  f"{devs}, and step c's remote_device_s comes from their "
+                  f"CUDA events")
+        step_done("load", t0)
+
+        # -- (c) pushdown: Q6 and Q1 against numpy, then serially ----------
+        t0 = time.perf_counter()
+        ex_of = {}
+        for q, check, want in ((6, _check_cluster_q6, want6),
+                               (1, _check_cluster_q1, want1)):
+            for node in (leader, 1 + leader % 3):
+                times = []
+                for _ in range(CLUSTER_RUNS):
+                    t1 = time.perf_counter()
+                    res = c.execute(node, QUERIES[q])
+                    times.append((time.perf_counter() - t1) * 1e3)
+                    check(res, want, f"q{q} via node {node}")
+                    ex = _exchange(c, leader)
+                    if res["node"] != leader or ex is None or not (
+                            ex["hit"] == 1 and ex["parts"] == 3 and
+                            ex["fallback"] == 0 and
+                            # a CUDA event pair on the card; 0 on the CPU
+                            (ex["remote_device_s"] > 0) == on_card):
+                        raise AssertionError(
+                            f"q{q} via node {node} ran on node "
+                            f"{res['node']}, exchange row {ex}")
+                ex_of[q] = ex
+                if q == 6 and node == leader:
+                    q6_times = times
+                route = ("the leader" if node == leader else
+                         "a strong read routed to the leader")
+                print(f"[cluster] q{q} via node {node} ({route}): median "
+                      f"{statistics.median(times):.3f} ms of "
+                      f"{[round(x, 3) for x in times]}; pushdown over 3 "
+                      f"parts, {ex['bytes']} wire bytes, {ex['rows']} rows "
+                      f"shipped, remote_device_s {ex['remote_device_s']:.6f}"
+                      f"; equal to numpy; {card}", flush=True)
+        src = 1 + leader % 3
+        pull = c.clients[leader].call("das.pull", table="lineitem",
+                                      node_id=src)
+        print(f"[cluster] wire bytes: pushdown Q6 {ex_of[6]['bytes']}, Q1 "
+              f"{ex_of[1]['bytes']}; das.pull of lineitem from node {src} "
+              f"{pull['bytes']} ({pull['rows']} rows): "
+              f"{ex_of[6]['bytes'] / pull['bytes']:.6f} and "
+              f"{ex_of[1]['bytes'] / pull['bytes']:.6f} of it")
+        c.execute(leader, "alter system set enable_dtl_pushdown = false")
+        for q, check, want in ((6, _check_cluster_q6, want6),
+                               (1, _check_cluster_q1, want1)):
+            t1 = time.perf_counter()
+            check(c.execute(leader, QUERIES[q]), want, f"serial q{q}")
+            print(f"[cluster] q{q} serial on the leader (enable_dtl_pushdown"
+                  f" = false): {(time.perf_counter() - t1) * 1e3:.3f} ms, "
+                  f"equal to numpy")
+        c.execute(leader, "alter system set enable_dtl_pushdown = true")
+        step_done("pushdown", t0)
+
+        # -- (g) observability: merged gv$sysstat, remote trace spans ------
+        t0 = time.perf_counter()
+        each = [_rpc_counter(c, i, "rpc.calls") for i in (1, 2, 3)]
+        merged = crows(c.execute(leader, "select sum(value) from gv$sysstat"
+                                 " where name = 'rpc.calls'"))[0][0]
+        if not (all(x > 0 for x in each) and merged >= sum(each)):
+            raise AssertionError(f"gv$sysstat rpc.calls {merged} against "
+                                 f"the nodes' own {each}")
+        print(f"[cluster] gv$sysstat on node {leader}: rpc.calls {merged} "
+              f"over the 3 nodes (their own scrapes a moment before: "
+              f"{each})")
+        q6_on(leader, "traced q6")
+        tid = [t for s_, t in crows(c.execute(
+            leader, "select sql, trace_id from gv$sql_audit"))
+            if s_.strip().startswith("select") and "l_discount between"
+            in s_ and t][-1]
+        spans = [r for r in crows(c.execute(
+            leader, "select trace_id, span_id, parent_span_id, node, "
+            "span_name from gv$trace")) if r[0] == tid]
+        by_id = {r[1]: r for r in spans}
+        frags = [r for r in spans if r[4] == "dtl.fragment"
+                 and r[3] != leader]
+        if {r[3] for r in frags} != {1, 2, 3} - {leader}:
+            raise AssertionError(f"remote dtl.fragment spans {frags}")
+        for r in frags:
+            node, hops = r, 0
+            while node[2] in by_id and hops < 64:
+                node, hops = by_id[node[2]], hops + 1
+            if node[4] != "statement" or node[3] != leader:
+                raise AssertionError(f"fragment span {r} roots at {node}")
+        print(f"[cluster] gv$trace of a pushed-down Q6: {len(spans)} spans, "
+              f"dtl.fragment of nodes {sorted(r[3] for r in frags)} each "
+              f"under the statement span of node {leader}")
+        step_done("observability", t0)
+
+        # -- (d) faults: a seeded drop, a dead follower, a dead leader -----
+        t0 = time.perf_counter()
+        victim = 1 + leader % 3
+        c.execute(leader, "alter system set enable_fault_injection = true")
+        r0 = _rpc_counter(c, leader, "rpc.retries", verb="dtl.execute")
+        c.clients[leader].call(
+            "fault.inject", where="send", action="drop", verb="dtl.execute",
+            peer=victim, prob=CLUSTER_DROP_PROB, seed=CLUSTER_FAULT_SEED)
+        fb = []
+        for _ in range(CLUSTER_DROP_RUNS):
+            q6_on(leader, "q6 under the drop")
+            ex = _exchange(c, leader)
+            fb.append((ex["fallback"], ex["avoided"]))
+        c.clients[leader].call("fault.clear")
+        retries = _rpc_counter(c, leader, "rpc.retries",
+                               verb="dtl.execute") - r0
+        print(f"[cluster] {CLUSTER_DROP_PROB:.0%} seeded drop (seed "
+              f"{CLUSTER_FAULT_SEED}) of node {leader}'s dtl.execute "
+              f"frames to node {victim}: {CLUSTER_DROP_RUNS} Q6 runs equal "
+              f"to numpy, {retries} retries, (fallback, avoided) parts per "
+              f"run {fb}")
+        dead = 6 - leader - victim  # the other follower
+        # the kill lands while the node runs its Q6 fragment: its slice
+        # falls back to the coordinator (a query started after the
+        # detector marked the node would avoid it instead)
+        q6_ms = statistics.median(q6_times)
+        failed = []
+
+        def inflight_q6():
+            try:
+                q6_on(leader, "q6 losing a follower mid-query")
+            except BaseException as e:  # noqa: BLE001 — raised below
+                failed.append(e)
+
+        inflight = threading.Thread(target=inflight_q6)
+        inflight.start()
+        time.sleep(0.3 * q6_ms / 1e3)
+        c.kill(dead)
+        inflight.join(timeout=CLUSTER_DEADLINE_S)
+        if inflight.is_alive() or failed:
+            raise AssertionError(f"the Q6 that lost node {dead}: "
+                                 f"{failed or 'still running'}")
+        ex = _exchange(c, leader)
+        if ex["fallback"] < 1:
+            raise AssertionError(f"node {dead} killed mid-query: {ex}")
+        q6_on(leader, "q6 with a dead follower")
+        ex2 = _exchange(c, leader)
+        if ex2["fallback"] + ex2["avoided"] < 1:
+            raise AssertionError(f"dead node {dead}'s slice: {ex2}")
+        print(f"[cluster] kill -9 of node {dead} {0.3 * q6_ms:.1f} ms into "
+              f"a Q6: equal to numpy with fallback_parts {ex['fallback']}; "
+              f"the next Q6 equal with fallback_parts {ex2['fallback']}, "
+              f"avoided_parts {ex2['avoided']}")
+        t1 = time.perf_counter()
+        restart_s = c.restart(dead, CLUSTER_DEADLINE_S)
+        c.wait_count("lineitem", n, nodes=(dead,),
+                     deadline_s=CLUSTER_DEADLINE_S)
+        c.wait_caught_up(nodes=(dead,), deadline_s=CLUSTER_DEADLINE_S)
+        print(f"[cluster] node {dead} restarted: first ping {restart_s:.3f}"
+              f" s after spawn, caught up (weak count {n}, leader's LSN "
+              f"applied) {time.perf_counter() - t1:.3f} s after spawn")
+        mark = {k: a[:1].copy() for k, a in rows.items()}
+        mark["l_shipdate"][0] = _days(CLUSTER_MARK_SHIPDATE)
+        base_key = int(rows["l_orderkey"].max())
+
+        def marker(k):
+            m = {c_: a.copy() for c_, a in mark.items()}
+            m["l_orderkey"][0] = k
+            return (f"insert into lineitem values "
+                    f"{_loaded_row(m, types, 0)}")
+
+        c.execute(leader, marker(base_key + 1))
+        t_kill = time.perf_counter()
+        c.kill(leader)
+        new = c.leader(CLUSTER_DETECT_BOUND_S, exclude=(leader,))
+        elect_s = time.perf_counter() - t_kill
+        got1 = crows(c.execute(new, f"select count(*) from lineitem where "
+                                    f"l_orderkey = {base_key + 1}"))[0][0]
+        res = c.execute(new, marker(base_key + 2), deadline_s=60)
+        if got1 != 1 or res["node"] != new:
+            raise AssertionError(f"after failover: marker count {got1}, "
+                                 f"write on node {res['node']}")
+        print(f"[cluster] kill -9 of leader node {leader} after a committed "
+              f"INSERT: node {new} leads {elect_s:.3f} s after the kill "
+              f"(bound {CLUSTER_DETECT_BOUND_S} s), the committed row reads "
+              f"back, a new INSERT lands on node {new}")
+        wiped, leader = leader, new
+        step_done("faults", t0)
+
+        # -- (e) the killed leader comes back wiped: it rebuilds ----------
+        t0 = time.perf_counter()
+        served0 = {i: _rpc_counter(c, i, "rpc.served",
+                                   verb="rebuild.fetch_segments")
+                   for i in (1, 2, 3) if i != wiped}
+        c.wipe(wiped)
+        t1 = time.perf_counter()
+        restart_s = c.restart(wiped, CLUSTER_DEADLINE_S)
+        c.wait_count("lineitem", n + 2, nodes=(1, 2, 3),
+                     deadline_s=CLUSTER_DEADLINE_S)
+        rebuild_s = time.perf_counter() - t1
+        ev = {e["phase"]: e for e in c.clients[wiped].call(
+            "recovery.state")["events"]}
+        served = {i: _rpc_counter(c, i, "rpc.served",
+                                  verb="rebuild.fetch_segments") - s0
+                  for i, s0 in served0.items()}
+        if "rebuild" not in ev or ev["rebuild"].get("bytes", 0) <= 0 or \
+                sum(served.values()) < 1:
+            raise AssertionError(f"no rebuild: events {sorted(ev)}, "
+                                 f"fetch_segments served {served}")
+        q6_on(wiped, "weak q6 on the rebuilt node", consistency="weak")
+        print(f"[cluster] the old leader, node {wiped}, wiped and "
+              f"restarted: rebuilt {ev['rebuild']['bytes']} bytes from node "
+              f"{ev['rebuild'].get('peer')} (rebuild.fetch_segments served "
+              f"{served}), first ping {restart_s:.3f} s, every node's weak "
+              f"count {n + 2} {rebuild_s:.3f} s after its spawn; a weak Q6 "
+              f"on it equals numpy")
+        step_done("rebuild", t0)
+
+        # -- (f) scrub: rot a follower's segment, vote, repair ------------
+        t0 = time.perf_counter()
+        segs = sorted(glob.glob(os.path.join(
+            c.node_root(wiped), "data", "segments", "lineitem_*.npz")))
+        if not segs:
+            raise AssertionError(f"node {wiped} holds no lineitem segment")
+        seed = _flip_segment_file(segs[0])
+        summary = c.clients[wiped].call("scrub.run")
+        if "lineitem" not in summary["repaired"] or summary["failed"]:
+            raise AssertionError(f"scrub.run: {summary}")
+        snap = c.clients[leader].call("scrub.checksum")
+        digests = {i: c.clients[i].call(
+            "scrub.checksum", snapshot=snap["snapshot"])["tables"][
+            "lineitem"] for i in (1, 2, 3)}
+        if len({json.dumps(d, sort_keys=True)
+                for d in digests.values()}) != 1:
+            raise AssertionError(f"digests after the repair: {digests}")
+        q6_on(wiped, "weak q6 after the repair", consistency="weak")
+        print(f"[cluster] seeded bit flip (seed {seed}) in node {wiped}'s "
+              f"{os.path.basename(segs[0])}: scrub.run found "
+              f"{summary['corrupt']}, repaired {summary['repaired']} from a "
+              f"peer; the 3 digests agree ({digests[leader]}); a weak Q6 "
+              f"on node {wiped} equals numpy")
+        step_done("scrub", t0)
+    except BaseException:
+        for i in (1, 2, 3):
+            print(f"[cluster] node {i} log tail:\n{c.log_tail(i)}",
+                  file=sys.stderr)
+        raise
+    return steps
+
+
+def _days(text: str) -> int:
+    from oceanbase_tpu_torch.datatypes import date_to_days
+
+    return int(date_to_days(text))
+
+
 def main() -> int:
     import torch
 
@@ -3889,6 +4425,8 @@ def main() -> int:
         if "ptxas" in line:
             print(f"[build] {line.strip()}")
 
+    # phase cluster's nodes boot while the card runs the earlier phases
+    cluster = start_cluster()
     sf = float(os.environ.get("OB_SMOKE_SF", "1"))
     oracles = start_oracles(here, sf)
     root = tempfile.mkdtemp(prefix="ob_load_")
@@ -3899,6 +4437,9 @@ def main() -> int:
     li = tables["lineitem"]
     print(f"[setup] gen_tpch sf={sf}: {len(li['l_orderkey'])} lineitem "
           f"rows in {time.perf_counter() - t0:.3f} s")
+    cluster_rows, cluster_types = cluster_slice(tables, types)
+    cluster_loader = start_cluster_loader(here, cluster, cluster_rows,
+                                          cluster_types)
 
     sf_cols = [torch.from_numpy(li[c].astype(np.int32)).to(dev) for c in
                ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")]
@@ -3911,9 +4452,12 @@ def main() -> int:
         """What else runs on the host beside a phase: its host-bound
         times are taken under this load."""
         alive = sum(proc.is_alive() for proc, _q in oracles)
+        nodes = sum(p.poll() is None for p in cluster.procs.values())
         return (f"{os.cpu_count()} CPU cores; {alive} of {len(oracles)} "
-                f"SQLite oracle processes and {int(writer[0].is_alive())} "
-                f"of 1 .tbl writer running")
+                f"SQLite oracle processes, {int(writer[0].is_alive())} "
+                f"of 1 .tbl writer, {nodes} of 3 cluster nodes and "
+                f"{int(cluster_loader[0].is_alive())} of 1 cluster loader "
+                f"running")
 
     def timed_phase(name, fn, *args):
         """Run one phase with the launch counts set to 0 just before it;
@@ -3984,6 +4528,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, counts = timed_phase("vector", phase_vector, torch, dev, tables, card)
     print(f"[vector] kernel launches: {counts}")
+    _, counts = timed_phase("cluster", phase_cluster, torch, cluster,
+                            cluster_loader, cluster_rows, cluster_types, card)
+    print(f"[cluster] kernel launches in this process: {counts} (the "
+          f"nodes run the SQL path, which launches none, as in the "
+          f"reference)")
+    cluster.close()
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

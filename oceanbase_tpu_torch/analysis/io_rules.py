@@ -93,10 +93,13 @@ IO_EXEMPT: dict[str, dict[str, str]] = {
 #: whose create-mode writes are safe WITHOUT tmp+rename because the
 #: destination is itself a staging/ephemeral artifact or is verified
 #: before install.  path -> qualname -> why.
-#: (The reference's ``storage/scrub.py::Scrubber._repair_from_peer``
-#: entry waits for ROADMAP item 5b sub-item 14: the port's peer repair
-#: raises until ``net/`` lands, so it writes nothing yet.)
 INPLACE_EXEMPT: dict[str, dict[str, str]] = {
+    "oceanbase_tpu_torch/storage/scrub.py": {
+        "Scrubber._repair_from_peer":
+            "writes the fetched manifest into the .scrub_tmp staging"
+            " dir, which is rmtree'd and rebuilt per attempt; segments"
+            " install from staging only after digest verification",
+    },
     "oceanbase_tpu_torch/net/rebuild.py": {
         "fetch_file":
             "rebuild/scrub staging download: every chunk is"

@@ -112,6 +112,13 @@ BOUNDARIES: dict[str, dict[str, str]] = {
         "to_numpy": "the result boundary: live rows leave the card",
         "from_numpy": "the input boundary: host columns arrive",
     },
+    _P + "px/dtl.py": {
+        "execute_fragment": "a DTL slice's boundary: the replica's host "
+                            "snapshot goes up, the reply's rows come back "
+                            "for the wire",
+        "merge_fragments": "the coordinator's exchange boundary: the "
+                           "replies' host rows go up for the final merge",
+    },
 }
 
 # numpy module aliases whose asarray/array force device->host transfer

@@ -1,0 +1,363 @@
+"""A cluster of the port's node processes, driven over the rpc frame.
+
+``NodeCluster`` boots ``python -m oceanbase_tpu_torch.net.node`` once per
+node with ``subprocess.Popen`` (never a fork: a parent holding a CUDA
+context must not hand it to a child), each node's stdout and stderr in
+``<root>/node<i>.log`` (a pipe nobody reads would block a chatty node),
+and ``OMP_NUM_THREADS=1`` for nodes on the CPU, so three nodes beside a
+loaded test run do not fight over cores.  It serves the CPU tests
+(``tests/test_torch_cluster.py``, ``--device cpu``) and ``chip_smoke.py``'s
+phase "cluster" on the card.
+
+Every wait polls one condition under a deadline of its own and ends with
+a ``ClusterTimeout`` that names what was awaited and how far it got:
+a node answering ``ping``, a leader, a follower's committed LSN, a weak
+``count(*)``.  ``close()`` kills and reaps every process it started.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+
+from oceanbase_tpu_torch.net.rpc import RpcClient, RpcError
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+class ClusterTimeout(TimeoutError):
+    """A wait of the cluster harness ran past its deadline."""
+
+
+def free_ports(n: int) -> list[int]:
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+def wait_for(cond, deadline_s: float, what: str, poll_s: float = 0.05):
+    """Poll ``cond()`` until it returns a truthy value (returned) or
+    ``deadline_s`` passes; an exception inside ``cond`` counts as not
+    yet.  The timeout names ``what`` and the last exception seen."""
+    end = time.monotonic() + deadline_s
+    last = None
+    while True:
+        try:
+            got = cond()
+            if got:
+                return got
+        except Exception as e:  # noqa: BLE001 — polled again
+            last = e
+        if time.monotonic() >= end:
+            raise ClusterTimeout(
+                f"waited {deadline_s:.1f}s for {what}"
+                + (f" (last error: {last!r})" if last else ""))
+        time.sleep(poll_s)
+
+
+def rows(res: dict) -> list[tuple]:
+    """The rows of a ``sql.execute`` reply, NULLs as None."""
+    names = res["names"]
+    n = res["rowcount"] if not names else len(
+        next(iter(res["arrays"].values())))
+    out = []
+    for r in range(n):
+        row = []
+        for nm in names:
+            v = res.get("valids", {}).get(nm)
+            if v is not None and not v[r]:
+                row.append(None)
+            else:
+                x = res["arrays"][nm][r]
+                row.append(x.item() if hasattr(x, "item") else x)
+        out.append(tuple(row))
+    return out
+
+
+class ClusterClient:
+    """Statements and waits against running nodes, by their ports (a
+    process that did not start them, such as a loader, uses this)."""
+
+    def __init__(self, ports: list[int]):
+        self.ports = list(ports)
+        self.n = len(self.ports)
+        self.clients = {i: RpcClient("127.0.0.1", self.ports[i - 1],
+                                     timeout_s=30.0)
+                        for i in range(1, self.n + 1)}
+
+    def _alive(self, i: int):
+        """Raise when node ``i`` is known to be dead (a harness that
+        started it knows)."""
+
+    def _running(self, i: int) -> bool:
+        return True
+
+    def close(self):
+        for c in self.clients.values():
+            c.close()
+
+    def states(self, nodes=None) -> dict[int, dict]:
+        """``node.state`` of every reachable node (a dead one is left
+        out)."""
+        out = {}
+        for i in (nodes or self.clients):
+            if not self._running(i):
+                continue
+            try:
+                out[i] = self.clients[i].call("node.state", _deadline_s=2.0)
+            except (OSError, RpcError):
+                continue
+        return out
+
+    def leader(self, deadline_s: float = 60.0, exclude=()) -> int:
+        """Wait for a node (not in ``exclude``) to report itself leader;
+        -> its id."""
+        def find():
+            for i, st in self.states().items():
+                if st.get("role") == "leader" and i not in exclude:
+                    return i
+            return None
+
+        return wait_for(find, deadline_s, "a PALF leader"
+                        + (f" other than {list(exclude)}" if exclude
+                           else ""))
+
+    def execute(self, i: int, sql: str, deadline_s: float = 120.0, **kw):
+        """``sql.execute`` on node ``i``, retried while the cluster has
+        no leader to route to (``NotLeader``/``NoQuorum``, election
+        churn); any other error is raised at once.  A write is retried
+        only when its request never reached a node."""
+        end = time.monotonic() + deadline_s
+        while True:
+            try:
+                return self.clients[i].call("sql.execute", sql=sql, **kw)
+            except RpcError as e:
+                if e.kind not in ("NotLeader", "NoQuorum") or \
+                        time.monotonic() >= end:
+                    raise
+            except OSError as e:
+                if getattr(e, "request_sent", True) or \
+                        time.monotonic() >= end:
+                    raise
+            time.sleep(0.1)
+
+    def count(self, i: int, table: str, where: str = "") -> int:
+        res = self.execute(i, f"select count(*) from {table} {where}",
+                           consistency="weak")
+        if res.get("node") != i:
+            raise RuntimeError(f"weak read left node {i}")
+        return int(rows(res)[0][0])
+
+    def wait_count(self, table: str, n: int, nodes, deadline_s=120.0,
+                   where: str = "") -> float:
+        """Wait until a weak ``count(*)`` on each of ``nodes`` reads
+        ``n``; -> seconds waited."""
+        t0 = time.monotonic()
+        for i in nodes:
+            left = max(deadline_s - (time.monotonic() - t0), 1.0)
+            got = []
+
+            def done(i=i):
+                self._alive(i)
+                got[:] = [self.count(i, table, where)]
+                return got[0] == n
+
+            try:
+                wait_for(done, left, f"node {i}'s weak count of {table} "
+                         f"to reach {n}", poll_s=0.1)
+            except ClusterTimeout as e:
+                raise ClusterTimeout(f"{e}; last count {got}") from None
+        return time.monotonic() - t0
+
+    def wait_caught_up(self, nodes=None, deadline_s: float = 120.0) -> int:
+        """Wait until each of ``nodes`` has applied the leader's
+        committed LSN (``node.state``/``recovery.state``); -> that LSN."""
+        ldr = self.leader(deadline_s)
+        target = int(self.clients[ldr].call(
+            "node.state")["committed_lsn"])
+        for i in (nodes or [j for j in self.clients if j != ldr]):
+            wait_for(lambda i=i: int(self.clients[i].call(
+                "recovery.state", _deadline_s=2.0)["applied_lsn"])
+                >= target, deadline_s,
+                f"node {i} to apply lsn {target}")
+        return target
+
+
+class NodeCluster(ClusterClient):
+    """Node processes this harness starts (``wait=False`` returns as soon
+    as they are spawned; ``wait_ready`` waits for them later)."""
+
+    def __init__(self, root: str, n: int = 3, device: str = "cuda",
+                 lease_ms: int = 1500, boot_deadline_s: float = 120.0,
+                 module: str = "oceanbase_tpu_torch.net.node",
+                 wait: bool = True):
+        super().__init__(free_ports(n))
+        self.root = str(root)
+        self.device = device
+        self.lease_ms = lease_ms
+        self.module = module
+        self.procs: dict[int, subprocess.Popen] = {}
+        self._watch: threading.Thread | None = None
+        self._watch_error: BaseException | None = None
+        self._logs: dict[int, object] = {}
+        #: seconds from spawn to the node's first ``ping`` answer
+        self.boot_s: dict[int, float] = {}
+        self._spawned: dict[int, float] = {}
+        env = dict(os.environ)
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        if device == "cpu":
+            env["OMP_NUM_THREADS"] = "1"
+            # a reference node (the CPU tests' comparison) stays off
+            # any accelerator plugin
+            env["JAX_PLATFORMS"] = "cpu"
+        self.env = env
+        os.makedirs(self.root, exist_ok=True)
+        try:
+            for i in range(1, n + 1):
+                self.start_node(i, bootstrap=(i == 1))
+            if wait:
+                self.wait_ready(boot_deadline_s)
+            else:
+                # the boot is timed as it happens, while the caller works
+                self._watch = threading.Thread(
+                    target=self._watch_boot, args=(boot_deadline_s,),
+                    daemon=True)
+                self._watch.start()
+        except BaseException:
+            self.close()
+            raise
+
+    # -- processes -----------------------------------------------------
+    def node_root(self, i: int) -> str:
+        return os.path.join(self.root, f"node{i}")
+
+    def log_path(self, i: int) -> str:
+        return os.path.join(self.root, f"node{i}.log")
+
+    def start_node(self, i: int, bootstrap: bool = False):
+        peers = ",".join(f"{j}=127.0.0.1:{self.ports[j - 1]}"
+                         for j in range(1, self.n + 1) if j != i)
+        cmd = [sys.executable, "-m", self.module,
+               "--node-id", str(i), "--port", str(self.ports[i - 1]),
+               "--peers", peers, "--root", self.node_root(i),
+               "--lease-ms", str(self.lease_ms)]
+        if self.module.startswith("oceanbase_tpu_torch."):
+            cmd += ["--device", self.device]
+        if bootstrap:
+            cmd.append("--bootstrap")
+        old = self._logs.pop(i, None)
+        if old is not None:
+            old.close()
+        log = self._logs[i] = open(self.log_path(i), "ab")
+        self._spawned[i] = time.monotonic()
+        self.procs[i] = subprocess.Popen(
+            cmd, env=self.env, cwd=REPO, stdout=log,
+            stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
+
+    def log_tail(self, i: int, nbytes: int = 3000) -> str:
+        try:
+            with open(self.log_path(i), "rb") as f:
+                return f.read()[-nbytes:].decode("utf-8", "replace")
+        except OSError:
+            return ""
+
+    def _running(self, i: int) -> bool:
+        return self.procs.get(i) is not None and self.procs[i].poll() is None
+
+    def _alive(self, i: int):
+        if self.procs[i].poll() is not None:
+            raise RuntimeError(
+                f"node {i} exited with {self.procs[i].returncode}:\n"
+                + self.log_tail(i))
+
+    def wait_up(self, i: int, deadline_s: float = 120.0) -> float:
+        """Wait for node ``i`` to answer ``ping``; -> seconds since its
+        spawn."""
+        end = time.monotonic() + deadline_s
+        while True:
+            self._alive(i)
+            if self.clients[i].ping(_deadline_s=1.0):
+                break
+            if time.monotonic() >= end:
+                raise ClusterTimeout(
+                    f"waited {deadline_s:.1f}s for node {i} to answer "
+                    f"ping:\n{self.log_tail(i)}")
+            time.sleep(0.05)
+        self.boot_s[i] = time.monotonic() - self._spawned[i]
+        return self.boot_s[i]
+
+    def _watch_boot(self, deadline_s: float):
+        try:
+            self._wait_ready(deadline_s)
+        except BaseException as e:  # noqa: BLE001 — raised by wait_ready
+            self._watch_error = e
+
+    def wait_ready(self, deadline_s: float = 120.0):
+        """Wait until every node answers ``ping`` and one leads; sets
+        ``boot_s`` (per node, from its spawn) and ``first_leader_s``
+        (from the first spawn)."""
+        if self._watch is not None:
+            self._watch.join(deadline_s)
+            if self._watch.is_alive():
+                raise ClusterTimeout(f"waited {deadline_s:.1f}s for the "
+                                     f"cluster's boot")
+            if self._watch_error is not None:
+                raise self._watch_error
+            return
+        self._wait_ready(deadline_s)
+
+    def _wait_ready(self, deadline_s: float):
+        end = time.monotonic() + deadline_s
+        for i in self.clients:
+            self.wait_up(i, max(end - time.monotonic(), 1.0))
+        self.first_leader_s = None
+        t0 = min(self._spawned.values())
+        self.leader(max(end - time.monotonic(), 1.0))
+        self.first_leader_s = time.monotonic() - t0
+
+    def kill(self, i: int, sig=signal.SIGKILL):
+        p = self.procs[i]
+        if p.poll() is None:
+            p.send_signal(sig)
+        p.wait(timeout=30)
+
+    def restart(self, i: int, deadline_s: float = 120.0) -> float:
+        """Start a killed node again over its root; -> seconds to its
+        first ``ping`` answer."""
+        self.clients[i].close()
+        self.start_node(i)
+        return self.wait_up(i, deadline_s)
+
+    def wipe(self, i: int):
+        """Delete a (killed) node's root: its next start rebuilds."""
+        shutil.rmtree(self.node_root(i), ignore_errors=True)
+
+    def pid(self, i: int) -> int:
+        return self.procs[i].pid
+
+    def close(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        super().close()
+        for f in self._logs.values():
+            f.close()
+        self._logs.clear()

@@ -877,8 +877,8 @@ class ExecTimes:
     ``bind_s`` parse/optimize/bind (session-recorded), ``sidecar_build_s``
     index-probe sidecar rebuilds, ``lower_s``/``compile_s`` (0.0 in the
     port: nothing is traced or compiled), ``dispatch_s`` the host half
-    of each execution, ``merge_s`` (0.0 until the DTL coordinator of
-    ROADMAP item 10 merges fragments)."""
+    of each execution, ``merge_s`` the DTL coordinator's host-side
+    concatenation of fragment replies (``px/dtl.py``)."""
 
     host_s: float = 0.0
     device_s: float = 0.0
@@ -972,7 +972,7 @@ class _Execution:
     __slots__ = ("stats", "root_op", "ev0", "ev1", "done", "wall_s",
                  "host_s", "flops", "nbytes", "mon", "n_mon", "pinned",
                  "mon_names", "mon_ests", "monitor_out", "tags", "tctx",
-                 "span_id")
+                 "span_id", "op_spans")
 
 
 _PENDING_MAX = 64  # bound for callers that never read their results
@@ -1066,6 +1066,8 @@ def _finish(ex: _Execution, mon_vals: list | None = None):
         if worst["q_error"] > 0.0:
             qmetrics.observe("plan.qerror", worst["q_error"])
     ex.monitor_out.extend(op_rows)
+    if not ex.op_spans:
+        return
     qtrace.add_spans_to(ex.tctx, ex.span_id, [
         ("op." + r["op"], 0.0,
          {"rows": r["rows"], "est": r["est"] or 0,
@@ -1110,7 +1112,8 @@ class device_span:
 
 def execute_plan(plan: PlanNode, tables: dict[str, Relation],
                  monitor_out: list | None = None,
-                 monitor_collect: bool = True) -> Relation:
+                 monitor_collect: bool = True,
+                 op_spans: bool = True) -> Relation:
     """Run a plan against device tables, eagerly, on their device.
 
     Raises diag.CapacityOverflow when any static-capacity operator
@@ -1127,7 +1130,9 @@ def execute_plan(plan: PlanNode, tables: dict[str, Relation],
     event, and ``monitor_out`` is filled by ``resolve_pending``
     (``exec_times``) once that fence has passed — at the latest after
     the caller has read its result.  Under an active trace each ledger
-    row also becomes an ``op.<name>`` span under ``plan.execute``.
+    row also becomes an ``op.<name>`` span under ``plan.execute``, unless
+    ``op_spans`` is false (a DTL fragment: its rows ship back as a bare
+    list, and per-op spans would cost the reply wire bytes).
 
     A statement's cancel/deadline checkpoint (``server/admission.py``)
     runs at entry and after the overflow check: a flag and a clock read
@@ -1158,6 +1163,7 @@ def execute_plan(plan: PlanNode, tables: dict[str, Relation],
     ex.ev0 = ex.ev1 = ex.mon = None
     ex.pinned = False
     ex.monitor_out = monitor_out
+    ex.op_spans = op_spans
     # full-link trace: one HOST-side span per plan execution
     with qtrace.span("plan.execute", plan_hash=st.plan_hash) as tsp:
         ex.tags = tsp.tags

@@ -56,8 +56,8 @@ Port of ``oceanbase_tpu/net/faults.py``, whole.  The port's single-node
 database consults its disk half (``check_write``, ``act_disk``) at every
 persistence boundary — slog, manifest, segments, WAL, temp files,
 backup, workload snapshots — once ``Database.arm_disk_faults`` wires a
-plane in; the rpc half has no caller until the rpc plane (ROADMAP
-Queue 1 item 10) is ported.
+plane in; the rpc frame (``net/rpc.py``) consults the rpc half on every
+frame a cluster node sends or receives.
 """
 
 from __future__ import annotations

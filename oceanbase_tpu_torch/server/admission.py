@@ -34,9 +34,9 @@ ObSQLSessionInfo::check_session_status at operator boundaries):
 The ``admission.*`` metrics are the reference's series;
 ``admission.px_downgrades`` counts the PX statements the tenant's
 ``px_admission`` semaphore turned away to serial execution
-(``sql/session.py::_try_px``).  The reference's module also holds
-``RemoteCtx`` (a DTL fragment's cancel context; ROADMAP Queue 1 item
-10c), which is not ported.
+(``sql/session.py::_try_px``).  ``RemoteCtx`` is a DTL fragment's
+cancel context on a data node: it observes the coordinator's
+``dtl.cancel`` flag, keyed by the statement's ``token``.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
+import uuid
 from contextlib import contextmanager
 from typing import Callable, Optional
 
@@ -94,7 +95,8 @@ class QueryTimeout(TimeoutError):
 
 
 class QueryKilled(RuntimeError):
-    """The statement was cancelled via KILL [QUERY] <session_id>."""
+    """The statement was cancelled via KILL [QUERY] <session_id> (or a
+    propagated dtl.cancel on a remote fragment)."""
 
 
 class MemstoreFull(RuntimeError):
@@ -117,7 +119,7 @@ class StmtCtx:
 
     __slots__ = ("session_id", "tenant", "sql", "deadline", "started",
                  "cancel", "kill_reason", "lane", "controller",
-                 "ash_state", "checkpoints", "queue_s",
+                 "ash_state", "token", "checkpoints", "queue_s",
                  "demoted", "demote_at", "slot")
 
     def __init__(self, session_id: int = 0, tenant: str = "sys",
@@ -135,6 +137,7 @@ class StmtCtx:
         self.lane = "normal"
         self.controller = controller
         self.ash_state = ash_state
+        self.token = uuid.uuid4().hex[:16]  # dtl.cancel correlation
         self.checkpoints = 0
         self.queue_s = 0.0
         self.demoted = False
@@ -196,7 +199,26 @@ class StmtCtx:
         return max(self.deadline - time.monotonic(), 0.0)
 
 
+class RemoteCtx(StmtCtx):
+    """A DTL fragment's cancel context on a data node: observes the
+    coordinator-propagated cancel event, never demotes or re-enters the
+    local admission queue."""
+
+    def __init__(self, cancel_ev: threading.Event,
+                 deadline_s: float | None = None, token: str = ""):
+        super().__init__(session_id=-1, tenant="sys",
+                         timeout_s=deadline_s)
+        self.cancel = cancel_ev
+        self.kill_reason = "dtl.cancel"
+        self.token = token
+        self.controller = None
+
+
 _tls = threading.local()
+
+
+def current() -> Optional[StmtCtx]:
+    return getattr(_tls, "ctx", None)
 
 
 @contextmanager

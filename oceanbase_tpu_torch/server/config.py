@@ -4,14 +4,16 @@ Port of ``oceanbase_tpu/server/config.py`` (≙ the parameter seed file,
 src/share/parameter/ob_parameter_seed.ipp, runtime-settable via ALTER
 SYSTEM SET, persisted, with per-tenant overlays): the same ``Config``
 (typed, validated, persisted to ``config.json``, ``watch`` hooks, tenant
-overlays) over only the knobs the ported modules read, the measurement
-and durability planes' among them.  Every other knob of the reference
-(the cluster, DTL, rpc and rebuild knobs, ``tenant_memory_limit``, ...)
-raises the reference's ``KeyError("unknown parameter ...")`` on get, set
-and load: a knob of a plane that is not ported is refused, never
-accepted and ignored.  So is ``px_exchange_capacity_per_dest``, which
-the reference declares and no module of either package reads (the PX
-planner sizes every exchange budget from its input's capacity).
+overlays) over only the knobs the ported modules read, the measurement,
+durability and cluster planes' among them.  Every other knob of the
+reference (``tenant_memory_limit``, ...) raises the reference's
+``KeyError("unknown parameter ...")`` on get, set and load: a knob of a
+plane that is not ported is refused, never accepted and ignored.  So
+are the knobs the reference declares and no module of either package
+reads: ``px_exchange_capacity_per_dest`` (the PX planner sizes every
+exchange budget from its input's capacity), ``palf_lease_ms`` (a node
+takes its lease from ``--lease-ms``) and ``wal_replica_count`` (a tenant
+takes ``wal_replicas``).
 """
 
 from __future__ import annotations
@@ -193,6 +195,55 @@ DEF("enable_disk_faults", False, "bool",
     "bitflip/truncate of just-persisted segment/manifest/slog/wal "
     "files) to arm on this database — the deterministic media-rot "
     "half of the chaos plane")
+# the cluster plane (net/, palf/netcluster.py, px/dtl.py): DTL
+# pushdown, fault injection and failure detection, the rpc pools,
+# the node's checkpoint loop and the rebuild tier
+DEF("enable_dtl_pushdown", True, "bool",
+    "ship qualifying single-table partial plans to cluster nodes over "
+    "the DTL exchange instead of scanning everything on the "
+    "coordinator (≙ PX DFO scheduling onto data-owning servers)")
+DEF("dtl_min_rows", 4096, "int",
+    "minimum estimated base-table rows before a plan is considered for "
+    "DTL pushdown (below it, per-node RPC overhead dominates)", _nonneg)
+
+DEF("enable_fault_injection", False, "bool",
+    "allow the fault.inject/fault.clear admin RPC verbs to arm rules on "
+    "this node's FaultPlane (≙ errsim tracepoints scoped to the rpc "
+    "frame; scripts/chaos_bench.py nemesis schedules)")
+DEF("fault_seed", 0, "int",
+    "seed of the per-node FaultPlane rng — a failing nemesis schedule "
+    "replays frame-for-frame", _nonneg)
+DEF("health_ping_interval_s", 0.5, "float",
+    "failure-detector heartbeat period per peer; detection latency is "
+    "O(interval * health_down_threshold)", _pos)
+DEF("health_suspect_threshold", 2, "int",
+    "consecutive failures before a peer turns 'suspect' (PX slices "
+    "pre-emptively route away from it)", _pos)
+DEF("health_down_threshold", 4, "int",
+    "consecutive failures before a peer turns 'down' (a dead leader "
+    "triggers immediate re-election instead of lease expiry)", _pos)
+DEF("rpc_conn_pool_size", 4, "int",
+    "idle connections kept per RpcClient; calls beyond it dial extra "
+    "sockets so control-plane pings never queue behind bulk transfers "
+    "(LRU extras close on checkin)", _pos)
+DEF("rpc_max_conns_per_peer", 16, "int",
+    "hard cap on live sockets (idle + in-flight) per RpcClient; "
+    "checkout past it waits for a checkin inside the call deadline and "
+    "then fails with typed ConnPoolExhausted instead of growing "
+    "without bound under fan-out load", _pos)
+DEF("log_checkpoint_interval_s", 60, "int",
+    "periodic checkpoint cadence advancing the WAL replay point so "
+    "restart replay cost is O(tail), not O(history)", _pos)
+DEF("checkpoint_lag_entries", 256, "int",
+    "minimum applied WAL entries past the persisted replay point "
+    "before a periodic checkpoint bothers flushing", _nonneg)
+
+DEF("enable_auto_rebuild", True, "bool",
+    "a node booting with NO local recovery sources (no manifest, slog "
+    "or WAL) bootstraps from a peer's checkpoint + segments + WAL via "
+    "the rebuild.fetch_* verbs (≙ replica rebuild ha_dag)")
+DEF("rebuild_chunk_bytes", 4 << 20, "cap",
+    "byte budget per rebuild.fetch_segments chunk", _pos)
 # DBMS jobs (server/jobs.py)
 DEF("enable_dbms_jobs", False, "bool",
     "start the DBMS job scheduler thread at boot (stats auto-gather, "

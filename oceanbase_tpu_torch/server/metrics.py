@@ -25,9 +25,9 @@ only the buckets it touched and merges are plain sums.
 
 Surfaces: ``gv$sysstat`` / ``gv$sysstat_histogram`` and ``SHOW METRICS``
 (Prometheus text exposition).  ``wire_snapshot``/``merge_wire``/
-``wire_to_flat`` are the scrape body's plain functions; the
-``metrics.scrape`` rpc verb that ships them between nodes waits for
-ROADMAP Queue 1 item 10.
+``wire_to_flat`` are the scrape body's plain functions, which a cluster
+node's ``metrics.scrape`` verb ships between nodes (gv$sysstat merges
+every reachable peer's).
 """
 
 from __future__ import annotations

@@ -15,12 +15,13 @@ worker pool parallel DML submits to, the PX admission semaphore
 (``px_workers_per_tenant`` permits), the memstore write throttle
 (``admission.MemstoreThrottle``) and the disk manager
 (``diskmgr.DiskManager``: the log, data and spill budgets, read-only
-degradation, the log surface's checkpoint-and-recycle reclaim).  What
-the reference's tenant also wires and the port's does not: the
-multi-node ``NetPalf`` log (ROADMAP Queue 1 item 5b, sub-item 14) and
-the CDC pump (item 10a).  Its
-recovery steps carry the reference's trace spans (``recovery.replay``,
-``recovery.restore_prepared``, ``recovery.checkpoint``).
+degradation, the log surface's checkpoint-and-recycle reclaim).  A
+cluster node hands it the networked ``NetPalf`` group (``wal=``) in
+place of the in-process log, and its own ``RecoveryState``
+(``recovery=``); ``cdc()`` opens a change-data-capture pump over the
+WAL.  Its recovery steps carry the reference's trace spans
+(``recovery.replay``, ``recovery.restore_prepared``,
+``recovery.checkpoint``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from oceanbase_tpu_torch.cdc import CdcPump
 from oceanbase_tpu_torch.kv import KvTable
 from oceanbase_tpu_torch.palf.cluster import PalfCluster
 from oceanbase_tpu_torch.server import trace as qtrace
@@ -45,16 +47,23 @@ from oceanbase_tpu_torch.tx.tablelock import LockTable
 
 class Tenant:
     def __init__(self, name: str, root: str | None, cluster_config: Config,
-                 wal_replicas: int = 3, device=None,
-                 corrupt_policy: str = "raise"):
-        """``corrupt_policy``: what boot does with a checksum-failing
+                 wal_replicas: int = 3, wal=None, recovery=None,
+                 device=None, corrupt_policy: str = "raise"):
+        """``wal``: inject an external log handle (a NetPalf group whose
+        replicas live in other OS processes, palf/netcluster.py) instead
+        of the in-process PalfCluster — the multi-node path.
+        ``recovery``: a shared RecoveryState (the node process passes its
+        own so rebuild + boot events land in one gv$recovery log).
+        ``corrupt_policy``: what boot does with a checksum-failing
         segment — "raise" (no repair source) or "quarantine" (move it
         aside and let the scrub plane repair it)."""
         self.name = name
         self.config = Config(parent=cluster_config)
-        self.recovery = RecoveryState()
-        # serializes checkpoint(): interleaved checkpoints could persist
-        # a REGRESSED replay point
+        self.recovery = recovery if recovery is not None \
+            else RecoveryState()
+        # serializes checkpoint() across its callers (a node's periodic
+        # loop, rebuild.fetch_meta handlers, admin sessions): interleaved
+        # checkpoints could persist a REGRESSED replay point
         self._ckpt_lock = threading.Lock()
         data_dir = os.path.join(root, "data") if root else None
         wal_dir = os.path.join(root, "wal") if root else None
@@ -62,9 +71,13 @@ class Tenant:
             os.makedirs(wal_dir, exist_ok=True)
         self.engine = StorageEngine(data_dir,
                                     corrupt_policy=corrupt_policy)
-        self.wal = PalfCluster(wal_replicas, log_root=wal_dir)
-        self.wal.elect()
-        local = self.wal.replicas[self.wal.leader_id]
+        if wal is not None:
+            self.wal = wal
+            local = wal.replica  # NetPalf: this process's replica
+        else:
+            self.wal = PalfCluster(wal_replicas, log_root=wal_dir)
+            self.wal.elect()
+            local = self.wal.replicas[self.wal.leader_id]
         self.tx = TransService(wal=self.wal)
         self.tx.engine = self.engine  # secondary-index maintenance
 
@@ -84,13 +97,19 @@ class Tenant:
         #: WAL entries the last boot replayed
         self.replayed_entries = stats.get("entries", 0)
         if stats.get("entries") or start or local.last_lsn():
+            # a networked replica restores its log but cannot know the
+            # commit point without quorum: its apply happens through
+            # catch-up (leader push / election noop) from ``start``
+            deferred = local.last_lsn() - max(local.committed_lsn, start)
             self.recovery.record(
                 "boot_replay", tenant=name, wal_start_lsn=start,
                 wal_end_lsn=local.committed_lsn,
                 entries=stats.get("entries", 0),
                 prepared=stats.get("prepared", 0),
                 elapsed_s=time.monotonic() - m0,
-                note=f"commits={stats.get('commits', 0)}")
+                note=f"commits={stats.get('commits', 0)}"
+                     + (f" deferred_to_catchup={deferred}"
+                        if deferred > 0 else ""))
         # durable XA: branches prepared before the crash reconstruct
         # into PREPARE state (XA RECOVER lists them)
         with qtrace.span("recovery.restore_prepared", tenant=name) as sp:
@@ -188,11 +207,16 @@ class Tenant:
         checkpoint made those entries' effects durable in segments, so
         boot replay never needs them again."""
         self.checkpoint()
-        self.wal.recycle(int(self.engine.meta.get("wal_lsn", 0)))
+        if hasattr(self.wal, "recycle"):
+            self.wal.recycle(int(self.engine.meta.get("wal_lsn", 0)))
 
     def kv(self, table: str) -> KvTable:
         """OBKV-style table API handle (≙ src/libtable client)."""
         return KvTable(self, table)
+
+    def cdc(self) -> CdcPump:
+        """Change-data-capture pump over this tenant's WAL (≙ libobcdc)."""
+        return CdcPump(self)
 
     def submit(self, fn, *args, **kwargs):
         """Queue work onto this tenant's workers (≙ tenant request queue)."""
@@ -209,6 +233,12 @@ class Tenant:
         # needs stay in the memtables, and the replay point only covers
         # commits the clamped flush snapshot captured
         snap, wal_lsn = self.tx.flush_horizon()
+        # a follower may have committed-but-not-yet-applied entries:
+        # those are not in its memtables, so the flush below would not
+        # cover them — the replay point must not skip them
+        local = getattr(self.wal, "replica", None)
+        if local is not None:
+            wal_lsn = min(wal_lsn, local.applied_lsn)
         # a prepared XA branch's redo lives ONLY in the WAL until its
         # commit/abort — never advance past its prepare batch
         clamp = self.tx.min_prepared_lsn()

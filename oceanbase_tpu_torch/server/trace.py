@@ -6,9 +6,10 @@ ObTrace/FLTSpanMgr in deps/oblib/src/lib/trace/ob_trace.h, surfaced as
 layer underneath (bind, execute, per-operator rows, spill, recovery)
 attaches children.  Completed traces land in a bounded ring served as
 ``gv$trace`` (+ ``SHOW TRACE`` for the last statement, and a trace_id
-column joined into gv$sql_audit).  ``absorb`` merges spans shipped back
-in an rpc reply; the rpc layer that carries them, and remote parenting,
-wait for ROADMAP Queue 1 item 10.
+column joined into gv$sql_audit).  On a cluster the rpc frame carries
+the context: a remote handler continues the caller's tree on its node
+under the caller's rpc span, and ``absorb`` merges the spans shipped
+back in the reply.
 
 Design constraints:
 

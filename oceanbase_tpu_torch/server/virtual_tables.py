@@ -17,11 +17,12 @@ admission and job modules, and the durability plane's: each tenant's
 disk manager (``gv$disk``) and memstore throttle
 (``gv$tenant_resource``), the scrub event log (``gv$scrub``), the ERRSIM
 points (``v$errsim``) and the workload repository
-(``gv$workload_snapshot``/``gv$workload_report``).  A single-node
-database has no DTL exchange or failure detector, so ``gv$px_exchange``
-and ``gv$cluster_health`` return no rows, as the reference's do without
-those subsystems; ``gv$sysstat`` and ``gv$sysstat_histogram`` read this
-process's metrics only (the cluster-wide scrape waits for item 10).
+(``gv$workload_snapshot``/``gv$workload_report``).  On a cluster node
+(``net/node.py::NodeDatabase``) ``gv$px_exchange`` reads the DTL
+exchange's ring, ``gv$cluster_health`` the failure detector, and
+``gv$sysstat``/``gv$sysstat_histogram`` merge every reachable peer's
+``metrics.scrape``; a single-node database has neither subsystem nor
+peers, so the first two return no rows, as the reference's do.
 """
 
 from __future__ import annotations
@@ -948,13 +949,30 @@ class VirtualTables:
     # metrics plane (server/metrics.py): cluster-wide scrape + surfaces
     # ------------------------------------------------------------------
     def scrape_cluster(self) -> dict:
-        """This process's scrape body.  The reference merges every
-        reachable peer's over the ``metrics.scrape`` verb; a single-node
-        database has no peers (the verb waits for ROADMAP Queue 1
-        item 10)."""
+        """Cluster-merged scrape body: this process's registry plus every
+        reachable peer's over the idempotent ``metrics.scrape`` verb
+        (unreachable peers degrade the view, never the query) — the gv$
+        prefix's promise."""
         from oceanbase_tpu_torch.server import metrics as qmetrics
 
-        return qmetrics.wire_snapshot()
+        wire = qmetrics.wire_snapshot()
+        node = getattr(self.db, "_node", None)
+        peers = getattr(node, "peers", None) if node is not None else None
+        if peers:
+            health = getattr(node, "health", None)
+            for pid in sorted(peers):
+                # a peer the failure detector already declared DOWN
+                # would stall the read for the verb deadline — skip it
+                # (the same pre-emptive avoidance DTL routing applies)
+                if health is not None and health.state(pid) == "down":
+                    continue
+                try:
+                    r = peers[pid].call("metrics.scrape",
+                                        _deadline_s=2.0)
+                    wire = qmetrics.merge_wire(wire, r["wire"])
+                except Exception:  # noqa: BLE001 — degraded view
+                    continue
+        return wire
 
     def sysstat(self):
         """Cluster-wide counters + gauges (≙ gv$sysstat): one row per

@@ -39,8 +39,8 @@ reads the port's counterparts of XLA's counts (``exec/plan.py``'s
 docstring defines them: ``xla_traces`` are first executions per
 capacity signature, ``last_compile_s`` is 0.0 since eager torch
 compiles nothing), and top SQL reads the audit's ``xla_compile_s`` and
-``dispatch_s``.  A single node has no peers, so a snapshot is always
-the local payload (the cluster merge waits for ROADMAP Queue 1 item 10).
+``dispatch_s``.  On a cluster node a snapshot merges every reachable
+peer's ``workload.snapshot`` reply, each checked against its digest.
 """
 
 from __future__ import annotations
@@ -266,8 +266,6 @@ class WorkloadRepository:
             if health is not None and health.state(pid) == "down":
                 continue
             try:
-                # a read: the reference's POLICIES declares it idempotent
-                # obcheck: ok(rpc.nonidempotent-resend)
                 r = peers[pid].call("workload.snapshot", _deadline_s=5.0)
                 # the bulk reply carries its own digest: a merge must
                 # never fold in bytes the peer did not mean to send

@@ -285,6 +285,8 @@ class Session:
         self.last_retries = 0
         #: did the last SELECT run through PX?
         self._last_px = False
+        #: did the last query push down over the DTL exchange?
+        self._last_dtl = False
         #: was the last SELECT's PX permit denied (run serially)?
         self._last_px_downgrade = False
         #: the plan the last SELECT ran (after any capacity re-plans)
@@ -823,6 +825,7 @@ class Session:
                     plan, outputs, monitor=monitor,
                     mon_collect=mon_collect, feedback=feedback_on)
                 xsp.tags.update(attempts=self.last_retries + 1,
+                                dtl=int(self._last_dtl),
                                 px=int(self._last_px))
                 if self._last_px_downgrade:
                     # a px_admission denial is visible on the
@@ -841,7 +844,8 @@ class Session:
         res = self._materialize(rel, outputs)
         qplan.resolve_pending()
         exec_elapsed = time.monotonic() - t0
-        path = "px" if self._last_px else "serial"
+        path = ("dtl" if self._last_dtl
+                else "px" if self._last_px else "serial")
         if monitor is not None and mon_collect:
             # roofline prediction vs the measured device half: the TIME
             # q-error beside the cardinality one
@@ -882,18 +886,38 @@ class Session:
         asks for with ``feedback``); ``monitor`` collects the ledger
         rows of the successful attempt.  With ``px`` and a ``px_dop``
         above 1 each attempt first tries the PX path (``_try_px``),
-        whose exchange budgets scale with the same factor."""
-        tables = {t: self._table_snapshot(t)
-                  for t in referenced_tables(plan)
-                  if self.catalog.has_table(t)}
-        self.last_ann_path = self._try_ann_prefilter(plan, tables)
-        self.last_access_paths = self._index_prefilter(plan, tables)
-        prepare_index_probes(self.catalog, plan, tables)
+        whose exchange budgets scale with the same factor.  On a
+        cluster node (``db.dtl``) outside an open transaction each
+        attempt first offers the plan to the DTL exchange
+        (``px/dtl.py``), which ships its partial plan to every node; the
+        local tables are then read only when the exchange declines."""
+        tables = None
+
+        def local_tables():
+            nonlocal tables
+            if tables is None:
+                tables = {t: self._table_snapshot(t)
+                          for t in referenced_tables(plan)
+                          if self.catalog.has_table(t)}
+                self.last_ann_path = self._try_ann_prefilter(plan, tables)
+                self.last_access_paths = self._index_prefilter(plan,
+                                                               tables)
+                prepare_index_probes(self.catalog, plan, tables)
+            return tables
+
+        self.last_ann_path = None
+        self.last_access_paths = {}
         dop = 1
+        dtl = None
         if px:  # EXPLAIN ANALYZE runs serially and keeps the last flags
             dop = self._px_dop()
             self._last_px = False
+            self._last_dtl = False
             self._last_px_downgrade = False
+            # cross-node compute pushdown: an open transaction keeps the
+            # own-writes read path
+            if self.db is not None and self._tx is None:
+                dtl = getattr(self.db, "dtl", None)
         factor = 1
         max_retry = int(self.variables["max_capacity_retry"])
         for attempt in range(max_retry + 1):
@@ -903,9 +927,22 @@ class Session:
             try:
                 p = plan if factor == 1 else scale_capacities(plan, factor)
                 rel = None
-                if dop > 1:
+                if dtl is not None:
                     try:
-                        rel = self._try_px(p, tables, dop, factor=factor,
+                        rel = dtl.try_execute(p, monitor=monitor,
+                                              collect=mon_collect)
+                    except CapacityOverflow:
+                        raise  # remote overflow: re-plan with 4x
+                    except (qadmission.QueryKilled,
+                            qadmission.QueryTimeout):
+                        raise  # the exchange cancelled its fragments
+                    except Exception:  # noqa: BLE001 — as the reference
+                        rel = None  # exchange surprise -> serial
+                    self._last_dtl = rel is not None
+                if rel is None and dop > 1:
+                    try:
+                        rel = self._try_px(p, local_tables(), dop,
+                                           factor=factor,
                                            monitor=monitor if mon_collect
                                            else None)
                     except (NotDistributable, NotImplementedError):
@@ -914,7 +951,8 @@ class Session:
                         dop = 1
                     self._last_px = rel is not None
                 if rel is None:
-                    rel = execute_plan(p, tables, monitor_out=monitor,
+                    rel = execute_plan(p, local_tables(),
+                                       monitor_out=monitor,
                                        monitor_collect=mon_collect)
                 break
             except CapacityOverflow as ovf:

@@ -13,9 +13,9 @@ quarantine corrupt-segment policy, ``scrub_verify_table``,
 disk-fault plane's write checks, the disk manager's typed errors
 (``DiskFull``/``DiskIOError`` out of every durable writer), the ERRSIM
 point of ``freeze_and_flush``, the memstore throttle's flush
-listener and the vector and fulltext index specs (``aux_index`` and
-``drop_aux_index`` slog records).  The DDL log-stream hook of a cluster
-node waits for ROADMAP Queue 1 item 10.
+listener, the vector and fulltext index specs (``aux_index`` and
+``drop_aux_index`` slog records) and the DDL log-stream hook a cluster
+node wires (``ddl_wal_cb``).
 
 Reference analog:
 - slog + slog_ckpt (src/storage/slog, ob_server_checkpoint_slog_handler.h):
@@ -191,6 +191,10 @@ class StorageEngine:
         # re-attempts the persist FIRST — a manifest must never
         # reference a segment file that does not exist on disk
         self._pending_segs: list[tuple[str, object, dict]] = []
+        # multi-node hook: logical DDL ops also replicate through the
+        # tenant's log stream (net/node.py wires this; followers apply
+        # via _replay) — physical segment ops stay node-local
+        self.ddl_wal_cb = None
         if root is not None:
             os.makedirs(os.path.join(root, "segments"), exist_ok=True)
             self._open_or_recover()
@@ -205,6 +209,8 @@ class StorageEngine:
         return os.path.join(self.root, "manifest.json")
 
     def _log_meta(self, op: dict):
+        if self.ddl_wal_cb is not None:
+            self.ddl_wal_cb(op)
         if self.root is None:
             return
         if self._slog_f is None:

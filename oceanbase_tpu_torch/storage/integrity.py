@@ -21,8 +21,9 @@ three primitives:
 
 Port of ``oceanbase_tpu/storage/integrity.py``: the segment, manifest,
 slog and WAL checks, the quarantine retention, the workload snapshots'
-byte digest and the logical table digest.  The DTL reply digest
-(``arrays_crc``) comes with the exchange (ROADMAP Queue 1 item 10).
+byte digest, the logical table digest and the digest of a column payload
+(``arrays_crc``) that stamps every DTL, das.scan and forwarded-statement
+reply.
 """
 
 from __future__ import annotations
@@ -82,6 +83,27 @@ class CorruptionError(RuntimeError):
 
 def bytes_crc(data: bytes) -> int:
     return crc64(bytes(data))
+
+
+def arrays_crc(arrays: dict, valids: dict | None = None) -> int:
+    """Digest of a {name -> numpy array} payload (plus optional validity
+    masks), independent of dict insertion order.  Used for DTL exchange
+    replies: the fragment executor stamps its reply, the coordinator
+    verifies before merging."""
+    crc = 0
+    for name in sorted(arrays):
+        a = np.asarray(arrays[name])
+        if a.dtype == object or a.dtype.kind in "US":
+            body = "\x00".join("" if x is None else str(x)
+                               for x in a.tolist()).encode("utf-8")
+        else:
+            body = np.ascontiguousarray(a).tobytes()
+        crc = crc64(body, seed=crc64(name.encode(), seed=crc))
+        v = (valids or {}).get(name)
+        if v is not None:
+            crc = crc64(np.ascontiguousarray(
+                np.asarray(v, dtype=bool)).tobytes(), seed=crc)
+    return crc
 
 
 def chunk_crc(payload: dict, valid, encoding: str, n: int) -> int:

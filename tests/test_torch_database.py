@@ -526,6 +526,16 @@ def test_unported_statements_raise_with_a_database(tmp_path, sql, item):
         assert outs[1][0] == ("ok", 0, []) and len(outs[1][1]) == 2
 
 
+#: the cluster plane's knobs (net/node.py, px/dtl.py, net/rebuild.py)
+CLUSTER_KNOBS = {"enable_dtl_pushdown", "dtl_min_rows",
+                 "enable_fault_injection", "fault_seed",
+                 "health_ping_interval_s", "health_suspect_threshold",
+                 "health_down_threshold", "rpc_conn_pool_size",
+                 "rpc_max_conns_per_peer", "log_checkpoint_interval_s",
+                 "checkpoint_lag_entries", "enable_auto_rebuild",
+                 "rebuild_chunk_bytes"}
+
+
 def test_unported_knobs_are_refused(tmp_path):
     db = Database(str(tmp_path / "db"), device="cpu")
     s = db.session()
@@ -533,16 +543,20 @@ def test_unported_knobs_are_refused(tmp_path):
                 # declared by the reference, read by neither package:
                 # the planner sizes exchange budgets itself
                 "alter system set px_exchange_capacity_per_dest = 1",
-                "alter system set enable_fault_injection = true",
-                "set global fault_seed = 1",
-                "alter system set enable_dtl_pushdown = false",
-                "alter system set health_ping_interval_s = 1"):
+                # declared by the reference, read by no module of it
+                "alter system set palf_lease_ms = 1",
+                "set global wal_replica_count = 1"):
         with pytest.raises(KeyError, match="unknown parameter"):
             s.execute(sql)
     s.execute("alter system set sql_work_area_rows = 4096")
     s.execute("set global minor_compact_trigger = 2")
     s.execute("alter system set enable_workload_repo = false")
     s.execute("set global enable_scrub = true")
+    # the cluster plane's knobs are read by the port's node and DTL
+    s.execute("alter system set enable_fault_injection = true")
+    s.execute("set global fault_seed = 1")
+    s.execute("alter system set enable_dtl_pushdown = false")
+    s.execute("alter system set health_ping_interval_s = 1")
     names = {r[0] for r in s.execute("show parameters").rows()}
     assert names == {"sql_work_area_rows", "enable_sql_spill",
                      "enable_shape_buckets", "shape_bucket_growth",
@@ -580,7 +594,7 @@ def test_unported_knobs_are_refused(tmp_path):
                      "scrub_interval_s", "enable_disk_faults",
                      "enable_workload_repo", "workload_snapshot_interval_s",
                      "workload_retention_keep",
-                     "workload_retention_max_age_s"}
+                     "workload_retention_max_age_s"} | CLUSTER_KNOBS
     # each new knob has the reference's default
     from oceanbase_tpu.server.config import Config as JConfig
 
@@ -593,14 +607,18 @@ def test_unported_knobs_are_refused(tmp_path):
                  "scrub_interval_s", "enable_disk_faults",
                  "enable_workload_repo", "workload_snapshot_interval_s",
                  "workload_retention_keep",
-                 "workload_retention_max_age_s"):
+                 "workload_retention_max_age_s",
+                 *sorted(CLUSTER_KNOBS - {"enable_fault_injection",
+                                          "fault_seed",
+                                          "enable_dtl_pushdown",
+                                          "health_ping_interval_s"})):
         assert JConfig()[name] == db.config[name], name
     db.close()
     db2 = Database(str(tmp_path / "db"), device="cpu")  # persisted
     assert db2.config["sql_work_area_rows"] == 4096
     db2.close()
     (tmp_path / "db" / "config.json").write_text(
-        json.dumps({"enable_dtl_pushdown": False}))
+        json.dumps({"tenant_memory_limit": 1}))
     with pytest.raises(KeyError, match="unknown parameter"):
         Database(str(tmp_path / "db"), device="cpu")
 

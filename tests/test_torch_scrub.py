@@ -283,11 +283,30 @@ def test_scrub_round_detects_quarantines_repairs(tmp_path, corrupt):
 
 
 def test_scrubber_with_peers_names_the_rpc_plane(tmp_path):
+    """A scrubber whose node has peers takes the reference's vote path
+    over the rpc plane: it asks each peer for ``scrub.checksum`` at its
+    own snapshot and applied LSN, and skips a peer that does not
+    answer."""
+    import types
+
     db, _s = _seed_db(T, tmp_path / "db")
     sc = db.scrubber()
-    sc.node.peers = {2: object()}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sc.run_once()
+    t = db.tenant("sys")
+    calls = []
+
+    class Peer:
+        def call(self, verb, **kw):
+            calls.append((verb, sorted(kw)))
+            raise ConnectionError("unreachable")
+
+    sc.node.peers = {2: Peer()}
+    sc.node.palf = types.SimpleNamespace(
+        replica=types.SimpleNamespace(
+            applied_lsn=t.wal.replicas[t.wal.leader_id].applied_lsn))
+    sc.node.tx = t.tx
+    out = sc.run_once()
+    assert calls == [("scrub.checksum", ["applied_lsn", "snapshot"])]
+    assert out["mismatch"] == [] and out["repaired"] == []
     db.close()
 
 
