@@ -127,8 +127,8 @@ Phases, each printing its own lines:
    of one ``execute_plan`` of Q1, Q6 and Q14 with the plane on and off
    (equal); the plane's overhead on the 11 in-memory queries (5
    interleaved pairs); ``q6_filter_sum`` under the profiler;
-8f. vector (after durability; a ``Database`` of its own): 1,000,000
-   VECTOR(128) rows (ANN-Benchmarks' SIFT1M size; synthetic,
+8f. vector (after durability; a ``Database`` of its own): 250,000
+   VECTOR(128) rows (a quarter of ANN-Benchmarks' SIFT1M; synthetic,
    integer-valued and clustered, from a seed, so float32 holds every
    distance exactly) direct-loaded by ``catalog.load_numpy``; 100
    top-10 ``l2_distance`` queries with no index, through an exact vector
@@ -159,10 +159,24 @@ Phases, each printing its own lines:
    root rebuilds from a peer and answers a weak Q6; (f) a seeded bit
    flip in its segment file found by ``scrub.run``, repaired from a peer
    to equal digests;
+8h. chaos (on phase cluster's nodes and rows; no boot, no load): the
+   reference's nemesis scenarios that 8g does not run, through
+   ``bench/chaos.py`` in ``scripts/chaos_bench.py``'s order: the leader
+   partitioned from a follower both ways, queries through the third
+   node; a committed marker and a prepared XA branch, then a follower's
+   ``kill -9`` and restart (the marker reads there, the branch is
+   recoverable and commits); a seeded segment flip repaired by one
+   ``scrub.run``, then a WAL entry and the manifest flipped while the
+   node is down, repaired at its restart; 12 clients over 2 admission
+   slots while a follower is killed (typed errors only, every admitted
+   answer equal to numpy); the leader's log budget out of reach
+   (read-only, weak reads equal to numpy, ``disk.takeover``, auto-exit),
+   then an ENOSPC-failed WAL append, a ``kill -9`` and a clean restart;
+   each record held to the reference's invariants;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
    and printed after it: the stream, spill, SQL, PX, obcheck, server,
-   durability, vector and cluster paths, like the JAX package's, reach
+   durability, vector, cluster and chaos paths, like the JAX package's, reach
    no hand-written kernel,
    and measure makes one profiled launch), and each phase's seconds;
 10. the card's name and power limit, then the result line.
@@ -1534,7 +1548,7 @@ def phase_load(torch, dev, tables, types, card, want, root, writer):
     import gc
     import threading
 
-    from oceanbase_tpu_torch.bench.tbl import create_table_sql
+    from oceanbase_tpu_torch.bench.tbl import create_table_sql, values_row
     from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS
     from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
     from oceanbase_tpu_torch.server.database import Database
@@ -1814,7 +1828,7 @@ def phase_load(torch, dev, tables, types, card, want, root, writer):
                  f"o_orderkey = {mv_new}")
     sess.execute(f"delete from orders where o_orderkey >= {top}")
     sess.execute(f"replace into orders values "
-                 f"{_loaded_row(od, types, n_ord // 2)}")
+                 f"{values_row(od, types, n_ord // 2)}")
     comment = tables["lineitem"]["l_comment"][7].replace("'", "''")
     sess.execute(f"update lineitem set l_comment = '{comment}' where "
                  f"{where}")
@@ -1827,27 +1841,6 @@ def phase_load(torch, dev, tables, types, card, want, root, writer):
                                         for k, v in steps.items()))
     return {"db": db, "files": files, "results": results,
             "load_ms": load_ms, "spill": spill_stats, "top": top}
-
-
-def _loaded_row(arrays, types, i) -> str:
-    """Row ``i`` of a generated table as a VALUES tuple (DECIMAL from
-    its scaled int, DATE as text, strings quoted)."""
-    from oceanbase_tpu_torch.datatypes import TypeKind, days_to_date
-    from oceanbase_tpu_torch.server.mysql_protocol import format_decimal
-
-    out = []
-    for c, a in arrays.items():
-        t = types.get(c)
-        x = a[i]
-        if t is not None and t.kind == TypeKind.DECIMAL:
-            out.append(format_decimal(int(x), t.scale))
-        elif t is not None and t.kind == TypeKind.DATE:
-            out.append(f"'{days_to_date(int(x))}'")
-        elif isinstance(x, str):
-            out.append("'" + x.replace("'", "''") + "'")
-        else:
-            out.append(str(int(x)))
-    return "(" + ", ".join(out) + ")"
 
 
 # ---------------------------------------------------------------------------
@@ -3472,9 +3465,9 @@ def phase_durability(torch, dev, tables, types, card, want, served, db,
                                               for k, v in steps.items()))
 
 
-# -- phase vector: VECTOR columns and the ANN access path at SIFT1M size --
+# -- phase vector: VECTOR columns and the ANN access path, SIFT1M cut ----
 
-VECTOR_ROWS = 1_000_000          # ANN-Benchmarks sift-128-euclidean
+VECTOR_ROWS = 250_000            # a quarter of sift-128-euclidean's 1,000,000 (PERF §4)
 VECTOR_DIM = 128
 VECTOR_CENTRES = 1_000           # the synthetic data's clusters
 VECTOR_SPREAD = 12.0             # per-coordinate noise around a centre
@@ -3545,10 +3538,10 @@ def _check_topk(rows, base, ids_live, q, d2_row, tag, exact=True):
 def phase_vector(torch, dev, tables, card):
     """Phase vector: VECTOR(128) columns, the distance functions, the
     exact and IVF-Flat vector indexes behind ORDER BY <distance> LIMIT k,
-    and a fulltext index, through a ``Database`` on the card at the size
-    of ANN-Benchmarks' SIFT1M (1,000,000 x 128, k = 10; synthetic,
-    integer-valued, clustered data from a seed; 100 of its 10,000
-    queries), each answer held against numpy."""
+    and a fulltext index, through a ``Database`` on the card at a quarter
+    of ANN-Benchmarks' SIFT1M (``VECTOR_ROWS`` x 128, k = 10;
+    synthetic, integer-valued, clustered data from a seed; 100 of its
+    10,000 queries), each answer held against numpy."""
     import gc
     import re
     import shutil
@@ -3922,7 +3915,6 @@ CLUSTER_DROP_RUNS = 5
 CLUSTER_FAULT_SEED = 13
 CLUSTER_DETECT_BOUND_S = 15.0    # the reference's re-election bound
 CLUSTER_DEADLINE_S = 300.0       # each wait of the phase
-CLUSTER_MARK_SHIPDATE = "1998-11-30"  # marker rows: outside Q1 and Q6
 
 
 def start_cluster(device="cuda"):
@@ -3958,7 +3950,7 @@ def _cluster_loader(repo, ports, rows, types, queue):
     sys.path.insert(0, repo)
     try:
         from oceanbase_tpu_torch.bench.cluster import ClusterClient
-        from oceanbase_tpu_torch.bench.tbl import create_table_sql
+        from oceanbase_tpu_torch.bench.tbl import create_table_sql, values_row
 
         c = ClusterClient(ports)
         t0 = time.perf_counter()
@@ -3969,7 +3961,7 @@ def _cluster_loader(repo, ports, rows, types, queue):
         n = len(rows["l_orderkey"])
         t0 = time.perf_counter()
         for s in range(0, n, CLUSTER_BATCH):
-            vals = ", ".join(_loaded_row(rows, types, i)
+            vals = ", ".join(values_row(rows, types, i)
                              for i in range(s, min(s + CLUSTER_BATCH, n)))
             c.execute(1, f"insert into lineitem values {vals}")
         load_s = time.perf_counter() - t0
@@ -4017,59 +4009,6 @@ def _compute_pids():
     return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
 
 
-def _exchange(c, node):
-    """The newest pushdown row of ``node``'s gv$px_exchange."""
-    from oceanbase_tpu_torch.bench.cluster import rows as crows
-
-    got = crows(c.execute(node, (
-        "select pushdown_hit, parts, fallback_parts, avoided_parts, "
-        "bytes_shipped, rows_shipped, remote_device_s from gv$px_exchange "
-        "where mode = 'pushdown' order by ts desc limit 1")))
-    keys = ("hit", "parts", "fallback", "avoided", "bytes", "rows",
-            "remote_device_s")
-    return dict(zip(keys, got[0])) if got else None
-
-
-def _check_cluster_q6(res, want, tag):
-    got = int(np.asarray(res["arrays"][res["names"][0]])[0])
-    if got != want:
-        raise AssertionError(f"{tag}: Q6 {got} != numpy {want}")
-
-
-def _check_cluster_q1(res, want, tag):
-    if list(res["names"]) != list(want):
-        raise AssertionError(f"{tag}: Q1 columns {res['names']}")
-    for k, v in want.items():
-        g = np.asarray(res["arrays"][k])
-        if v.dtype.kind == "f":
-            np.testing.assert_allclose(g.astype(np.float64), v, rtol=1e-12,
-                                       err_msg=f"{tag} {k}")
-        elif [str(x) for x in g.tolist()] != [str(x) for x in v.tolist()]:
-            raise AssertionError(f"{tag}: Q1 {k}: {g.tolist()} != "
-                                 f"{v.tolist()}")
-
-
-def _flip_segment_file(path) -> int:
-    """Flip one seeded bit that the segment's checksums catch (a zip
-    container has don't-care padding a flip could hit) -> the seed."""
-    from oceanbase_tpu_torch.net.faults import bitflip_file
-    from oceanbase_tpu_torch.storage.integrity import CorruptionError
-    from oceanbase_tpu_torch.storage.segment import Segment
-
-    for seed in range(1, 64):
-        probe = path + ".probe"
-        shutil.copyfile(path, probe)
-        bitflip_file(probe, seed=seed)
-        try:
-            Segment.load(probe)
-        except CorruptionError:
-            bitflip_file(path, seed=seed)
-            return seed
-        finally:
-            os.remove(probe)
-    raise AssertionError(f"no seeded flip of {path} was detectable")
-
-
 def _rpc_counter(c, node, name, **labels) -> int:
     """One node's counter ``name`` summed over the series whose labels
     include ``labels`` (its own ``metrics.scrape``)."""
@@ -4081,19 +4020,25 @@ def _rpc_counter(c, node, name, **labels) -> int:
 def phase_cluster(torch, cluster, loader, rows, types, card):
     """Phase cluster (steps a-g): the port's cluster plane, three node
     processes each running a ``Database`` tenant on the card over a
-    networked PALF log stream, driven over the rpc frame."""
-    import glob
-
-    from oceanbase_tpu_torch.bench.cluster import rows as crows
-    from oceanbase_tpu_torch.bench.oracle_np import numpy_q1, numpy_q6
-    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
-
+    networked PALF log stream, driven over the rpc frame -> the loaded
+    rows as a ``bench/chaos.py`` ``Workload`` (its numpy answers and
+    marker keys), which phase chaos goes on with."""
     import threading
 
+    from oceanbase_tpu_torch.bench.chaos import Workload
+    from oceanbase_tpu_torch.bench.cluster import flip_segment
+    from oceanbase_tpu_torch.bench.cluster import rows as crows
+    from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
+
     c = cluster
+    w = Workload(rows, types)
     n = len(rows["l_orderkey"])
-    want6, want1 = numpy_q6(rows), numpy_q1(rows)
     steps = {}
+
+    def check(q, res, tag):
+        if not w.matches(q, res):
+            raise AssertionError(f"{tag}: {q} {res['names']} "
+                                 f"{res['arrays']} != numpy {w.want[q]}")
 
     def step_done(name, t0):
         steps[name] = time.perf_counter() - t0
@@ -4101,7 +4046,7 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
 
     def q6_on(node, tag, consistency="strong"):
         res = c.execute(node, QUERIES[6], consistency=consistency)
-        _check_cluster_q6(res, want6, tag)
+        check("q6", res, tag)
         return res
 
     try:
@@ -4156,16 +4101,15 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
         # -- (c) pushdown: Q6 and Q1 against numpy, then serially ----------
         t0 = time.perf_counter()
         ex_of = {}
-        for q, check, want in ((6, _check_cluster_q6, want6),
-                               (1, _check_cluster_q1, want1)):
+        for q in (6, 1):
             for node in (leader, 1 + leader % 3):
                 times = []
                 for _ in range(CLUSTER_RUNS):
                     t1 = time.perf_counter()
                     res = c.execute(node, QUERIES[q])
                     times.append((time.perf_counter() - t1) * 1e3)
-                    check(res, want, f"q{q} via node {node}")
-                    ex = _exchange(c, leader)
+                    check(f"q{q}", res, f"q{q} via node {node}")
+                    ex = c.last_exchange(leader)
                     if res["node"] != leader or ex is None or not (
                             ex["hit"] == 1 and ex["parts"] == 3 and
                             ex["fallback"] == 0 and
@@ -4194,10 +4138,9 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
               f"{ex_of[6]['bytes'] / pull['bytes']:.6f} and "
               f"{ex_of[1]['bytes'] / pull['bytes']:.6f} of it")
         c.execute(leader, "alter system set enable_dtl_pushdown = false")
-        for q, check, want in ((6, _check_cluster_q6, want6),
-                               (1, _check_cluster_q1, want1)):
+        for q in (6, 1):
             t1 = time.perf_counter()
-            check(c.execute(leader, QUERIES[q]), want, f"serial q{q}")
+            check(f"q{q}", c.execute(leader, QUERIES[q]), f"serial q{q}")
             print(f"[cluster] q{q} serial on the leader (enable_dtl_pushdown"
                   f" = false): {(time.perf_counter() - t1) * 1e3:.3f} ms, "
                   f"equal to numpy")
@@ -4250,7 +4193,7 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
         fb = []
         for _ in range(CLUSTER_DROP_RUNS):
             q6_on(leader, "q6 under the drop")
-            ex = _exchange(c, leader)
+            ex = c.last_exchange(leader)
             fb.append((ex["fallback"], ex["avoided"]))
         c.clients[leader].call("fault.clear")
         retries = _rpc_counter(c, leader, "rpc.retries",
@@ -4281,11 +4224,11 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
         if inflight.is_alive() or failed:
             raise AssertionError(f"the Q6 that lost node {dead}: "
                                  f"{failed or 'still running'}")
-        ex = _exchange(c, leader)
+        ex = c.last_exchange(leader)
         if ex["fallback"] < 1:
             raise AssertionError(f"node {dead} killed mid-query: {ex}")
         q6_on(leader, "q6 with a dead follower")
-        ex2 = _exchange(c, leader)
+        ex2 = c.last_exchange(leader)
         if ex2["fallback"] + ex2["avoided"] < 1:
             raise AssertionError(f"dead node {dead}'s slice: {ex2}")
         print(f"[cluster] kill -9 of node {dead} {0.3 * q6_ms:.1f} ms into "
@@ -4300,24 +4243,14 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
         print(f"[cluster] node {dead} restarted: first ping {restart_s:.3f}"
               f" s after spawn, caught up (weak count {n}, leader's LSN "
               f"applied) {time.perf_counter() - t1:.3f} s after spawn")
-        mark = {k: a[:1].copy() for k, a in rows.items()}
-        mark["l_shipdate"][0] = _days(CLUSTER_MARK_SHIPDATE)
-        base_key = int(rows["l_orderkey"].max())
-
-        def marker(k):
-            m = {c_: a.copy() for c_, a in mark.items()}
-            m["l_orderkey"][0] = k
-            return (f"insert into lineitem values "
-                    f"{_loaded_row(m, types, 0)}")
-
-        c.execute(leader, marker(base_key + 1))
+        key = w.new_key()
+        c.execute(leader, w.marker_sql(key))
         t_kill = time.perf_counter()
         c.kill(leader)
         new = c.leader(CLUSTER_DETECT_BOUND_S, exclude=(leader,))
         elect_s = time.perf_counter() - t_kill
-        got1 = crows(c.execute(new, f"select count(*) from lineitem where "
-                                    f"l_orderkey = {base_key + 1}"))[0][0]
-        res = c.execute(new, marker(base_key + 2), deadline_s=60)
+        got1 = crows(c.execute(new, w.key_count_sql(key)))[0][0]
+        res = c.execute(new, w.marker_sql(w.new_key()), deadline_s=60)
         if got1 != 1 or res["node"] != new:
             raise AssertionError(f"after failover: marker count {got1}, "
                                  f"write on node {res['node']}")
@@ -4359,11 +4292,10 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
 
         # -- (f) scrub: rot a follower's segment, vote, repair ------------
         t0 = time.perf_counter()
-        segs = sorted(glob.glob(os.path.join(
-            c.node_root(wiped), "data", "segments", "lineitem_*.npz")))
+        segs = c.segments(wiped, "lineitem")
         if not segs:
             raise AssertionError(f"node {wiped} holds no lineitem segment")
-        seed = _flip_segment_file(segs[0])
+        seed = flip_segment(segs[0])
         summary = c.clients[wiped].call("scrub.run")
         if "lineitem" not in summary["repaired"] or summary["failed"]:
             raise AssertionError(f"scrub.run: {summary}")
@@ -4386,13 +4318,46 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
             print(f"[cluster] node {i} log tail:\n{c.log_tail(i)}",
                   file=sys.stderr)
         raise
-    return steps
+    return w
 
 
-def _days(text: str) -> int:
-    from oceanbase_tpu_torch.datatypes import date_to_days
+# ---------------------------------------------------------------------------
+# phase chaos: the reference's nemesis schedule on phase cluster's nodes
+# ---------------------------------------------------------------------------
 
-    return int(date_to_days(text))
+
+def phase_chaos(torch, cluster, workload, card):
+    """Phase chaos: ``bench/chaos.py``'s five scenarios, in the order of
+    ``scripts/chaos_bench.py``, on phase cluster's three node processes
+    and its lineitem rows (``workload``, phase cluster's; no boot, no
+    load); each record is held to the reference's invariants.  Closes
+    the cluster."""
+    from oceanbase_tpu_torch.bench import chaos
+
+    c = cluster
+    try:
+        records = chaos.run(c, workload,
+                            log=lambda line: print(line, flush=True))
+        devs = {i: s.get("device") for i, s in c.states().items()}
+        if sorted(devs) != [1, 2, 3] or any(
+                str(d).split(":")[0] != c.device for d in devs.values()):
+            raise AssertionError(f"node devices after the restarts {devs}")
+        restarts = [records[k]["restart_s"] for k in (
+            "nodekill_restart", "overload_shed", "disk_full_readonly")]
+        print(f"[chaos] the five scenarios held the reference's invariants "
+              f"(parity, 0 hung, typed errors only, kinds "
+              f"{records['bitflip_scrub_repair']['kinds_detected']}, "
+              f"read-only entered and left, a takeover, a clean restart); "
+              f"restarts to a caught-up node {[round(x, 3) for x in restarts]}"
+              f" s; nodes on {devs}; {card}")
+    except BaseException:
+        for i in (1, 2, 3):
+            print(f"[chaos] node {i} log tail:\n{c.log_tail(i)}",
+                  file=sys.stderr)
+        raise
+    finally:
+        c.close()
+    return records
 
 
 def main() -> int:
@@ -4528,12 +4493,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, counts = timed_phase("vector", phase_vector, torch, dev, tables, card)
     print(f"[vector] kernel launches: {counts}")
-    _, counts = timed_phase("cluster", phase_cluster, torch, cluster,
-                            cluster_loader, cluster_rows, cluster_types, card)
+    workload, counts = timed_phase("cluster", phase_cluster, torch, cluster,
+                                   cluster_loader, cluster_rows,
+                                   cluster_types, card)
     print(f"[cluster] kernel launches in this process: {counts} (the "
           f"nodes run the SQL path, which launches none, as in the "
           f"reference)")
-    cluster.close()
+    _, counts = timed_phase("chaos", phase_chaos, torch, cluster, workload,
+                            card)
+    print(f"[chaos] kernel launches in this process: {counts}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -12,11 +12,16 @@ phase "cluster" on the card.
 Every wait polls one condition under a deadline of its own and ends with
 a ``ClusterTimeout`` that names what was awaited and how far it got:
 a node answering ``ping``, a leader, a follower's committed LSN, a weak
-``count(*)``.  ``close()`` kills and reaps every process it started.
+``count(*)``, a detector's state for a peer.  ``close()`` kills and
+reaps every process it started.  The rot helpers (``flip_segment``,
+``flip_wal_entry``) corrupt a node's files for ``bench/chaos.py``'s
+scenarios.
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import os
 import shutil
 import signal
@@ -87,6 +92,57 @@ def rows(res: dict) -> list[tuple]:
     return out
 
 
+def flip_segment(path: str) -> int:
+    """Flip one seeded bit of a segment file that its checksums catch (a
+    zip container has don't-care padding a flip could hit) -> the
+    seed."""
+    from oceanbase_tpu_torch.net.faults import bitflip_file
+    from oceanbase_tpu_torch.storage.integrity import CorruptionError
+    from oceanbase_tpu_torch.storage.segment import Segment
+
+    for seed in range(1, 64):
+        probe = path + ".probe"
+        shutil.copyfile(path, probe)
+        bitflip_file(probe, seed=seed)
+        try:
+            Segment.load(probe)
+        except CorruptionError:
+            bitflip_file(path, seed=seed)
+            return seed
+        finally:
+            os.remove(probe)
+    raise AssertionError(f"no seeded flip of {path} was detectable")
+
+
+def flip_wal_entry(path: str) -> int:
+    """Flip one payload bit of a COMPLETE entry three quarters into a
+    WAL file (rot, not a torn append: the boot scan must fail its crc64
+    and truncate there, keeping a replay prefix) -> that entry's LSN."""
+    from oceanbase_tpu_torch.palf.log import _HDR, _MAGIC
+
+    with open(path, "rb") as f:
+        buf = f.read()
+    if not buf.startswith(_MAGIC):
+        raise AssertionError(f"{path} is not a WAL file")
+    found = []
+    off = len(_MAGIC)
+    while off + _HDR.size <= len(buf):
+        _term, lsn, plen, _crc = _HDR.unpack_from(buf, off)
+        if off + _HDR.size + plen > len(buf) or plen == 0:
+            break
+        found.append((off + _HDR.size, lsn))
+        off += _HDR.size + plen
+    if not found:
+        raise AssertionError(f"{path} holds no complete entry")
+    target, lsn = found[len(found) * 3 // 4]
+    with open(path, "r+b") as f:
+        f.seek(target)
+        b = f.read(1)
+        f.seek(target)
+        f.write(bytes([b[0] ^ 0x10]))
+    return lsn
+
+
 class ClusterClient:
     """Statements and waits against running nodes, by their ports (a
     process that did not start them, such as a loader, uses this)."""
@@ -124,12 +180,13 @@ class ClusterClient:
 
     def leader(self, deadline_s: float = 60.0, exclude=()) -> int:
         """Wait for a node (not in ``exclude``) to report itself leader;
-        -> its id."""
+        -> its id, the claim of the highest term (a deposed leader may
+        still claim an older one)."""
         def find():
-            for i, st in self.states().items():
-                if st.get("role") == "leader" and i not in exclude:
-                    return i
-            return None
+            claims = [(int(st.get("term", 0)), i)
+                      for i, st in self.states().items()
+                      if st.get("role") == "leader" and i not in exclude]
+            return max(claims)[1] if claims else None
 
         return wait_for(find, deadline_s, "a PALF leader"
                         + (f" other than {list(exclude)}" if exclude
@@ -153,6 +210,78 @@ class ClusterClient:
                         time.monotonic() >= end:
                     raise
             time.sleep(0.1)
+
+    def health(self, i: int) -> dict[int, str]:
+        """Node ``i``'s failure detector: peer -> up | suspect | down."""
+        return {int(r["peer"]): r["state"] for r in self.clients[i].call(
+            "cluster.health", _deadline_s=5.0)["peers"]}
+
+    def wait_detector(self, i: int, peer: int, states,
+                      deadline_s: float = 30.0) -> str:
+        """Wait until node ``i``'s detector holds ``peer`` in one of
+        ``states``; -> that state."""
+        def seen():
+            st = self.health(i).get(peer)
+            return st if st in states else None
+
+        return wait_for(seen, deadline_s,
+                        f"node {i}'s detector to see node {peer} "
+                        f"{'/'.join(states)}", poll_s=0.1)
+
+    def last_exchange(self, i: int) -> dict | None:
+        """The newest pushdown row of node ``i``'s gv$px_exchange."""
+        got = rows(self.execute(i, (
+            "select pushdown_hit, parts, fallback_parts, avoided_parts, "
+            "bytes_shipped, rows_shipped, remote_device_s from "
+            "gv$px_exchange where mode = 'pushdown' order by ts desc "
+            "limit 1")))
+        keys = ("hit", "parts", "fallback", "avoided", "bytes", "rows",
+                "remote_device_s")
+        return dict(zip(keys, got[0])) if got else None
+
+    def storm(self, i: int, statements: list[str], rounds: int,
+              deadline_s: float = 120.0):
+        """Start one client thread per statement against node ``i``, each
+        with its own connection and server-side session (``1000 + k``,
+        as the reference's storm), sending its statement ``rounds`` times
+        -> ``join()``, which waits up to ``deadline_s`` and returns
+        ``(results, alive)``: one ``(k, kind, reply, seconds)`` per
+        statement sent (kind ``"ok"`` or the error's kind) and the
+        threads still running."""
+        port = self.ports[i - 1]
+        out: list = []
+        lock = threading.Lock()
+
+        def client(k: int, sql: str):
+            cli = RpcClient("127.0.0.1", port, timeout_s=30.0)
+            try:
+                for _ in range(rounds):
+                    t0 = time.monotonic()
+                    kind, res = "ok", None
+                    try:
+                        res = cli.call("sql.execute", sql=sql,
+                                       session_id=1000 + k)
+                    except Exception as e:  # noqa: BLE001 — the outcome
+                        kind = getattr(e, "kind", type(e).__name__)
+                    with lock:
+                        out.append((k, kind, res, time.monotonic() - t0))
+            finally:
+                cli.close()
+
+        threads = [threading.Thread(target=client, args=(k, sql),
+                                    daemon=True)
+                   for k, sql in enumerate(statements)]
+        for t in threads:
+            t.start()
+
+        def join():
+            end = time.monotonic() + deadline_s
+            for t in threads:
+                t.join(max(end - time.monotonic(), 0.0))
+            with lock:
+                return list(out), sum(t.is_alive() for t in threads)
+
+        return join
 
     def count(self, i: int, table: str, where: str = "") -> int:
         res = self.execute(i, f"select count(*) from {table} {where}",
@@ -198,12 +327,13 @@ class ClusterClient:
 
 class NodeCluster(ClusterClient):
     """Node processes this harness starts (``wait=False`` returns as soon
-    as they are spawned; ``wait_ready`` waits for them later)."""
+    as they are spawned; ``wait_ready`` waits for them later; ``config``
+    seeds every node's ``config.json`` before its first boot)."""
 
     def __init__(self, root: str, n: int = 3, device: str = "cuda",
                  lease_ms: int = 1500, boot_deadline_s: float = 120.0,
                  module: str = "oceanbase_tpu_torch.net.node",
-                 wait: bool = True):
+                 wait: bool = True, config: dict | None = None):
         super().__init__(free_ports(n))
         self.root = str(root)
         self.device = device
@@ -227,6 +357,12 @@ class NodeCluster(ClusterClient):
         os.makedirs(self.root, exist_ok=True)
         try:
             for i in range(1, n + 1):
+                if config:
+                    # every node's knobs before its first boot
+                    os.makedirs(self.node_root(i), exist_ok=True)
+                    with open(os.path.join(self.node_root(i),
+                                           "config.json"), "w") as f:
+                        json.dump(config, f)
                 self.start_node(i, bootstrap=(i == 1))
             if wait:
                 self.wait_ready(boot_deadline_s)
@@ -340,6 +476,16 @@ class NodeCluster(ClusterClient):
         self.clients[i].close()
         self.start_node(i)
         return self.wait_up(i, deadline_s)
+
+    def wal_path(self, i: int) -> str:
+        return os.path.join(self.node_root(i), "wal", f"replica_{i}.log")
+
+    def manifest_path(self, i: int) -> str:
+        return os.path.join(self.node_root(i), "data", "manifest.json")
+
+    def segments(self, i: int, table: str) -> list[str]:
+        return sorted(glob.glob(os.path.join(
+            self.node_root(i), "data", "segments", f"{table}_*.npz")))
 
     def wipe(self, i: int):
         """Delete a (killed) node's root: its next start rebuilds."""

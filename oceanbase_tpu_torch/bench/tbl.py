@@ -88,4 +88,25 @@ def create_table_sql(name: str, arrays: dict, types: dict | None,
     return text
 
 
-__all__ = ["create_table_sql", "write_tbl"]
+def values_row(arrays: dict, types: dict | None, i: int) -> str:
+    """Row ``i`` of generated ``arrays`` as a VALUES tuple (DECIMAL from
+    its scaled int, DATE as text, strings quoted)."""
+    from oceanbase_tpu_torch.datatypes import days_to_date
+    from oceanbase_tpu_torch.server.mysql_protocol import format_decimal
+
+    out = []
+    for c, a in arrays.items():
+        t = (types or {}).get(c)
+        x = a[i]
+        if t is not None and t.kind == TypeKind.DECIMAL:
+            out.append(format_decimal(int(x), t.scale))
+        elif t is not None and t.kind == TypeKind.DATE:
+            out.append(f"'{days_to_date(int(x))}'")
+        elif isinstance(x, str):
+            out.append("'" + x.replace("'", "''") + "'")
+        else:
+            out.append(str(int(x)))
+    return "(" + ", ".join(out) + ")"
+
+
+__all__ = ["create_table_sql", "values_row", "write_tbl"]

@@ -25,7 +25,9 @@ machine without one exits nonzero.  Where the reference lets LOAD DATA
 write a direct-load segment on the leader alone (the followers never see
 the rows: ``add_segment`` is a physical op, not in ``_DDL_KINDS``), the
 port's node refuses LOAD DATA INFILE when it has peers, with
-``LoadDataOnCluster`` (ROADMAP Queue 3 #29).
+``LoadDataOnCluster`` (ROADMAP Queue 3 #29).  A statement on the leader
+waits until the apply reaches the commit point (Queue 3 #30), and the
+heartbeat thread of a follower left without a leader campaigns (#31).
 """
 
 from __future__ import annotations
@@ -329,17 +331,15 @@ class NodeServer:
                 # leader-originated: the write path already applied it
                 self.palf.local_lsns.discard(entry.lsn)
                 return
-            try:
-                rec = json.loads(entry.payload.decode())
-            except Exception:
-                return
             # the tx service's PERSISTENT replay buffers: boot replay
             # leftovers (e.g. a prepared XA branch's redo) stay visible
             # to a commit record arriving later through catch-up, and a
             # replayed prepare record registers the branch for XA
-            # RECOVER on this node too (durable XA across failover)
-            max_ts = self.tx.apply_replay([entry])
-            if rec.get("op") == "ddl":
+            # RECOVER on this node too (durable XA across failover);
+            # the record is parsed there, once
+            stats: dict = {}
+            max_ts = self.tx.apply_replay([entry], stats=stats)
+            if stats.get("ddl"):
                 self.catalog.schema_version += 1
             if max_ts:
                 self.tx.gts.advance_to(max_ts)
@@ -650,6 +650,7 @@ class NodeServer:
                 "on this node alone (direct-load segments do not ride "
                 "the log stream); load with INSERT")
         if self.palf.is_leader:
+            self._apply_to_commit_point()
             return self._run_local(sql, session_id)
         if not self._is_write(sql) and consistency != "strong":
             return self._run_local(sql, session_id)  # weak local read
@@ -657,6 +658,34 @@ class NodeServer:
             # a peer believed we lead but we don't — make it retry
             raise NotLeader(f"node {self.node_id} is not the leader")
         return self._forward(sql, consistency, session_id)
+
+    def _apply_to_commit_point(self):
+        """Hold a statement on the leader until every entry this node
+        knows committed is applied: a new leader commits the entries of
+        earlier terms through its election's no-op and applies them
+        outside the log lock, and a statement arriving in that window
+        would read (and check keys against) older state than the log
+        holds.  The reference serves it at once (ROADMAP Queue 3 #30).
+        The wait takes no log lock: a heartbeat that holds it across its
+        rpcs to a slow peer does not hold up the statement."""
+        r = self.palf.replica
+        end = time.monotonic() + 30.0
+        target = self.palf.commit_point(0.0)
+        while target is None:  # an election under way
+            qadmission.checkpoint()
+            if time.monotonic() >= end:
+                raise NotLeader(f"node {self.node_id} is still electing")
+            target = self.palf.commit_point(0.05)
+        while r.applied_lsn < target:
+            qadmission.checkpoint()  # KILL/deadline while the apply runs
+            r.drain_applies()
+            if r.applied_lsn >= target:
+                return
+            if time.monotonic() >= end:
+                raise NotLeader(
+                    f"node {self.node_id} has applied lsn {r.applied_lsn}"
+                    f" of its commit point {target}")
+            time.sleep(0.002)
 
     def _run_local(self, sql: str, session_id: int) -> dict:
         s = self._session(session_id)
@@ -853,6 +882,10 @@ class NodeServer:
             try:
                 if self.palf.replica.role == "leader":
                     self.palf.tick()
+                else:
+                    # a cluster left with no leader elects one without
+                    # waiting for a write (ROADMAP Queue 3 #31)
+                    self.palf.campaign_if_leaderless()
             except Exception:
                 pass
 
@@ -936,12 +969,15 @@ def main(argv=None):
         pid, addr = part.split("=")
         h, p = addr.rsplit(":", 1)
         peers[int(pid)] = (h, int(p))
+    t0 = time.monotonic()
     node = NodeServer(args.node_id, args.host, args.port, peers,
                       root=args.root, bootstrap=args.bootstrap,
                       lease_ms=args.lease_ms, device=args.device)
+    t1 = time.monotonic()
     node.start()
-    print(f"node {args.node_id} listening on {args.host}:{node.port}",
-          flush=True)
+    print(f"node {args.node_id} listening on {args.host}:{node.port} "
+          f"(NodeServer {t1 - t0:.3f} s: storage, WAL scan, device; "
+          f"start {time.monotonic() - t1:.3f} s)", flush=True)
     try:
         # CLI foreground idle: KeyboardInterrupt IS the cancel path
         while True:  # obcheck: ok(cancel.loop-no-checkpoint)

@@ -21,7 +21,13 @@ RPC endpoints this class registers on its node's server:
     palf.state() -> {last_lsn, committed_lsn, term, role}
 
 Port of ``oceanbase_tpu/palf/netcluster.py``, line for line (host code):
-the vote, accept and commit handlers answer as the reference's do.
+the vote, accept and commit handlers answer as the reference's do.  Two
+additions where the reference is wrong: ``commit_point`` (a new leader's
+statements wait for its election's commit point to be applied, ROADMAP
+Queue 3 #30) and ``campaign_if_leaderless`` (a cluster left with no
+leader and no dead process elects one without a write, Queue 3 #31;
+it asks its peers' ``palf.state`` first and leaves a leader of its term
+in place, so a follower the leader cannot ship to deposes no one).
 """
 
 from __future__ import annotations
@@ -71,6 +77,17 @@ class NetPalf:
         # firing commit callbacks on the leader vs replayservice replay)
         self.local_lsns: set[int] = set()
         self._lock = threading.RLock()
+        # the last message of a current leader (accept or commit); a
+        # follower that knew a leader and hears none for its silence
+        # timeout campaigns (``campaign_if_leaderless``)
+        self._heard = time.monotonic()
+        self._silence_s = self._silence_timeout()
+        # an election's outcome for statements, published lock-free:
+        # cleared while a campaign runs, set once its no-op committed
+        # (or it lost); ``_elected_commit`` is that no-op's commit point
+        self._elected = threading.Event()
+        self._elected.set()
+        self._elected_commit = 0
 
     # ------------------------------------------------------------------
     # outgoing RPC
@@ -143,6 +160,8 @@ class NetPalf:
         rep = self.acceptor.on_vote_request(
             VoteRequest(int(term), int(candidate), int(last_lsn),
                         int(last_term)))
+        if rep.granted:
+            self._heard = time.monotonic()  # a campaign under way
         return {"term": rep.term, "granted": rep.granted,
                 "voter": rep.voter}
 
@@ -171,6 +190,8 @@ class NetPalf:
             ok = r.accept(int(prev_lsn), int(prev_term), es)
             if ok:
                 self.leader_hint = int(leader_id)
+            if sender_term is not None:
+                self._heard = time.monotonic()
         if ok:
             # apply OUTSIDE self._lock: the apply callback reaches into
             # tx/engine state whose write paths call back into this
@@ -185,6 +206,7 @@ class NetPalf:
             if term is not None and int(term) < self.replica.current_term:
                 return False  # stale leader's commit point: ignore
             self.leader_hint = int(leader_id)
+            self._heard = time.monotonic()
         # apply outside self._lock (same rationale as _on_accept)
         self.replica.advance_commit(
             min(int(commit_lsn), self.replica.last_lsn()))
@@ -205,17 +227,71 @@ class NetPalf:
         return (self.replica.role == "leader"
                 and self.proposer.lease_valid())
 
+    def _silence_timeout(self) -> float:
+        """Randomized 3-6 leases: far past a live leader's heartbeat (a
+        quarter lease) and the failure detector's down threshold, so it
+        fires only where no leader is left to detect as down."""
+        ms = self.proposer.lease_ms
+        return random.uniform(3 * ms, 6 * ms) / 1000.0
+
+    def campaign_if_leaderless(self) -> bool:
+        """Campaign when this node knew a leader (``leader_hint`` set, so
+        a booting or rejoining node waits to be contacted) and has heard
+        from none for its silence timeout.  The failure detector
+        campaigns only when the leader's process is down; a leader
+        deposed by a rival's vote request for a higher term that the
+        rival then loses leaves live nodes with no leader and nothing to
+        detect, and the reference stays so until a write arrives
+        (ROADMAP Queue 3 #31).  Before it campaigns it reads each peer's
+        ``palf.state``, which bumps no term: a peer that leads in this
+        node's term or a later one stands, since a leader that cannot
+        ship to this node (a one-way link, a position before its recycle
+        base) may still hold its majority.  -> True if this node won."""
+        if self.replica.role == "leader" or self.leader_hint is None or \
+                time.monotonic() - self._heard < self._silence_s:
+            return False
+        self._heard = time.monotonic()
+        self._silence_s = self._silence_timeout()
+        for cli in self.peers.values():
+            try:
+                st = cli.call("palf.state")
+            except OSError:
+                continue
+            if st.get("role") == "leader" and \
+                    int(st.get("term", 0)) >= self.replica.current_term:
+                return False
+        try:
+            self.elect()
+            return True
+        except (NoQuorum, OSError):
+            return False
+
+    def commit_point(self, timeout_s: float) -> int | None:
+        """The commit point of this node's last election: its no-op
+        commits every earlier term's entry, and entries of its own term
+        are this leader's own writes, applied by their statements.
+        Waits, without the log lock, for an election under way to end;
+        -> None if it is still running after ``timeout_s``."""
+        if not self._elected.wait(timeout_s):
+            return None
+        return self._elected_commit
+
     def elect(self) -> int:
         """Campaign for leadership of this group."""
         with self._lock:
-            if self.proposer.campaign(sorted(self.peers)):
-                self.leader_hint = self.node_id
-                # Raft safety: commit prior-term entries via a no-op in
-                # the new term
-                self._replicate([b'{"op": "noop"}'])
-                won = True
-            else:
-                won = False
+            self._elected.clear()
+            try:
+                if self.proposer.campaign(sorted(self.peers)):
+                    self.leader_hint = self.node_id
+                    # Raft safety: commit prior-term entries via a no-op
+                    # in the new term
+                    self._replicate([b'{"op": "noop"}'])
+                    won = True
+                else:
+                    won = False
+            finally:
+                self._elected_commit = self.replica.committed_lsn
+                self._elected.set()
         if won:
             # catch-up residue from follower days applies OUTSIDE the
             # palf lock (see _on_accept)
@@ -311,6 +387,9 @@ class NetPalf:
         with self._lock:
             if self.replica.role != "leader":
                 return
+            # a leader hears itself: stepping down starts its silence
+            # timeout afresh
+            self._heard = time.monotonic()
             acks = 1
             for pid in sorted(self.peers):
                 if self._ship_to(pid, self.replica.committed_lsn):

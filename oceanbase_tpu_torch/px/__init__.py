@@ -16,7 +16,8 @@ drives P shards in lockstep from one controller:
 
 ``set_mesh_size(n)`` puts n shards on the visible devices (round-robin),
 as the reference's tests force n host devices.  The network exchange
-between processes (``px/dtl.py``) is not ported yet.
+between node processes is ``px/dtl.py``: plan pushdown of a partial plan
+to each replica over the rpc frame, merged on the coordinator.
 """
 
 from oceanbase_tpu_torch.px.exchange import (

@@ -6,7 +6,9 @@ Port of ``oceanbase_tpu/tx/service.py``, with the XA methods,
 disk-manager gates of ``write`` and the ERRSIM point of ``commit``.  The
 WAL takes plain JSON: ``_jsonable`` turns numpy
 scalars into Python values and refuses a torch tensor, which the
-session must read back before it writes.
+session must read back before it writes.  Where the reference is wrong:
+a replayed commit or abort settles a branch this node prepared while it
+led (``_settle_own_branch``, ROADMAP Queue 3 #32).
 
 Reference analog: ObTransService (src/storage/tx/ob_trans_service.h:173)
 with per-participant ObPartTransCtx (ob_trans_part_ctx.h:148) and the
@@ -459,13 +461,41 @@ class TransService:
             stats = {}
         max_ts = self.replay(entries, self.engine,
                              pending=self.replay_pending,
-                             prepared=self.replay_prepared, stats=stats)
+                             prepared=self.replay_prepared, stats=stats,
+                             settle=self._settle_own_branch)
         self.sync_recovered()
         # seed the tx-id allocator past every replayed id: a follower
         # promoted to leader must not mint ids that collide with a
         # replayed (possibly still-prepared) transaction's id space
         self.advance_tx_id(stats.get("max_tx", 0))
         return max_ts
+
+    def _settle_own_branch(self, rec: dict):
+        """A commit or abort record, applied here as a follower, that
+        found no redo in the replay buffers: if it ends a branch this
+        node prepared while it led (a leader applies its writes itself
+        and skips its own entries), the record settles the live
+        branch's uncommitted versions directly.  The reference leaves
+        them uncommitted, and the branch's rows never show on the node
+        that prepared them (ROADMAP Queue 3 #32)."""
+        with self._lock:
+            tx = self._live.get(rec.get("tx"))
+            if tx is None or tx.state != TxState.PREPARE or tx.recovered:
+                return
+            for p in tx.participants.values():
+                if p.tablet is None:
+                    continue
+                if rec["op"] == "commit":
+                    p.tablet.commit(tx.tx_id, rec["version"], p.keys)
+                else:
+                    p.tablet.abort(tx.tx_id, p.keys)
+            if rec["op"] == "commit":
+                self.gts.advance_to(rec["version"])
+                tx.state = TxState.CLEAR
+            else:
+                tx.state = TxState.ABORT
+            self._forget_xa_locked(tx)
+            self._release_locks(tx)
 
     def restore_prepared(self) -> list:
         """Boot-time hook (after the WAL tail replays): reconstruct every
@@ -547,7 +577,8 @@ class TransService:
 
     @staticmethod
     def replay(entries, engine, pending: dict | None = None,
-               prepared: dict | None = None, stats: dict | None = None):
+               prepared: dict | None = None, stats: dict | None = None,
+               settle=None):
         """Replay committed WAL records into a StorageEngine's memtables.
         Redo is buffered per tx and applied at its commit record, matching
         commit-version visibility.  ``pending`` carries the redo buffer
@@ -556,7 +587,9 @@ class TransService:
         ``prepared`` (optional) collects prepare records not yet
         terminated by a commit/abort — the durable-XA reconstruction
         input; ``stats`` (optional) accumulates replay progress counters
-        for gv$recovery."""
+        for gv$recovery, with ``ddl`` the DDL records among them;
+        ``settle`` (optional) takes each commit/abort record that finds
+        no buffered redo."""
         if pending is None:
             pending = {}
         if stats is None:
@@ -578,6 +611,7 @@ class TransService:
                 # own slog may already hold the op (boot replays slog
                 # first, then the WAL suffix).
                 _replay_ddl(rec["slog"], engine)
+                stats["ddl"] = stats.get("ddl", 0) + 1
             elif op == "redo":
                 rec["_lsn"] = e.lsn  # prepared-branch replay-point bound
                 pending.setdefault(rec["tx"], []).append(rec)
@@ -597,7 +631,10 @@ class TransService:
                 version = rec["version"]
                 max_ts = max(max_ts, version)
                 stats["commits"] = stats.get("commits", 0) + 1
-                for r in pending.pop(rec["tx"], []):
+                redo = pending.pop(rec["tx"], None)
+                if redo is None and settle is not None:
+                    settle(rec)
+                for r in redo or ():
                     ts = engine.tables.get(r["table"])
                     if ts is None:
                         continue
@@ -608,7 +645,9 @@ class TransService:
                     prepared.pop(rec["tx"], None)
             elif op == "abort":
                 # XA phase-1 rollback (and pre-group-commit WALs)
-                pending.pop(rec["tx"], None)
+                if pending.pop(rec["tx"], None) is None and \
+                        settle is not None:
+                    settle(rec)
                 if prepared is not None:
                     prepared.pop(rec["tx"], None)
             elif op == "truncate":

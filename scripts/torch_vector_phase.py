@@ -6,7 +6,7 @@
 VECTOR(128) columns, the distance functions, the exact and IVF-Flat
 vector indexes behind ORDER BY <distance> LIMIT k, and a fulltext index
 over TPC-H SF1's part comments, through a ``Database`` on the card at
-the size of ANN-Benchmarks' SIFT1M (1,000,000 x 128 synthetic vectors
+a quarter of ANN-Benchmarks' SIFT1M (250,000 x 128 synthetic vectors
 from a seed, 100 queries, k = 10), every answer held against numpy.
 Prints the phase's ``[vector]`` lines, its seconds and the card's name
 and power limit.  Needs a CUDA device; imports nothing of JAX.

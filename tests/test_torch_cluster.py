@@ -311,6 +311,203 @@ def test_dtl_node_down_falls_back(cluster):
 
 
 # ---------------------------------------------------------------------------
+# the reference's multinode failover cases: reference nodes beside port
+# nodes, each on a fresh cluster
+# ---------------------------------------------------------------------------
+
+
+def _side_by_side(tmp_path, scenario):
+    """Run ``scenario(cluster)`` on a fresh cluster of the reference's
+    nodes, then of the port's -> the port's record, held equal."""
+    out = {}
+    for tag, module in (("ref", "oceanbase_tpu.net.node"),
+                        ("port", "oceanbase_tpu_torch.net.node")):
+        c = NodeCluster(str(tmp_path / tag), n=3, device="cpu",
+                        module=module)
+        try:
+            out[tag] = scenario(c)
+        finally:
+            c.close()
+    assert out["port"] == out["ref"], out
+    return out["port"]
+
+
+def _scn_leader_kill(c):
+    c.execute(1, "create table t (k int primary key, v int)")
+    c.execute(1, "insert into t values " + ", ".join(
+        f"({i}, {i * 7})" for i in range(50)))
+    # committed on a majority; kill the leader process outright
+    c.kill(1)
+    # a write through a survivor forces the re-election (2 of 3)
+    res = c.execute(2, "insert into t values (1000, 1)", deadline_s=40)
+    return [res["node"] in (2, 3),
+            rows(c.execute(2, "select count(*), sum(v) from t "
+                              "where k < 1000")),
+            rows(c.execute(3, "select count(*) from t"))]
+
+
+def test_leader_kill_reelection_no_committed_loss(tmp_path):
+    """``tests/test_multinode.py:165``."""
+    moved, kept, total = _side_by_side(tmp_path, _scn_leader_kill)
+    assert moved
+    assert kept == [(50, sum(i * 7 for i in range(50)))]
+    assert total == [(51,)]
+
+
+def _scn_rejoin(c):
+    c.execute(1, "create table t (k int primary key, v int)")
+    c.execute(1, "insert into t values (1, 1), (2, 2)")
+    # node 3 down; nodes 1 and 2 keep committing
+    c.kill(3)
+    c.execute(1, "insert into t values (3, 3), (4, 4)")
+    c.restart(3)
+    waited = c.wait_count("t", 4, nodes=(3,), deadline_s=60)
+    return [waited < 60, rows(c.execute(3, "select sum(v) from t"))]
+
+
+def test_killed_node_rejoins_and_catches_up(tmp_path):
+    """``tests/test_multinode.py:193``: a crashed node restarts from
+    its WAL, catches up on the writes it missed, and serves strong reads
+    through the leader."""
+    caught_up, total = _side_by_side(tmp_path, _scn_rejoin)
+    assert caught_up and total == [(10,)]
+
+
+LEADERLESS_BOUND_S = 15.0
+
+
+def _scn_deposed_leader(c):
+    c.execute(1, "create table t (k int primary key, v int)")
+    c.execute(1, "insert into t values (1, 10)")
+    c.wait_caught_up(deadline_s=60)
+    ldr = c.leader()
+    term = c.clients[ldr].call("palf.state")["term"]
+    # a vote request for the next term from a candidate that never
+    # campaigns (id 99): the leader grants it and steps down, alive
+    vote = c.clients[ldr].call("palf.vote", term=term + 1, candidate=99,
+                               last_lsn=1 << 40, last_term=1 << 40)
+    try:
+        c.leader(LEADERLESS_BOUND_S)
+        healed = True
+    except ClusterTimeout:
+        healed = False
+    # a write through a follower elects one in either package
+    c.execute(1 + ldr % 3, "insert into t values (2, 20)", deadline_s=60)
+    return [vote["granted"], healed,
+            rows(c.execute(ldr, "select k, v from t order by k"))]
+
+
+def test_a_deposed_leader_is_replaced_without_a_write(tmp_path):
+    """ROADMAP Queue 3 #31: the reference's cluster stays leaderless
+    when its leader is deposed by a higher-term vote request whose
+    candidate never wins (no process is down, so the failure detector
+    never campaigns) until a write arrives; the port's followers, which
+    knew a leader, campaign after 3-6 leases of silence.  The detector's
+    down threshold is set out of reach, so a ping slowed by a loaded
+    host cannot start a campaign in either package."""
+    out = {}
+    for tag, module in (("ref", "oceanbase_tpu.net.node"),
+                        ("port", "oceanbase_tpu_torch.net.node")):
+        c = NodeCluster(str(tmp_path / tag), n=3, device="cpu",
+                        module=module,
+                        config={"health_down_threshold": 1000,
+                                "health_suspect_threshold": 999})
+        try:
+            out[tag] = _scn_deposed_leader(c)
+        finally:
+            c.close()
+    assert out["ref"] == [True, False, [(1, 10), (2, 20)]]
+    assert out["port"] == [True, True, [(1, 10), (2, 20)]]
+
+
+def _scn_unshippable_follower(c):
+    c.execute(1, "create table t (k int primary key, v int)")
+    c.execute(1, "insert into t values (1, 10)")
+    c.wait_caught_up(deadline_s=60)
+    ldr = c.leader()
+    term = c.clients[ldr].call("palf.state")["term"]
+    cut = 1 + ldr % 3
+    # the leader's heartbeat reads the follower's state but every
+    # palf.accept to it fails: the follower hears no leader message
+    c.clients[ldr].call("fault.inject", where="send", action="drop",
+                        verb="palf.accept", peer=cut)
+    # past the longest silence timeout (6 leases) and two heartbeats
+    time.sleep(6.5 * c.lease_ms / 1000.0)
+    st = c.states()
+    return [st[ldr]["role"], st[ldr]["term"] == term,
+            st[cut]["term"] == term,
+            rows(c.execute(ldr, "select k, v from t order by k"))]
+
+
+def test_an_unshippable_follower_leaves_the_leader_in_place(tmp_path):
+    """ROADMAP Queue 3 #31: a follower that hears no leader message
+    because the leader cannot ship to it (here a dropped ``palf.accept``,
+    as for a follower behind the leader's recycle base) does not depose
+    the leader: before it campaigns it reads its peers' ``palf.state``,
+    and a leader of its term stands.  The reference never campaigns from
+    silence; both keep the leader and its term."""
+    out = {}
+    for tag, module in (("ref", "oceanbase_tpu.net.node"),
+                        ("port", "oceanbase_tpu_torch.net.node")):
+        c = NodeCluster(str(tmp_path / tag), n=3, device="cpu",
+                        module=module, lease_ms=600,
+                        config={"health_down_threshold": 1000,
+                                "health_suspect_threshold": 999,
+                                "enable_fault_injection": True})
+        try:
+            out[tag] = _scn_unshippable_follower(c)
+        finally:
+            c.close()
+    assert out["ref"] == ["leader", True, True, [(1, 10)]]
+    assert out["port"] == out["ref"]
+
+
+def _scn_demoted_preparer(c):
+    c.execute(1, "create table t (k int primary key, v int)")
+    c.execute(1, "insert into t values (1, 10)")
+    for sql in ("xa start 'dx1'", "insert into t values (2, 20)",
+                "xa end 'dx1'", "xa prepare 'dx1'"):
+        c.execute(1, sql, session_id=7)
+    c.wait_caught_up(deadline_s=60)
+    # node 2 campaigns and wins while node 1, the branch's preparer,
+    # stays up as a follower
+    assert c.clients[2].call("disk.takeover", from_node=1) is True
+    c.leader(30, exclude=(1,))
+    # node 1 has seen the new term (a forwarded statement then cannot
+    # run on it as a stale leader)
+    wait_for(lambda: c.clients[1].call("node.state")["role"] == "follower",
+             30, "node 1 to step down")
+    recovered = "dx1" in c.clients[2].call("recovery.state")[
+        "prepared_xids"]
+    committed_on = c.execute(2, "xa commit 'dx1'", session_id=7)["node"]
+    # every node has applied the commit record: then read each replica
+    c.wait_caught_up(nodes=(1, 3), deadline_s=60)
+    return [recovered, committed_on, [c.count(i, "t") for i in (1, 2, 3)],
+            "dx1" in c.clients[1].call("recovery.state")["prepared_xids"]]
+
+
+def test_a_branch_committed_after_its_preparer_lost_the_lead(tmp_path):
+    """ROADMAP Queue 3 #32: XA PREPARE on leader node 1, node 2 takes
+    the lead (``disk.takeover``) and commits the branch; node 1 applies
+    the commit record as a follower.  The reference's node 1 never
+    shows the branch's row (it applied its own writes as leader and
+    skipped its own log entries, so the record finds no redo to apply)
+    and keeps listing the branch; the port's node 1 settles its live
+    branch at the record."""
+    out = {}
+    for tag, module in (("ref", "oceanbase_tpu.net.node"),
+                        ("port", "oceanbase_tpu_torch.net.node")):
+        c = NodeCluster(str(tmp_path / tag), n=3, device="cpu",
+                        module=module)
+        try:
+            out[tag] = _scn_demoted_preparer(c)
+        finally:
+            c.close()
+    assert out["ref"] == [True, 2, [1, 2, 2], True]
+    assert out["port"] == [True, 2, [2, 2, 2], False]
+
+
+# ---------------------------------------------------------------------------
 # failover, restart and rebuild: the reference's slow cases
 # ---------------------------------------------------------------------------
 
