@@ -2569,16 +2569,10 @@ def phase_server(torch, dev, tables, types, card, want, loaded):
     return served
 
 
-# phase measure: the queries PROFILE runs in memory, the interleaved
-# pairs of the overhead check, and the card's HBM rate the calibrated
-# stream peak is held against
+# phase measure: the queries PROFILE runs in memory (the card's HBM rate
+# the calibrated stream peak is held against is HBM_BYTES_PER_S)
 MEASURE_PROFILED = (1, 9, 13, 18)
-MEASURE_PAIRS = 5
 MEASURE_WORK_AREA_ROWS = 1 << 23  # over SF1's 6,001,215 lineitem rows
-# the knobs the overhead check turns off, with their "off" values
-MEASURE_PLANE_OFF = {"enable_metrics": False,
-                     "enable_sql_plan_monitor": False,
-                     "enable_profiling": False, "trace_sample_rate": 0.0}
 
 
 def _port_site(here, stack) -> str:
@@ -2634,8 +2628,10 @@ def phase_measure(torch, dev, tables, types, card, want, served):
     logical hashes before and after it and the 11 in-memory queries
     against SQLite after it; the synchronizing calls of one
     ``execute_plan`` of Q1, Q6 and Q14 with the plane at its defaults
-    and with it off; the plane's overhead on the 11 in-memory queries;
-    and ``q6_filter_sum`` under the profiler."""
+    and with it off; and ``q6_filter_sum`` under the profiler (before
+    the CALIBRATE).  Right after its CALIBRATE, the 22-query halves of
+    the planes' contracts (``_planes_tpch``).  The plane's overhead is
+    phase planes'."""
     from oceanbase_tpu_torch.bench import queries as bq
     from oceanbase_tpu_torch.bench.oracle import rows_match
     from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
@@ -2826,7 +2822,30 @@ def phase_measure(torch, dev, tables, types, card, want, served):
                       f"[{ln.rsplit('[', 1)[1]}")
     step("explain analyze", t0)
 
-    # 4. ALTER SYSTEM CALIBRATE -------------------------------------------
+    # 4. the kernel under the profiler, before the planes' PROFILE below:
+    # a one-kernel capture late in the process can come back with no
+    # device record at all (ROADMAP (t))
+    t0 = time.perf_counter()
+    if on_card:
+        from oceanbase_tpu_torch.bench.oracle_np import Q6_BOUNDS
+
+        cols = _q6_columns(torch, 1 << 20, 7, dev)
+        got, rows, note = qprofiler.profile_statement(
+            lambda: sk.q6_filter_sum(*cols, **Q6_BOUNDS), cuda=True)
+        want6 = sk.q6_filter_sum_reference(*cols, **Q6_BOUNDS)
+        mine = [r for r in rows if "q6_filter_sum" in r["kernel"]
+                and r["kind"] == "kernel"]
+        if not mine or int(got) != int(want6):
+            raise AssertionError(f"q6_filter_sum under the profiler: "
+                                 f"{rows[:4]} {note}")
+        r = mine[0]
+        print(f"[measure] q6_filter_sum under the profiler: kernel "
+              f"{r['kernel']}, {r['occurrences']} launch, "
+              f"{r['total_s'] * 1e3:.6f} ms, {r['pct']:.1f}% of the "
+              f"capture's device time; {card}")
+    step("kernel profile", t0)
+
+    # 5. ALTER SYSTEM CALIBRATE -------------------------------------------
     t0 = time.perf_counter()
 
     def hashes():
@@ -2864,7 +2883,12 @@ def phase_measure(torch, dev, tables, types, card, want, served):
           f"calibration")
     step("calibrate", t0)
 
-    # 5. the plane adds no sync -------------------------------------------
+    # 5b. the planes' 22-query halves on these calibrated units -----------
+    t0 = time.perf_counter()
+    _planes_tpch(db, tables, card)
+    step("planes (22 queries)", t0)
+
+    # 6. the plane adds no sync -------------------------------------------
     t0 = time.perf_counter()
     st = bq.slice_tables(tables, types, device=dev)
     n_li = len(tables["lineitem"]["l_orderkey"])
@@ -2905,56 +2929,6 @@ def phase_measure(torch, dev, tables, types, card, want, served):
                                 counts.items()))
     step("sync count", t0)
 
-    # 6. overhead on the 11 in-memory queries ------------------------------
-    t0 = time.perf_counter()
-
-    def set_plane(on):
-        for k, v in MEASURE_PLANE_OFF.items():
-            db.config.set(k, (1.0 if k == "trace_sample_rate" else True)
-                          if on else v)
-
-    def run_all():
-        torch.cuda.synchronize() if on_card else None
-        t1 = time.perf_counter()
-        for q in in_memory:
-            s.execute(QUERIES[q])
-        return time.perf_counter() - t1
-
-    run_all()  # warm both settings' paths
-    times = {"on": [], "off": []}
-    for _ in range(MEASURE_PAIRS):
-        for mode in ("on", "off"):
-            set_plane(mode == "on")
-            times[mode].append(run_all())
-    set_plane(True)
-    med_on = statistics.median(times["on"])
-    med_off = statistics.median(times["off"])
-    print(f"[measure] 11 in-memory queries, {MEASURE_PAIRS} interleaved "
-          f"pairs: plane on median {med_on * 1e3:.3f} ms, off "
-          f"{med_off * 1e3:.3f} ms, ratio {med_on / med_off:.4f} (the "
-          f"reference's budget 1.02); {card}")
-    step("overhead", t0)
-
-    # 7. the kernel under the profiler -------------------------------------
-    t0 = time.perf_counter()
-    if on_card:
-        from oceanbase_tpu_torch.bench.oracle_np import Q6_BOUNDS
-
-        cols = _q6_columns(torch, 1 << 20, 7, dev)
-        got, rows, note = qprofiler.profile_statement(
-            lambda: sk.q6_filter_sum(*cols, **Q6_BOUNDS), cuda=True)
-        want6 = sk.q6_filter_sum_reference(*cols, **Q6_BOUNDS)
-        mine = [r for r in rows if "q6_filter_sum" in r["kernel"]
-                and r["kind"] == "kernel"]
-        if not mine or int(got) != int(want6):
-            raise AssertionError(f"q6_filter_sum under the profiler: "
-                                 f"{rows[:4]} {note}")
-        r = mine[0]
-        print(f"[measure] q6_filter_sum under the profiler: kernel "
-              f"{r['kernel']}, {r['occurrences']} launch, "
-              f"{r['total_s'] * 1e3:.6f} ms, {r['pct']:.1f}% of the "
-              f"capture's device time; {card}")
-    step("kernel profile", t0)
     s.close()
     print(f"[measure] steps: " + ", ".join(f"{k} {v:.3f} s"
                                            for k, v in steps.items()))
@@ -3065,10 +3039,10 @@ def phase_durability(torch, dev, tables, types, card, want, served, db,
         acked.append(key[0])
         return key[0]
 
-    # the memstore throttle has been on at its defaults since phase db:
-    # what it did there (process-wide counters)
+    # the memstore throttle has been on at its defaults in every earlier
+    # phase of this process: what it did there (process-wide counters)
     print(f"[durability] before this phase, under the throttle's defaults "
-          f"since phase db: admission.throttle_sleeps "
+          f"in this process: admission.throttle_sleeps "
           f"{qmetrics.counter_value('admission.throttle_sleeps'):.0f}, "
           f"admission.memstore_full "
           f"{qmetrics.counter_value('admission.memstore_full'):.0f}")
@@ -3962,6 +3936,12 @@ CLUSTER_DROP_RUNS = 5
 CLUSTER_FAULT_SEED = 13
 CLUSTER_DETECT_BOUND_S = 15.0    # the reference's re-election bound
 CLUSTER_DEADLINE_S = 300.0       # each wait of the phase
+#: how long the follower killed mid-query holds its Q6 fragment (a delay
+#: on its receipt of dtl.execute); the kill comes halfway through
+CLUSTER_KILL_HOLD_MS = 2000.0
+#: how long the run waits for phases cluster and chaos, in a process of
+#: their own, after its last card phase
+CHAOS_APART_WAIT_S = 600.0
 
 
 def start_cluster(device="cuda"):
@@ -4166,8 +4146,6 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
                             f"q{q} via node {node} ran on node "
                             f"{res['node']}, exchange row {ex}")
                 ex_of[q] = ex
-                if q == 6 and node == leader:
-                    q6_times = times
                 route = ("the leader" if node == leader else
                          "a strong read routed to the leader")
                 print(f"[cluster] q{q} via node {node} ({route}): median "
@@ -4251,10 +4229,16 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
               f"to numpy, {retries} retries, (fallback, avoided) parts per "
               f"run {fb}")
         dead = 6 - leader - victim  # the other follower
-        # the kill lands while the node runs its Q6 fragment: its slice
-        # falls back to the coordinator (a query started after the
-        # detector marked the node would avoid it instead)
-        q6_ms = statistics.median(q6_times)
+        # the kill lands while the node holds its Q6 fragment: a delay on
+        # its own receipt of dtl.execute keeps the fragment in flight
+        # however fast Q6 runs under the host's load, and its slice falls
+        # back to the coordinator (a query started after the detector
+        # marked the node would avoid it instead)
+        c.clients[dead].call("config.set", name="enable_fault_injection",
+                             value=True)
+        c.clients[dead].call("fault.inject", where="recv", action="delay",
+                             verb="dtl.execute",
+                             delay_ms=CLUSTER_KILL_HOLD_MS)
         failed = []
 
         def inflight_q6():
@@ -4265,7 +4249,7 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
 
         inflight = threading.Thread(target=inflight_q6)
         inflight.start()
-        time.sleep(0.3 * q6_ms / 1e3)
+        time.sleep(CLUSTER_KILL_HOLD_MS / 2e3)
         c.kill(dead)
         inflight.join(timeout=CLUSTER_DEADLINE_S)
         if inflight.is_alive() or failed:
@@ -4278,8 +4262,9 @@ def phase_cluster(torch, cluster, loader, rows, types, card):
         ex2 = c.last_exchange(leader)
         if ex2["fallback"] + ex2["avoided"] < 1:
             raise AssertionError(f"dead node {dead}'s slice: {ex2}")
-        print(f"[cluster] kill -9 of node {dead} {0.3 * q6_ms:.1f} ms into "
-              f"a Q6: equal to numpy with fallback_parts {ex['fallback']}; "
+        print(f"[cluster] kill -9 of node {dead} "
+              f"{CLUSTER_KILL_HOLD_MS / 2:.0f} ms into a Q6 whose fragment "
+              f"it held for {CLUSTER_KILL_HOLD_MS:.0f} ms: equal to numpy with fallback_parts {ex['fallback']}; "
               f"the next Q6 equal with fallback_parts {ex2['fallback']}, "
               f"avoided_parts {ex2['avoided']}")
         t1 = time.perf_counter()
@@ -4546,6 +4531,225 @@ def phase_contracts(torch, dev, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+PLANES_ROWS = 2_000_000               # the slice's rows (PERF §4)
+
+
+def _index_names(db, table) -> set:
+    tdef = db.tenant("sys").engine.tables[table].tdef
+    return {ix.name for ix in tdef.indexes}
+
+
+def _planes_tpch(db, tables, card):
+    """Phase planes' 22-query halves on phase measure's database at SF1,
+    right after its ALTER SYSTEM CALIBRATE (``scripts/profile_bench.py``
+    :153-233 on those units, ``planqual_bench.py``:73-196 with the
+    ``*key`` indexes it creates and drops again); each half puts
+    ``plan_monitor_sample_every`` back.  Raises at a broken non-timing
+    gate; the median time q-error and the ranking are printed against
+    their bounds."""
+    from oceanbase_tpu_torch.bench import planqual, profile
+    from oceanbase_tpu_torch.ops import _build
+
+    launches = _build.launch_counts()
+    t0 = time.perf_counter()
+    roof = profile.roofline(db, calibrate=False)
+    roof_s = time.perf_counter() - t0
+    for q, r in roof["per_query"].items():
+        print(f"[planes] roofline {q}: device_ms {r['device_ms']}, pred_ms "
+              f"{r['pred_ms']}, host_ms {r['host_ms']}, time_q "
+              f"{r['time_q']}, path {r['path']}")
+    held = 0.0 < roof["median_time_q"] <= profile.TIME_Q_BOUND
+    print(f"[planes] roofline: {roof['with_time_q']} of {roof['queries']} "
+          f"queries priced, median time_q {roof['median_time_q']} against "
+          f"{profile.TIME_Q_BOUND} ({'held' if held else 'missed'}), worst "
+          f"{roof['worst_time_q']}; units {roof['calibration']}; max "
+          f"achieved_gflops {roof['max_achieved_gflops']}; PROFILE of Q6: "
+          f"{roof['profile']['rows']} gv$device_profile rows joined by "
+          f"trace_id {roof['profile']['trace_id']}; {roof_s:.3f} s; {card}")
+    t0 = time.perf_counter()
+    s = db.session()
+    made = []
+    for ix, name, c in planqual.key_indexes(tables):
+        if ix not in _index_names(db, name):
+            s.execute(f"create index {ix} on {name} ({c})")
+            made.append((ix, name))
+    index_s = time.perf_counter() - t0
+    cov = planqual.coverage(db, sample_every=1)
+    for ix, name in made:
+        s.execute(f"drop index {ix} on {name}")
+    s.close()
+    left = [ix for ix, name in made if ix in _index_names(db, name)]
+    for q, r in cov["per_query"].items():
+        print(f"[planes] coverage {q}: {r['with_qerror']} of "
+              f"{r['operators']} operators estimated, max q-error "
+              f"{r['max_q_error']}, retries {r['retries']}, path "
+              f"{r['path']}")
+    cm = cov["cost_model"]
+    ranked = cm["ranking_agreement"] is None or \
+        cm["ranking_agreement"] >= planqual.MIN_RANKING
+    print(f"[planes] coverage: {cov['queries']} queries, every operator "
+          f"estimated {cov['all_operators_covered']}, worst "
+          f"{cov['worst_misestimate']}; {len(made)} *key indexes made in "
+          f"{index_s:.3f} s and dropped ({len(left)} left); gv$plan_choice "
+          f"{json.dumps(cm)}; ranking against {planqual.MIN_RANKING}: "
+          f"{'held' if ranked else 'missed'}; "
+          f"{time.perf_counter() - t0:.3f} s")
+    got = _build.launch_counts()
+    delta = {k: got.get(k, 0) - launches.get(k, 0) for k in got}
+    print(f"[planes] kernel launches in the 22-query halves: {delta}")
+    checks = {**profile.roofline_checks(roof),
+              **planqual.coverage_checks(cov)}
+    bad = [k for k, ok in checks.items()
+           if not ok and k not in profile.TIMING + planqual.TIMING]
+    if bad or left or any(delta.values()):
+        raise AssertionError(f"planes (22 queries): {bad}, indexes left "
+                             f"{left}, launches {delta}")
+
+
+def phase_planes(torch, dev, card):
+    """Phase planes: the single-node halves of the reference's
+    ``scripts/{trace,metrics,profile,workload,planqual}_bench.py``
+    through ``bench/{trace,metrics,profile,workload,planqual}.py`` on the
+    card (their 22-query halves ran in phase measure).  One
+    ``Database`` of 2,000,000 rows of the TPC-H slice, direct-loaded and
+    in memory, with each plane toggled in turn at the reference's
+    repeats: the on/off answers equal (gated) and each overhead against
+    2% (printed); gv$time_model's phases against the wall (printed,
+    90-110%); then 20,000 INSERTed rows across a restart (crc-verified
+    load, delta report) and the 100 x 100 duplicate-key join with
+    feedback on and off (1 retry then 0, against >= 2), both gated.
+    Every knob a half flips is put back; the metrics switch and the time
+    split are on after it."""
+    from oceanbase_tpu_torch.bench import (metrics, planes, planqual,
+                                           profile, trace, workload)
+    from oceanbase_tpu_torch.exec import plan as qplan
+    from oceanbase_tpu_torch.server import metrics as qmetrics
+    from oceanbase_tpu_torch.server.database import Database
+
+    root = tempfile.mkdtemp(prefix="ob_planes_")
+
+    def open_db(path):
+        return Database(path, device=dev)
+
+    def gate(name, bad):
+        if bad:
+            raise AssertionError(f"planes {name}: {', '.join(bad)}")
+
+    try:
+        t0 = time.perf_counter()
+        db = open_db(os.path.join(root, "slice"))
+        s = db.session()
+        planes.load_numpy(s, PLANES_ROWS)
+        s.close()
+        print(f"[planes] the slice: {PLANES_ROWS} rows direct-loaded in "
+              f"{time.perf_counter() - t0:.3f} s")
+        halves = (("trace", lambda: trace.overhead(db), trace),
+                  ("metrics", lambda: metrics.overhead(db), metrics),
+                  ("profile", lambda: profile.overhead(db), None),
+                  ("planqual", lambda: planqual.overhead(db), None),
+                  ("workload", lambda: workload.overhead_and_phases(db),
+                   None))
+        recs = {}
+        for name, fn, mod in halves:
+            t0 = time.perf_counter()
+            rec = recs[name] = fn()
+            torch.cuda.synchronize()
+            held = rec["overhead_pct"] <= planes.BOUND_PCT
+            extra = {k: rec[k] for k in ("spans_in_ring", "series",
+                                         "mean_overhead_pct",
+                                         "snapshots_taken") if k in rec}
+            print(f"[planes] {name} overhead: {rec['overhead_pct']}% "
+                  f"against {planes.BOUND_PCT}% "
+                  f"({'held' if held else 'missed'}), off {rec['off_s']} s, "
+                  f"on {rec['on_s']} s over {rec['repeats']} passes, "
+                  f"answers equal on/off {rec['rows_equal']}, {extra}; "
+                  f"{time.perf_counter() - t0:.3f} s; {card}")
+            bad = (mod.failures(rec, timing=False) if mod is not None
+                   else ([] if rec["rows_equal"] else ["rows_equal"]))
+            gate(name, bad)
+        w = recs["workload"]
+        print(f"[planes] gv$time_model over {w['statements']} statements: "
+              f"phases {w['phases']} sum {w['phase_sum_s']} s against "
+              f"elapsed {w['elapsed_s']} s: {w['phase_coverage_pct']}% "
+              f"against {workload.BAND_PCT} "
+              f"({'held' if w['phases_reconcile'] else 'missed'}); {card}")
+        db.close()
+        t0 = time.perf_counter()
+        r = workload.restart(open_db, os.path.join(root, "restart"))
+        print(f"[planes] workload restart: {json.dumps(r)}; "
+              f"{time.perf_counter() - t0:.3f} s")
+        gate("restart", workload.failures(
+            {"overhead": {"rows_equal": True}, "restart": r}, timing=False))
+        t0 = time.perf_counter()
+        fb = planqual.feedback(open_db, os.path.join(root, "feedback"))
+        print(f"[planes] feedback: {json.dumps(fb)}; "
+              f"{time.perf_counter() - t0:.3f} s")
+        bad = [f"{m} answers_ok" for m in fb if not fb[m]["answers_ok"]]
+        if fb["on"]["first_run_retries"] != 1 or \
+                fb["on"]["fresh_session_retries"] != 0:
+            bad.append(f"feedback on {fb['on']}")
+        if fb["off"]["first_run_retries"] < 2:
+            bad.append(f"feedback off {fb['off']}")
+        gate("feedback", bad)
+        if not (qmetrics.enabled() and qplan.time_split_enabled()):
+            raise AssertionError("phase planes left the plane off")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def start_chaos_apart(here, want):
+    """Phases db, cluster, chaos and planes in a process of their own
+    (``scripts/torch_chaos_phase.py --want``: its three nodes, its
+    loader, phase db beside the loader, its own launch counts), beside
+    the card phases of this process, which none of them needs; its lines
+    go to a file until ``finish_chaos_apart``."""
+    import pickle
+    import subprocess
+
+    fd, want_path = tempfile.mkstemp(prefix="ob_want_", suffix=".pickle")
+    with os.fdopen(fd, "wb") as fh:
+        pickle.dump(want, fh)
+    fd, path = tempfile.mkstemp(prefix="ob_chaos_", suffix=".log")
+    with os.fdopen(fd, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "scripts",
+                                          "torch_chaos_phase.py"),
+             "--want", want_path],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT,
+            stdin=subprocess.DEVNULL)
+
+    def _stop():
+        if proc.poll() is None:
+            proc.terminate()  # its handler closes the nodes
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+        if os.path.exists(path):
+            # the run ended before finish_chaos_apart printed it
+            with open(path, errors="replace") as fh:
+                sys.stderr.write(fh.read()[-20000:])
+            os.remove(path)
+        os.remove(want_path)
+
+    atexit.register(_stop)
+    return proc, path
+
+
+def finish_chaos_apart(apart):
+    """Wait for ``start_chaos_apart``'s process, print its lines, and
+    raise unless it exited 0 (phase db's, cluster's, chaos's and planes'
+    checks)."""
+    proc, path = apart
+    rc = proc.wait(timeout=CHAOS_APART_WAIT_S)
+    with open(path, errors="replace") as fh:
+        sys.stdout.write(fh.read())
+    sys.stdout.flush()
+    os.remove(path)
+    if rc != 0:
+        raise AssertionError(f"phases cluster and chaos exited {rc}")
+
+
 def main() -> int:
     import torch
 
@@ -4576,19 +4780,17 @@ def main() -> int:
         if "ptxas" in line:
             print(f"[build] {line.strip()}")
 
-    # phase cluster's nodes boot while the card runs the earlier phases;
-    # the .tbl writer and the cluster's loader start once the SQLite
-    # oracles are done, so the oracles have the host's cores to themselves
-    cluster = start_cluster()
+    # the .tbl writer and the side process (phases db, cluster, chaos
+    # and planes, beside the card phases) start once the SQLite oracles
+    # are done, so the oracles have the host's cores to themselves
     sf = float(os.environ.get("OB_SMOKE_SF", "1"))
     oracles = start_oracles(here, sf)
-    writer = cluster_loader = None
+    writer = apart = None
     t0 = time.perf_counter()
     tables, types = gen_tpch(sf=sf)
     li = tables["lineitem"]
     print(f"[setup] gen_tpch sf={sf}: {len(li['l_orderkey'])} lineitem "
           f"rows in {time.perf_counter() - t0:.3f} s")
-    cluster_rows, cluster_types = cluster_slice(tables, types)
 
     sf_cols = [torch.from_numpy(li[c].astype(np.int32)).to(dev) for c in
                ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")]
@@ -4601,14 +4803,12 @@ def main() -> int:
         """What else runs on the host beside a phase: its host-bound
         times are taken under this load."""
         alive = sum(proc.is_alive() for proc, _q in oracles)
-        nodes = sum(p.poll() is None for p in cluster.procs.values())
         tbl = int(writer is not None and writer[0].is_alive())
-        load = int(cluster_loader is not None and
-                   cluster_loader[0].is_alive())
+        side = int(apart is not None and apart[0].poll() is None)
         return (f"{os.cpu_count()} CPU cores; {alive} of {len(oracles)} "
-                f"SQLite oracle processes, {tbl} of 1 .tbl writer, "
-                f"{nodes} of 3 cluster nodes and {load} of 1 cluster "
-                f"loader running")
+                f"SQLite oracle processes, {tbl} of 1 .tbl writer and "
+                f"{side} of 1 side process (phases db, cluster, chaos, "
+                f"planes; 3 nodes and a loader of its own) running")
 
     def timed_phase(name, fn, *args):
         """Run one phase with the launch counts set to 0 just before it;
@@ -4650,8 +4850,7 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="ob_load_")
     writer = start_tbl_writer(here, sf, root)
     atexit.register(_stop_tbl_writer, writer, root)
-    cluster_loader = start_cluster_loader(here, cluster, cluster_rows,
-                                          cluster_types)
+    apart = start_chaos_apart(here, want)
     _, counts = timed_phase("spill", phase_spill, torch, dev, sess, tables,
                             card, sql_stats, want)
     print(f"[spill] kernel launches: {counts}")
@@ -4668,10 +4867,6 @@ def main() -> int:
                             ip1_rows, want)
     print(f"[sql-surface] kernel launches: {counts}")
     del sess  # the catalog-only session's tables leave the card
-    torch.cuda.empty_cache()
-    _, counts = timed_phase("db", phase_db, torch, dev, tables, types, card,
-                            want)
-    print(f"[db] kernel launches: {counts}")
     torch.cuda.empty_cache()
     try:
         loaded, counts = timed_phase("load", phase_load, torch, dev, tables,
@@ -4692,15 +4887,10 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    workload, counts = timed_phase("cluster", phase_cluster, torch, cluster,
-                                   cluster_loader, cluster_rows,
-                                   cluster_types, card)
-    print(f"[cluster] kernel launches in this process: {counts} (the "
-          f"nodes run the SQL path, which launches none, as in the "
-          f"reference)")
-    _, counts = timed_phase("chaos", phase_chaos, torch, cluster, workload,
-                            card)
-    print(f"[chaos] kernel launches in this process: {counts}")
+    _, counts = timed_phase("db, cluster, chaos and planes (the wait)",
+                            finish_chaos_apart, apart)
+    print(f"[chaos] kernel launches in this process while it waited: "
+          f"{counts} (the side process printed its own)")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

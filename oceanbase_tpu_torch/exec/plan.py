@@ -11,8 +11,8 @@ The plan-quality metadata the binder and optimizer use is copied as it
 is (``logical_hash``, ``propagate_estimates``, ``monitored_op``), so a
 plan bound by the port hashes like the JAX package's.
 
-The measurement plane (ROADMAP Queue 1 item 9) rides the same boundary
-and adds no sync.  XLA gave the reference a compiled program with a cost
+The measurement plane (``server/{metrics,trace,monitor,calibrate,
+profiler}.py``) rides the same boundary and adds no sync.  XLA gave the reference a compiled program with a cost
 analysis and one fused launch; eager torch has neither, so each number
 has a counterpart defined here:
 
@@ -878,7 +878,16 @@ class ExecTimes:
     index-probe sidecar rebuilds, ``lower_s``/``compile_s`` (0.0 in the
     port: nothing is traced or compiled), ``dispatch_s`` the host half
     of each execution, ``merge_s`` the DTL coordinator's host-side
-    concatenation of fragment replies (``px/dtl.py``)."""
+    concatenation of fragment replies (``px/dtl.py``).
+
+    ``device_s`` is each execution's stream span, which overlaps its
+    ``dispatch_s`` (the host launches while the card runs).
+    ``device_wait_s`` is the part of each span past its execution's
+    host window: what the host waits for after it has launched the
+    last kernel, the reference's device phase (a ``block_until_ready``
+    after dispatch).  gv$time_model charges it as its ``device_s``, so
+    its phases stay disjoint slices of the statement's wall (ROADMAP
+    Queue 3 #33)."""
 
     host_s: float = 0.0
     device_s: float = 0.0
@@ -891,6 +900,7 @@ class ExecTimes:
     compile_s: float = 0.0
     dispatch_s: float = 0.0
     merge_s: float = 0.0
+    device_wait_s: float = 0.0
 
     #: the host-phase decomposition, in pipeline order (shared by
     #: gv$sql_audit columns and gv$time_model rows)
@@ -940,7 +950,7 @@ def exec_times() -> ExecTimes:
     return ExecTimes(acc.host_s, acc.device_s, acc.flops, acc.bytes,
                      acc.calls, acc.bind_s, acc.sidecar_build_s,
                      acc.lower_s, acc.compile_s, acc.dispatch_s,
-                     acc.merge_s)
+                     acc.merge_s, acc.device_wait_s)
 
 
 def add_exec_times(host_s: float = 0.0, device_s: float = 0.0,
@@ -950,10 +960,13 @@ def add_exec_times(host_s: float = 0.0, device_s: float = 0.0,
                    compile_s: float = 0.0, dispatch_s: float = 0.0,
                    merge_s: float = 0.0):
     """Fold externally measured work into the statement accumulator
-    (the session records bind_s, prepare_index_probes sidecar_build_s)."""
+    (the session records bind_s, prepare_index_probes sidecar_build_s;
+    a DTL coordinator its remote fragments' device seconds, which it
+    waits for and never overlaps with its own dispatch)."""
     acc = _exec_acc()
     acc.host_s += float(host_s)
     acc.device_s += float(device_s)
+    acc.device_wait_s += float(device_s)
     acc.flops += float(flops)
     acc.bytes += float(bytes)
     acc.calls += int(calls)
@@ -1029,6 +1042,7 @@ def _finish(ex: _Execution, mon_vals: list | None = None):
     st = ex.stats
     acc = _exec_acc()
     acc.device_s += device_s
+    acc.device_wait_s += max(device_s - ex.host_s, 0.0)
     if st is None:
         return  # a device_span: the statement's split only
     elapsed = max(ex.wall_s, device_s)
@@ -1104,6 +1118,7 @@ class device_span:
             ex.ev1.record()
         wall = time.perf_counter() - self._t0
         _exec_acc().host_s += wall
+        ex.host_s = wall
         if ex.ev0 is not None and et is None:
             ex.stats = None
             _pending().append(ex)

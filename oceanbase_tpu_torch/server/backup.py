@@ -24,6 +24,11 @@ Port of ``oceanbase_tpu/server/backup.py`` over the port's
 a backup chain of either package restores the same way.  A restored or
 point-in-time-cut database boots without optimizer statistics: run
 ANALYZE on its tables before large in-memory queries.
+
+One deliberate difference: ``pitr_cut`` refuses a cut below the
+restored checkpoint's version (``PitrBelowCheckpoint``), where the
+reference rewrites the WAL and boots with the later rows still in the
+checkpoint's segments (ROADMAP Queue 3 #19).
 """
 
 from __future__ import annotations
@@ -42,6 +47,12 @@ from oceanbase_tpu_torch.server.diskmgr import (
 from oceanbase_tpu_torch.storage.integrity import CorruptionError
 
 MANIFEST = "BACKUP_MANIFEST.json"
+
+
+class PitrBelowCheckpoint(ValueError):
+    """A point-in-time cut older than the checkpoint the restored tree
+    carries: every row committed before that checkpoint is already in
+    its segments, which a WAL rewrite cannot take back."""
 
 
 def _faults(db):
@@ -288,10 +299,23 @@ def pitr_cut(target: str, until_version: int):
 
     Every entry's stored crc64 is VERIFIED before the rewrite: the cut
     re-encodes entries, which would otherwise launder corrupt payloads
-    into fresh valid checksums the restored node then trusts."""
+    into fresh valid checksums the restored node then trusts.
+
+    A cut below the version of any tenant's checkpoint in ``target``
+    (its ``manifest.json``'s ``gts``) raises ``PitrBelowCheckpoint``
+    before anything is rewritten."""
     from oceanbase_tpu_torch.palf.log import _BASE_PAYLOAD, _MAGIC, LogEntry, \
         scan_wal
 
+    for dirpath, _dirs, files in os.walk(target):
+        if "manifest.json" in files:
+            with open(os.path.join(dirpath, "manifest.json")) as fh:
+                ckpt = int(json.load(fh)["m"].get("meta", {}).get("gts", 0))
+            if until_version < ckpt:
+                raise PitrBelowCheckpoint(
+                    f"cut version {until_version} is below the checkpoint "
+                    f"version {ckpt} of {dirpath}: rows committed up to "
+                    f"it are already in its segments")
     for dirpath, _dirs, files in os.walk(target):
         for f in files:
             if not (f.startswith("replica_") and f.endswith(".log")):

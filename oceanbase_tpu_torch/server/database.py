@@ -16,8 +16,9 @@ the in-process entry point and ``server/mysql_protocol.py::MySQLServer``
 the wire one; both run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise without CUDA otherwise.
 
-The measurement plane (ROADMAP Queue 1 item 9): the metrics flag
-(``enable_metrics``) and the host/device time split
+The measurement plane (``server/{metrics,trace,monitor,calibrate,
+profiler}.py``): the metrics flag (``enable_metrics``) and the
+host/device time split
 (``enable_profiling``), both process-global and hot-reloaded by config
 watchers; roofline calibration at boot (``enable_calibration``: adopt
 ``cost_units.json`` or run the "boot" probe on the database's device,

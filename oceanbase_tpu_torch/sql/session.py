@@ -90,6 +90,7 @@ from __future__ import annotations
 
 import copy
 import csv
+import dataclasses
 import json
 import os
 import tempfile
@@ -485,8 +486,12 @@ class Session:
             sidecar_build_s=times.sidecar_build_s,
             lower_s=times.lower_s, xla_compile_s=times.compile_s,
             dispatch_s=times.dispatch_s, merge_s=times.merge_s))
-        self.db.time_model.observe(tname, times, elapsed_s=elapsed,
-                                   queue_s=queue_s)
+        # the time model's device phase is the host's wait past its
+        # dispatch, as in the reference: the stream span overlaps
+        # dispatch_s (ROADMAP Queue 3 #33)
+        self.db.time_model.observe(
+            tname, dataclasses.replace(times, device_s=times.device_wait_s),
+            elapsed_s=elapsed, queue_s=queue_s)
 
     def _materialize_virtuals(self, stmt):
         """Refresh every gv$/v$ view the statement references as a

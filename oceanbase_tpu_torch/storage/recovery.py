@@ -2,9 +2,9 @@
 
 Port of ``oceanbase_tpu/storage/recovery.py`` with its ``recovery.*``
 metrics; ``gv$recovery`` serves ``Tenant.recovery.rows()``.  The port
-records
-``boot_replay``, ``restore_prepared``, ``checkpoint`` and ``quarantine``;
-``rebuild`` and ``catchup`` belong to the multi-node plane (item 5b).
+records ``boot_replay``, ``restore_prepared``, ``checkpoint`` and
+``quarantine``; ``rebuild`` and ``catchup`` belong to the multi-node
+plane (``net/rebuild.py``).
 
 Reference analog: the HA dag-net progress the reference surfaces for
 replica rebuild/migration (src/storage/high_availability/

@@ -1,0 +1,65 @@
+#!/usr/bin/env python3
+"""The trace plane's overhead contract, on the port.
+
+    python3 scripts/torch_trace_bench.py                 # on the card
+    python3 scripts/torch_trace_bench.py --device cpu
+    BENCH_ROWS=2000 BENCH_REPEATS=8 python3 scripts/torch_trace_bench.py --device cpu
+
+The port's twin of ``scripts/trace_bench.py`` with its cluster half
+skipped, as ``TRACE_BENCH_SKIP_CLUSTER=1`` skips it (that half waits for
+ROADMAP Queue 1 item 3): ``BENCH_ROWS`` rows of the TPC-H slice (default
+100,000) INSERTed into one in-process ``Database``, then q6 and q1 in 4
+alternating blocks of ``BENCH_REPEATS / 4`` passes (default 40) with
+full-link tracing off and on at ``trace_sample_rate = 1.0``
+(``oceanbase_tpu_torch/bench/trace.py``).  Prints the reference's one
+JSON line and exits 1 where it would (``overhead_pct > 2``) or where
+tracing changed an answer.  ``--out PATH`` also writes the line there;
+nothing else is written outside a temporary directory.  Runs on the card
+unless ``--device cpu``; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--out", help="also write the JSON line to this file")
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    from oceanbase_tpu_torch.bench import trace
+    from oceanbase_tpu_torch.server.database import Database
+
+    rows = int(os.environ.get("BENCH_ROWS", str(trace.ROWS)))
+    repeats = int(os.environ.get("BENCH_REPEATS", str(trace.REPEATS)))
+    root = tempfile.mkdtemp(prefix="torch_trace_bench_")
+    try:
+        db = Database(os.path.join(root, "db"), device=args.device)
+        try:
+            rec = trace.run(db, rows, repeats)
+        finally:
+            db.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line = json.dumps(rec)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    bad = trace.failures(rec["overhead"])
+    if bad:
+        print(f"torch_trace_bench: {', '.join(bad)}", file=sys.stderr)
+    return 0 if rec["ok"] and not bad else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

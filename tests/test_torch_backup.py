@@ -146,8 +146,9 @@ def test_pitr_cut_of_a_recycled_wal_keeps_its_base(tmp_path):
 
 def _scn_cut_below_base(P, root):
     """A cut to a version older than the base backup's checkpoint: the
-    base's segments already hold the later rows, and the cut keeps them
-    without a word (ROADMAP Queue 3 #19)."""
+    base's segments already hold the later rows (ROADMAP Queue 3 #19).
+    -> [the cut's outcome, whether the target's bytes are as restored,
+    the rows the target boots with]."""
     db = P.db(root / "db")
     s = db.session()
     s.execute("create table t (k int primary key, v int)")
@@ -158,17 +159,32 @@ def _scn_cut_below_base(P, root):
     db.close()
     target = str(root / "cut")
     P.backup.restore_chain(full, target)
+    before = _tree_bytes(target)
     cut = outcome(P.backup.pitr_cut, target, cut_version)
+    unchanged = _tree_bytes(target) == before
     db2 = P.db(target)
     rows = db2.session().execute("select k from t order by k").rows()
     db2.close()
-    return [cut[0], rows]
+    return [cut, unchanged, rows]
+
+
+def _tree_bytes(root) -> dict:
+    out = {}
+    for d, _s, fs in os.walk(root):
+        for f in fs:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
 
 
 def test_pitr_cut_below_the_base_checkpoint_keeps_later_rows(tmp_path):
-    # the reference's answer, which the port keeps: row 2 committed
-    # after the cut point survives the cut
-    assert both(_scn_cut_below_base, tmp_path) == ["ok", [(1,), (2,)]]
+    # the reference rewrites the WAL without a word and boots with row 2,
+    # committed after the cut point; the port refuses the cut, typed,
+    # before it rewrites anything, and the target boots as restored
+    want = _scn_cut_below_base(J, tmp_path / "jax")
+    got = _scn_cut_below_base(T, tmp_path / "port")
+    assert want == [("ok", None), False, [(1,), (2,)]], want
+    assert got == [("error", "PitrBelowCheckpoint"), True, [(1,), (2,)]], got
 
 
 def _scn_archive_incremental(P, root):

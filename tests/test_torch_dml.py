@@ -292,9 +292,8 @@ _NEEDS_A_DATABASE = {
     "create table c3 (a int, index ia (a))", "replace into t values (1)",
 ])
 def test_storage_plane_statements_raise(sql):
-    """A catalog-only session refuses what the port's ``Database`` runs
-    (naming it) and what still waits for the storage plane's second
-    half (naming ROADMAP Queue 1 item 5b and its sub-item).  CREATE
+    """A catalog-only session refuses what the port's ``Database`` runs,
+    naming it (every statement listed, in ``_NEEDS_A_DATABASE``).  CREATE
     EXTERNAL TABLE needs no Database: it registers in the catalog, as
     the reference's catalog session does, and its file is read at query
     time."""
@@ -309,9 +308,8 @@ def test_storage_plane_statements_raise(sql):
             with pytest.raises(FileNotFoundError):
                 s.execute("select * from e")
         return
-    match = ("needs a Database" if sql in _NEEDS_A_DATABASE
-             else "ROADMAP Queue 1 item 5b")
-    with pytest.raises(NotImplementedError, match=match):
+    assert sql in _NEEDS_A_DATABASE
+    with pytest.raises(NotImplementedError, match="needs a Database"):
         ts.execute(sql)
     assert ts.catalog.tables() == ["t"]  # nothing half-created
 

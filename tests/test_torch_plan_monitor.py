@@ -14,7 +14,7 @@ ledger against the JAX package's, on the CPU.
   ``Tensor.item``/``__int__``/``__bool__``/``tolist``/``cpu``/``numpy``);
 - the single-node cases of the reference's ``tests/test_planqual.py``
   and ``tests/test_explain_infoschema.py``.  Their DTL and MCV cases are
-  left out: DTL waits for ROADMAP Queue 1 item 10, and MCV selectivity
+  left out: DTL waits for ROADMAP Queue 1 item 3, and MCV selectivity
   belongs to the optimizer, held by ``test_torch_sql_frontend.py``."""
 
 import itertools

@@ -1,6 +1,6 @@
 """The port's SQL spill route under a ``Database``: the cases of
 ``tests/test_sql_spill.py`` that do not read ``v$sql_workarea`` or
-EXPLAIN counters (those wait for ROADMAP Queue 1 item 9) — an over-budget
+EXPLAIN counters (the measurement plane's, outside this file) — an over-budget
 ORDER BY, GROUP BY, scalar aggregate, probe-side join, co-partitioned
 join and DISTINCT stream from the LSM through the disk tier with their
 ``SpillStats`` and equal the numpy answer, under-budget and disabled

@@ -7,7 +7,7 @@ trace trees with equal span names and parentage (the reference's
 and equal retention under the sample rate, the slow threshold and a
 failing statement.  The single-node cases of the reference's
 ``tests/test_trace.py`` follow; its 3-node DTL case waits for ROADMAP
-Queue 1 item 10 and its poisoned-lane case runs in
+Queue 1 item 3 and its poisoned-lane case runs in
 ``test_torch_plan_monitor.py`` with the whole plane on."""
 
 import json

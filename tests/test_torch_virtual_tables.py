@@ -46,13 +46,13 @@ _SCRIPT = [
     "explain analyze select sum(v) from t",
 ]
 
-#: the durability plane's views (ROADMAP Queue 1 item 5b: sub-items 12,
-#: 11 and 15), refused before the plane was ported
+#: the durability plane's views, refused before that plane was ported,
+#: each with the module that serves it now
 _UNPORTED = {
-    "gv$scrub": "item 5b, sub-item 12",
-    "v$errsim": "item 5b, sub-item 11",
-    "gv$workload_snapshot": "item 5b, sub-item 15",
-    "gv$workload_report": "item 5b, sub-item 15",
+    "gv$scrub": "storage/scrub.py",
+    "v$errsim": "server/errsim.py",
+    "gv$workload_snapshot": "server/workload.py",
+    "gv$workload_report": "server/workload.py",
 }
 
 

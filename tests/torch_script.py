@@ -1,5 +1,6 @@
 """Run one of the port's ``scripts/torch_*_bench.py`` on the CPU, for the
-tests of ``bench/{overload,disk,recompile}.py``."""
+tests of ``bench/{overload,disk,recompile}.py`` and of the five
+measurement-plane benches."""
 
 from __future__ import annotations
 
@@ -23,14 +24,14 @@ def _top_files() -> list:
     return out
 
 
-def run_script(name: str, env: dict):
-    """``scripts/<name> --device cpu`` with ``env`` added, on two CPU
-    threads as the tests run -> (its exit code, its one JSON line, the
-    repo's top-level files before, after)."""
+def run_script(name: str, env: dict, args=()):
+    """``scripts/<name> --device cpu [args]`` with ``env`` added, on two
+    CPU threads as the tests run -> (its exit code, its one JSON line,
+    the repo's top-level files before, after)."""
     before = _top_files()
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", name), "--device",
-         "cpu"], capture_output=True, text=True, timeout=300,
+         "cpu", *args], capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "2", **env}, cwd=REPO)
     lines = [x for x in out.stdout.splitlines() if x.strip()]
     assert len(lines) == 1, out.stdout + out.stderr
