@@ -46,7 +46,11 @@ Phases, each printing its own lines:
    against numpy, an ORDER BY on a two-valued first key whose range
    exchange overflows and re-plans through the session's retry ladder,
    and a join whose probe key is 30% one value through the bloom filter
-   and the hybrid hot-key exchange, both against numpy;
+   and the hybrid hot-key exchange, both against numpy; then the
+   reference's ``__graft_entry__.py`` dryrun through its twin,
+   ``oceanbase_tpu_torch/graft_entry.py::dryrun_multichip(8)`` (its tiny
+   step held to numpy, the 22 queries at SF0.002 serial against
+   ``px_dop = 8``, 22/22 distributed);
 6d. obcheck: on the same catalog, obcheck over the port: the static
    gate (``scripts/torch_obcheck.py --ci --json``, the eight rule
    families over ``oceanbase_tpu_torch/``) must report no new finding;
@@ -195,12 +199,31 @@ Phases, each printing its own lines:
    against numpy, more than one sorted run, no residue), read-only entry and exit, gv$disk within 5% of du and a
    restart; and 100 INSERT/SELECT steps with shape buckets off and on
    (equal results, >= 10x fewer first executions);
+8j. planes (in the side process after phase chaos, a ``Database`` of
+   its own): the single-node halves of the reference's
+   ``scripts/{trace,metrics,profile,workload,planqual}_bench.py`` over
+   2,000,000 rows of their TPC-H slice (their 22-query halves run in
+   phase measure);
+8k. planes-cluster (in the side process after phase planes; three fresh
+   ``oceanbase_tpu_torch.net.node`` processes on the card, booting
+   during phase planes, fault verbs armed and ``dtl_min_rows = 1``):
+   200,000 rows of the slice INSERTed on node 1 in 1,000-row
+   statements, then the cluster halves through
+   ``bench/{trace,metrics,workload,planqual,scrub}.py``: a 400 ms delay
+   on node 1's ``dtl.execute`` toward node 2 named by the slowest span
+   of q6's trace; every node's scrape and the merged workload report
+   reconciled with gv$px_exchange within 1%; DTL slice skew of 3,000 +
+   3,000 rows (>= 3.0 skewed, < 1.5 uniform); the scrubber off and on
+   at a 2 s cadence (its overhead printed against 2%), then a seeded
+   bit flip in node 3's segment repaired by one ``scrub.run`` with its
+   answers equal to SQLite; every non-timing gate held;
 9. one JSON line of the kernels with their launch counts on the main
    path (phases 4-5; counts are reset just before each phase from 4 on
-   and printed after it: the stream, spill, SQL, PX, obcheck, server,
-   durability, vector, cluster, chaos and contracts paths, like the JAX
-   package's, reach no hand-written kernel,
-   and measure makes one profiled launch), and each phase's seconds;
+   and printed after it: the stream, spill, SQL, PX, graft dryrun,
+   obcheck, server, durability, vector, cluster, chaos, contracts,
+   planes and planes-cluster paths, like the JAX package's, reach no
+   hand-written kernel, and measure makes one profiled launch), and
+   each phase's seconds;
 10. the card's name and power limit, then the result line.
 
 Any mismatch or error exits nonzero before the result line.  Without a
@@ -217,6 +240,7 @@ import shutil
 import statistics
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -851,9 +875,30 @@ def phase_px(torch, dev, sess, tables, card, sql_stats, want):
         _px_q1_step(torch, dev, sess, tables, card)
         _px_skew_sort(torch, sess, tables, card)
         _px_hot_join(torch, dev, sess, tables, card)
+        _px_graft_dryrun(torch, dev, card)
     finally:
         sess.variables["px_dop"] = 0
         set_mesh_size(None)
+
+
+def _px_graft_dryrun(torch, dev, card):
+    """The reference's ``__graft_entry__.py`` dryrun through the port's
+    twin, ``graft_entry.dryrun_multichip(PX_SHARDS)``, on the card, with
+    the kernels' launches it made."""
+    from oceanbase_tpu_torch import graft_entry
+    from oceanbase_tpu_torch.ops import _build
+
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    rec = graft_entry.dryrun_multichip(
+        PX_SHARDS, dev, log=lambda line: print(f"[px] graft {line}"))
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    print(f"[px] graft dryrun_multichip({PX_SHARDS}): step {rec['step']}, "
+          f"{len(rec['distributed'])}/22 distributed; "
+          f"{time.perf_counter() - t0:.3f} s; kernel launches {delta}; "
+          f"{card}", flush=True)
 
 
 def _px_q1_step(torch, dev, sess, tables, card):
@@ -4697,9 +4742,105 @@ def phase_planes(torch, dev, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+PLANES_CLUSTER_ROWS = 200_000         # phase cluster's scale (PERF §4)
+PLANES_SCRUB_REPEATS = 32             # scrub_bench.py's BENCH_REPEATS
+
+
+def start_planes_cluster(device="cuda"):
+    """Spawn phase planes-cluster's three nodes as the reference's benches
+    boot theirs (``bench/cluster.py::boot``: fault verbs armed,
+    ``dtl_min_rows = 1``, lease 1500 ms), so they boot while phase
+    planes runs -> the cluster."""
+    from oceanbase_tpu_torch.bench import cluster as bcluster
+
+    root = tempfile.mkdtemp(prefix="ob_planes_cluster_")
+    c = bcluster.boot(root, device, wait=False)
+
+    def _close():
+        c.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    atexit.register(_close)
+    return c
+
+
+def phase_planes_cluster(torch, cluster, card, rows=PLANES_CLUSTER_ROWS):
+    """Phase planes-cluster: the cluster halves of the reference's
+    ``scripts/{trace,metrics,workload,planqual}_bench.py`` and
+    ``scripts/scrub_bench.py`` whole, through
+    ``bench/{trace,metrics,workload,planqual,scrub}.py`` on three node
+    processes on the card (``start_planes_cluster``), every statement on
+    node 1, which leads: ``rows`` rows of the slice INSERTed in 1,000-row
+    statements, then attribution, scrape, the merged workload report,
+    slice skew (the reference's 3,000 + 3,000 rows) and the scrub
+    overhead and repair.  Every non-timing gate fails the phase; the
+    scrub overhead is printed against 2%.  Closes the cluster."""
+    from oceanbase_tpu_torch.bench import cluster as bcluster
+    from oceanbase_tpu_torch.bench import (metrics, planqual, scrub, trace,
+                                           workload)
+
+    c = cluster
+    try:
+        t0 = time.perf_counter()
+        c.wait_ready(CLUSTER_DEADLINE_S)
+        devs = {i: st.get("device") for i, st in c.states().items()}
+        if sorted(devs) != [1, 2, 3] or any(
+                str(d).split(":")[0] != c.device for d in devs.values()):
+            raise AssertionError(f"planes-cluster node devices {devs}")
+        boot_s = {i: round(x, 3) for i, x in c.boot_s.items()}
+        print(f"[planes-cluster] nodes on {devs}, ready "
+              f"{time.perf_counter() - t0:.3f} s after phase planes; "
+              f"spawn to first ping {boot_s} s")
+        t0 = time.perf_counter()
+        load = bcluster.load_slice(c, rows)
+        print(f"[planes-cluster] the slice: {rows} rows INSERTed on node 1 "
+              f"in {bcluster.SLICE_BATCH}-row statements in "
+              f"{load['load_s']} s ({rows / load['load_s']:.1f} rows/s), "
+              f"converged in {load['converge_s']} s; "
+              f"{time.perf_counter() - t0:.3f} s; {card}", flush=True)
+        halves = (
+            ("attribution", lambda: trace.attribution(c, rows),
+             trace.attribution_failures),
+            ("scrape", lambda: metrics.scrape(c, rows),
+             metrics.scrape_failures),
+            ("workload", lambda: workload.cluster(c, rows),
+             workload.cluster_failures),
+            ("skew", lambda: planqual.skew(c), planqual.skew_failures),
+            ("scrub", lambda: scrub.run(c, rows, PLANES_SCRUB_REPEATS,
+                                        load["load_s"]), scrub.failures))
+        for name, fn, gate in halves:
+            t0 = time.perf_counter()
+            rec = fn()
+            torch.cuda.synchronize()
+            print(f"[planes-cluster] {name}: {json.dumps(rec)}; "
+                  f"{time.perf_counter() - t0:.3f} s; {rows} slice rows; "
+                  f"{card}", flush=True)
+            if name == "scrub":
+                o = rec["overhead"]
+                print(f"[planes-cluster] scrub overhead: "
+                      f"{o['overhead_pct']}% against "
+                      f"{scrub.BOUND * 100}% "
+                      f"({'held' if o['pass'] else 'missed'}), off "
+                      f"{o['off_s']} s, on {o['on_s']} s over "
+                      f"{o['queries']} statements, "
+                      f"{o['scrub_rounds_leader']} rounds on the leader; "
+                      f"{card}", flush=True)
+            bad = gate(rec, timing=False)
+            if bad:
+                raise AssertionError(f"planes-cluster {name}: "
+                                     f"{', '.join(bad)}")
+    except BaseException:
+        for i in (1, 2, 3):
+            print(f"[planes-cluster] node {i} log tail:\n{c.log_tail(i)}",
+                  file=sys.stderr)
+        raise
+    finally:
+        c.close()
+
+
 def start_chaos_apart(here, want):
-    """Phases db, cluster, chaos and planes in a process of their own
-    (``scripts/torch_chaos_phase.py --want``: its three nodes, its
+    """Phases db, cluster, chaos, planes and planes-cluster in a process
+    of their own (``scripts/torch_chaos_phase.py --want``: its nodes, its
     loader, phase db beside the loader, its own launch counts), beside
     the card phases of this process, which none of them needs; its lines
     go to a file until ``finish_chaos_apart``."""
@@ -4733,21 +4874,37 @@ def start_chaos_apart(here, want):
         os.remove(want_path)
 
     atexit.register(_stop)
-    return proc, path
+    ended = {}
+
+    def _watch():
+        proc.wait()
+        ended["at"] = time.perf_counter()
+
+    threading.Thread(target=_watch, daemon=True).start()
+    return proc, path, ended
 
 
-def finish_chaos_apart(apart):
-    """Wait for ``start_chaos_apart``'s process, print its lines, and
-    raise unless it exited 0 (phase db's, cluster's, chaos's and planes'
-    checks)."""
-    proc, path = apart
+def finish_chaos_apart(apart, t_start):
+    """Wait for ``start_chaos_apart``'s process, print its lines and when
+    it ended beside now (``t_start`` the run's start), and raise unless
+    it exited 0 (phase db's, cluster's, chaos's, planes' and
+    planes-cluster's checks)."""
+    proc, path, ended = apart
+    t_wait = time.perf_counter()
     rc = proc.wait(timeout=CHAOS_APART_WAIT_S)
     with open(path, errors="replace") as fh:
         sys.stdout.write(fh.read())
-    sys.stdout.flush()
     os.remove(path)
+    now = time.perf_counter()
+    end = ended.get("at", now)
+    print(f"[time] the side process ended {end - t_start:.3f} s into the "
+          f"run; the main process's card phases ended "
+          f"{t_wait - t_start:.3f} s in and waited "
+          f"{max(end - t_wait, 0.0):.3f} s for it")
+    sys.stdout.flush()
     if rc != 0:
-        raise AssertionError(f"phases cluster and chaos exited {rc}")
+        raise AssertionError(f"the side process (phases db, cluster, "
+                             f"chaos, planes, planes-cluster) exited {rc}")
 
 
 def main() -> int:
@@ -4808,7 +4965,8 @@ def main() -> int:
         return (f"{os.cpu_count()} CPU cores; {alive} of {len(oracles)} "
                 f"SQLite oracle processes, {tbl} of 1 .tbl writer and "
                 f"{side} of 1 side process (phases db, cluster, chaos, "
-                f"planes; 3 nodes and a loader of its own) running")
+                f"planes, planes-cluster; 3 nodes and a loader, then 3 "
+                f"more nodes, of its own) running")
 
     def timed_phase(name, fn, *args):
         """Run one phase with the launch counts set to 0 just before it;
@@ -4887,8 +5045,9 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    _, counts = timed_phase("db, cluster, chaos and planes (the wait)",
-                            finish_chaos_apart, apart)
+    _, counts = timed_phase(
+        "db, cluster, chaos, planes and planes-cluster (the wait)",
+        finish_chaos_apart, apart, t_start)
     print(f"[chaos] kernel launches in this process while it waited: "
           f"{counts} (the side process printed its own)")
     keys = ("name", "route", "source", "replaces", "launches",

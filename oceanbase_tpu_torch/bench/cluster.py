@@ -16,6 +16,16 @@ a node answering ``ping``, a leader, a follower's committed LSN, a weak
 reaps every process it started.  The rot helpers (``flip_segment``,
 ``flip_wal_entry``) corrupt a node's files for ``bench/chaos.py``'s
 scenarios.
+
+The measurement planes' cluster halves (``bench/{trace,metrics,workload,
+planqual,scrub}.py``) boot through ``boot``, as the reference's benches
+boot theirs (``scripts/chaos_bench.py::boot_cluster``: fault verbs
+armed, a pinned nemesis seed, ``dtl_min_rows = 1`` on every node), load
+the slice through ``load_slice`` (1,000-row INSERTs on node 1, then the
+followers' counts; node 1 takes the lead first if an election moved
+it, ``take_lead``), and send every statement to node 1, whose lead
+``lead_from`` checks before each half; ``run_half`` boots, loads and
+runs a half for a twin.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import sys
 import threading
 import time
 
+from oceanbase_tpu_torch.bench import planes
 from oceanbase_tpu_torch.net.rpc import RpcClient, RpcError
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -143,6 +154,22 @@ def flip_wal_entry(path: str) -> int:
     return lsn
 
 
+#: the node module of the port (``NodeCluster``'s default)
+PORT_NODE = "oceanbase_tpu_torch.net.node"
+#: the rows gv$px_exchange shows of a node's exchange ring
+#: (``server/virtual_tables.py::px_exchange``)
+PX_EXCHANGE_VIEW = 1000
+#: every node's knobs before its first boot (``chaos_bench.py:107-125``):
+#: the admin fault verbs armed, the nemesis seed pinned, and every plan
+#: considered for DTL pushdown on whichever node leads
+BENCH_CONFIG = {"enable_fault_injection": True, "fault_seed": 7,
+                "dtl_min_rows": 1}
+#: the slice's INSERT size on a cluster (``trace_bench.py:153``)
+SLICE_BATCH = 1000
+#: each wait of the load: a leader, a statement, a follower's count
+LOAD_WAIT_S = 300.0
+
+
 class ClusterClient:
     """Statements and waits against running nodes, by their ports (a
     process that did not start them, such as a loader, uses this)."""
@@ -238,6 +265,28 @@ class ClusterClient:
         keys = ("hit", "parts", "fallback", "avoided", "bytes", "rows",
                 "remote_device_s")
         return dict(zip(keys, got[0])) if got else None
+
+    def pushdown_bytes(self) -> int:
+        """The coordinators' view of the DTL wire since boot: every
+        node's gv$px_exchange pushdown ``bytes_shipped``, summed
+        (``metrics_bench.py:184-187`` reads node 1's, the only
+        coordinator on its fresh cluster; only a coordinator records a
+        pushdown).  Raises when a node's view is full: the events that
+        scrolled out of it would be missing here while ``rpc.bytes``
+        still counts them."""
+        total = 0
+        for i in sorted(self.clients):
+            res = self.execute(i, "select mode, bytes_shipped from "
+                                  "gv$px_exchange", consistency="weak")
+            if res.get("node") != i:
+                raise RuntimeError(f"weak read left node {i}")
+            got = rows(res)
+            if len(got) >= PX_EXCHANGE_VIEW:
+                raise AssertionError(
+                    f"node {i}'s gv$px_exchange holds {len(got)} rows, its "
+                    f"whole view: older exchanges are no longer counted")
+            total += sum(int(b) for m, b in got if m == "pushdown")
+        return total
 
     def storm(self, i: int, statements: list[str], rounds: int,
               deadline_s: float = 120.0):
@@ -507,3 +556,83 @@ class NodeCluster(ClusterClient):
         for f in self._logs.values():
             f.close()
         self._logs.clear()
+
+
+def boot(root: str, device: str = "cuda", module: str = PORT_NODE,
+         wait: bool = True) -> "NodeCluster":
+    """A 3-node cluster as ``scripts/chaos_bench.py::boot_cluster`` boots
+    it (:101-151): ``BENCH_CONFIG`` in every node's ``config.json``
+    before its first boot, node 1 the bootstrap node; ``module`` picks
+    the package."""
+    return NodeCluster(root, n=3, device=device, module=module, wait=wait,
+                       config=BENCH_CONFIG)
+
+
+def lead_from(c: ClusterClient, node: int = 1,
+              deadline_s: float = LOAD_WAIT_S) -> int:
+    """Every statement of a bench half goes to ``node``, which must lead
+    (gv$px_exchange and gv$sql_audit are the coordinator's): wait for a
+    leader and raise unless it is ``node`` -> ``node``."""
+    ldr = c.leader(deadline_s)
+    if ldr != node:
+        raise AssertionError(f"node {ldr} leads; the bench's statements "
+                             f"go to node {node}")
+    return node
+
+
+def take_lead(c: ClusterClient, node: int = 1,
+              deadline_s: float = LOAD_WAIT_S) -> int:
+    """Wait for a leader; where it is not ``node`` (an election under a
+    loaded host moved the lead off the bootstrap node before the first
+    statement), ``node`` campaigns through the ``disk.takeover`` verb
+    until it leads -> ``node``."""
+    ldr = c.leader(deadline_s)
+    if ldr != node:
+        def won():
+            c.clients[node].call("disk.takeover", from_node=ldr,
+                                 _deadline_s=deadline_s)
+            return c.leader(deadline_s) == node
+
+        wait_for(won, deadline_s,
+                 f"node {node} to take the lead from node {ldr}")
+    return node
+
+
+def load_slice(c: ClusterClient, n_rows: int, node: int = 1,
+               batch: int = SLICE_BATCH,
+               deadline_s: float = LOAD_WAIT_S) -> dict:
+    """The reference's cluster load (``trace_bench.py:150-162``):
+    ``node`` made leader (``take_lead``), CREATE TABLE lineitem and
+    ``batch``-row INSERTs of the slice (seed 1) on ``node``, then the
+    followers' weak counts awaited (``chaos_bench.py::wait_converged``)
+    -> the seconds of each."""
+    cols = planes.gen(n_rows)
+    take_lead(c, node, deadline_s)
+    t0 = time.monotonic()
+    c.execute(node, planes.CREATE_SQL, deadline_s=deadline_s)
+    for s in range(0, n_rows, batch):
+        c.execute(node, planes.insert_sql(cols, s, min(s + batch, n_rows)),
+                  deadline_s=deadline_s)
+    load_s = time.monotonic() - t0
+    converge_s = c.wait_count("lineitem", n_rows,
+                              [i for i in c.clients if i != node],
+                              deadline_s=deadline_s)
+    return {"rows": n_rows, "load_s": round(load_s, 3),
+            "converge_s": round(converge_s, 3)}
+
+
+def run_half(fn, root: str, device: str = "cuda",
+             slice_rows: int | None = None):
+    """Boot a bench cluster of the port's nodes under ``root``, make node
+    1 the leader, load ``slice_rows`` rows of the slice (none when None)
+    -> ``fn(c, load)`` with ``load_slice``'s record (None when nothing
+    was loaded); the nodes are closed on the way out, as each reference
+    half kills its own."""
+    c = boot(root, device)
+    try:
+        take_lead(c)
+        load = None if slice_rows is None else load_slice(c, slice_rows)
+        return fn(c, load)
+    finally:
+        c.close()
+

@@ -36,8 +36,8 @@ INSERT_ROWS = 2000
 WARM = 3
 #: every overhead half's contract (``trace_bench.py:219-221``)
 BOUND_PCT = 2.0
-#: what a port bench writes where the reference runs its cluster half
-CLUSTER_SKIPPED = "skipped: the cluster half waits for ROADMAP Queue 1 item 3"
+#: the cluster halves' rows (``BENCH_CLUSTER_ROWS``, ``trace_bench.py:217``)
+CLUSTER_ROWS = 20_000
 
 
 def gen(n_rows: int, seed: int = SEED) -> dict:
@@ -53,21 +53,28 @@ def gen(n_rows: int, seed: int = SEED) -> dict:
     }
 
 
+#: the slice's 7-column table (``trace_bench.py:61-64``)
+CREATE_SQL = ("create table lineitem (l_id int primary key, l_quantity int,"
+              " l_extendedprice int, l_discount int, l_shipdate int,"
+              " l_returnflag int, l_linestatus int)")
+
+
+def insert_sql(cols: dict, s: int, e: int) -> str:
+    """One INSERT of rows ``s:e`` of ``gen``'s columns, ``l_id`` the
+    row number (``trace_bench.py:65-71``)."""
+    return "insert into lineitem values " + ", ".join(
+        f"({i}, {cols['l_quantity'][i]}, {cols['l_extendedprice'][i]},"
+        f" {cols['l_discount'][i]}, {cols['l_shipdate'][i]},"
+        f" {cols['l_returnflag'][i]}, {cols['l_linestatus'][i]})"
+        for i in range(s, e))
+
+
 def load_inserts(sess, n_rows: int) -> None:
     """CREATE TABLE and 2,000-row INSERTs (``trace_bench.py:61-71``)."""
     cols = gen(n_rows)
-    sess.execute(
-        "create table lineitem (l_id int primary key, l_quantity int,"
-        " l_extendedprice int, l_discount int, l_shipdate int,"
-        " l_returnflag int, l_linestatus int)")
+    sess.execute(CREATE_SQL)
     for s in range(0, n_rows, INSERT_ROWS):
-        e = min(s + INSERT_ROWS, n_rows)
-        vals = ", ".join(
-            f"({i}, {cols['l_quantity'][i]}, {cols['l_extendedprice'][i]},"
-            f" {cols['l_discount'][i]}, {cols['l_shipdate'][i]},"
-            f" {cols['l_returnflag'][i]}, {cols['l_linestatus'][i]})"
-            for i in range(s, e))
-        sess.execute(f"insert into lineitem values {vals}")
+        sess.execute(insert_sql(cols, s, min(s + INSERT_ROWS, n_rows)))
 
 
 def load_numpy(sess, n_rows: int) -> None:

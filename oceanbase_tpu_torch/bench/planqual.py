@@ -21,15 +21,22 @@ port's by default):
             session; >= 2 on the blind ladder with it off
             (``planqual_bench.py:265-307``).
 
-The reference's fourth half (DTL slice skew on a 3-node cluster) waits
-for ROADMAP Queue 1 item 3.
+  skew      over any package's node processes (``bench/cluster.py``): a
+            table whose every row matching ``flag = 1`` hashes, by the
+            port's ``px/dtl.py::slice_mask``, into slice 0, and one of
+            random keys; the pushed-down filter's gv$px_exchange
+            ``slice_skew`` reads >= 3.0 for the first and < 1.5 for the
+            second (``planqual_bench.py:314-375``, gate :411-414).
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
+
 from oceanbase_tpu_torch.bench import planes
+from oceanbase_tpu_torch.bench.cluster import lead_from, rows as rows_of
 from oceanbase_tpu_torch.bench.tpch_queries import QUERIES
 from oceanbase_tpu_torch.server import metrics as port_metrics
 
@@ -46,6 +53,13 @@ MIN_RUNNER_UP = 1       # ``planqual_bench.py:400``
 MIN_RANKING = 0.5       # ``planqual_bench.py:403``
 OVERHEAD_KNOBS = ("enable_sql_plan_monitor", "enable_plan_feedback")
 COVERAGE_KNOBS = ("plan_monitor_sample_every",)
+SKEW_ROWS = 3000        # ``planqual_bench.py:314``
+SKEW_PARTS = 3          # the cluster's nodes (``planqual_bench.py:320``)
+SKEW_SEED = 5           # ``planqual_bench.py:345``
+SKEW_BATCH = 1000       # ``planqual_bench.py:336``
+SKEWED_MIN = 3.0        # ``planqual_bench.py:413``
+UNIFORM_MAX = 1.5       # ``planqual_bench.py:414``
+QUERY_S = 60.0
 
 
 def key_indexes(tables: dict) -> list[tuple[str, str, str]]:
@@ -206,6 +220,82 @@ def feedback(open_db, root: str, metrics=port_metrics) -> dict:
     return out
 
 
+def skew_tables(n_rows: int = SKEW_ROWS) -> dict:
+    """{table: (matching ids, other ids)} of the skew half
+    (``planqual_bench.py:319-348``): ``skewed``'s matching rows all hash
+    into slice 0 of ``SKEW_PARTS``, ``uniform``'s keys are random."""
+    from oceanbase_tpu_torch.px.dtl import slice_mask
+
+    ids = np.arange(n_rows * 4, dtype=np.int64)
+    in_part0 = slice_mask({"k": ids}, ["k"], 0, SKEW_PARTS)
+    n_match = n_rows // 3
+    uni = np.random.default_rng(SKEW_SEED).permutation(ids)[:n_rows]
+    return {"skewed": (ids[in_part0][:n_match],
+                       ids[~in_part0][:n_rows - n_match]),
+            "uniform": (uni[:n_match], uni[n_match:])}
+
+
+def skew(c, n_rows: int = SKEW_ROWS, node: int = 1) -> dict:
+    """The skew half on ``c`` (a ``ClusterClient`` with
+    ``dtl_min_rows = 1``), every statement on ``node`` -> the reference's
+    record, each table's answer size and pushdown beside its skew."""
+    lead_from(c, node)
+
+    def sql(text):
+        return c.execute(node, text, deadline_s=QUERY_S)
+
+    tables = skew_tables(n_rows)
+    n_match = len(tables["skewed"][0])
+    for table, (match, rest) in tables.items():
+        sql(f"create table {table} (k int primary key, flag int, v int)")
+        rows = [(int(k), 1, int(k) % 97) for k in match] + \
+               [(int(k), 0, int(k) % 97) for k in rest]
+        for st in range(0, len(rows), SKEW_BATCH):
+            sql(f"insert into {table} values " + ", ".join(
+                f"({k}, {f}, {v})" for k, f, v in rows[st:st + SKEW_BATCH]))
+    for table in tables:
+        c.wait_count(table, n_rows, [i for i in c.clients if i != node])
+    out = {"rows": n_rows, "matching": n_match}
+    for table in tables:
+        got = rows_of(sql(f"select v from {table} where flag = 1"))
+        (skew_, mx, mean, parts, hit), = rows_of(sql(
+            "select slice_skew, max_slice_rows, mean_slice_rows, parts,"
+            " pushdown_hit from gv$px_exchange where mode = 'pushdown'"
+            " order by ts desc limit 1"))
+        out[table] = {"slice_skew": round(float(skew_), 3),
+                      "max_slice_rows": int(mx),
+                      "mean_slice_rows": round(float(mean), 1),
+                      "parts": int(parts), "answer_rows": len(got),
+                      "pushdown_hit": int(hit)}
+    return out
+
+
+def skew_visible(sk: dict) -> bool:
+    """The reference's ``skew_visible`` check (:411-414)."""
+    return (sk["skewed"]["slice_skew"] >= SKEWED_MIN
+            and sk["uniform"]["slice_skew"] < UNIFORM_MAX)
+
+
+def skew_failures(rec: dict, timing: bool = True) -> list[str]:
+    """Each gate the skew record ``rec`` breaks, by name: the reference's
+    asserts (each filter pushed down and answering its matching rows)
+    and ``skew_visible`` (it reads no time: ``timing`` changes
+    nothing)."""
+    bad = []
+    for table in ("skewed", "uniform"):
+        t = rec.get(table, {})
+        if t.get("answer_rows") != rec.get("matching") or \
+                t.get("pushdown_hit") != 1:
+            bad.append(f"{table}: {t.get('answer_rows')} rows of "
+                       f"{rec.get('matching')}, pushdown_hit "
+                       f"{t.get('pushdown_hit')}")
+    if not bad and not skew_visible(rec):
+        bad.append(f"skew_visible: skewed {rec['skewed']['slice_skew']} "
+                   f"(>= {SKEWED_MIN}), uniform "
+                   f"{rec['uniform']['slice_skew']} (< {UNIFORM_MAX})")
+    return bad
+
+
 def coverage_checks(cov: dict) -> dict:
     """The gate's checks of the coverage half."""
     cm = cov["cost_model"]
@@ -220,10 +310,10 @@ def coverage_checks(cov: dict) -> dict:
     }
 
 
-def checks(cov: dict, ovh: dict, fb: dict) -> dict:
+def checks(cov: dict, ovh: dict, fb: dict, sk: dict | None = None) -> dict:
     """The reference's gate (``planqual_bench.py:393-416``), the
-    cluster's skew check left out."""
-    return {
+    cluster's ``skew_visible`` where the skew half ran."""
+    out = {
         **coverage_checks(cov),
         "overhead_le_2pct": ovh["overhead_pct"] <= planes.BOUND_PCT,
         "feedback_one_retry":
@@ -231,6 +321,9 @@ def checks(cov: dict, ovh: dict, fb: dict) -> dict:
             and fb["on"]["fresh_session_retries"] == 0,
         "ladder_without_feedback": fb["off"]["first_run_retries"] >= 2,
     }
+    if sk is not None:
+        out["skew_visible"] = skew_visible(sk)
+    return out
 
 
 #: the checks that read measured time: the overhead against its bound,
@@ -239,11 +332,13 @@ TIMING = ("overhead_le_2pct", "cost_model_ranking")
 
 
 def run(tpch_db, slice_db, open_db, feedback_root: str, sf: float = SF,
-        repeats: int = REPEATS, metrics=port_metrics) -> dict:
-    """The reference's line with its cluster half skipped: coverage on
-    ``tpch_db`` (its tables loaded, ANALYZEd and indexed at ``sf``), the
-    overhead half on ``slice_db`` (fresh; the slice is direct-loaded into
-    it), the feedback half under ``feedback_root``."""
+        repeats: int = REPEATS, metrics=port_metrics,
+        cluster_half=None) -> dict:
+    """The reference's line: coverage on ``tpch_db`` (its tables loaded,
+    ANALYZEd and indexed at ``sf``), the overhead half on ``slice_db``
+    (fresh; the slice is direct-loaded into it), the feedback half under
+    ``feedback_root``, then ``cluster_half()`` (``skew`` on a cluster of
+    its own) unless it is None, as ``PLANQUAL_SKIP_CLUSTER`` skips it."""
     result = {"metric": "planqual_bench", "sf": sf}
     cov = coverage(tpch_db)
     result["coverage"] = {"sf": sf, **cov}
@@ -252,8 +347,11 @@ def run(tpch_db, slice_db, open_db, feedback_root: str, sf: float = SF,
     s.close()
     result["overhead"] = {"rows": ROWS, **overhead(slice_db, repeats)}
     result["feedback"] = feedback(open_db, feedback_root, metrics)
-    result["skew"] = {"skipped": True, "why": planes.CLUSTER_SKIPPED}
-    result["checks"] = checks(cov, result["overhead"], result["feedback"])
+    result["skew"] = ({"skipped": True} if cluster_half is None
+                      else cluster_half())
+    result["checks"] = checks(cov, result["overhead"], result["feedback"],
+                              None if cluster_half is None
+                              else result["skew"])
     result["ok"] = all(result["checks"].values())
     result["sysstat"] = metrics.sysstat_dict()
     return result
@@ -261,14 +359,19 @@ def run(tpch_db, slice_db, open_db, feedback_root: str, sf: float = SF,
 
 def failures(rec: dict, timing: bool = True) -> list[str]:
     """Each gate the line ``rec`` breaks, by name: the answers of the
-    overhead and feedback halves, then the reference's checks (those in
-    ``TIMING`` only with ``timing``)."""
+    overhead and feedback halves, the skew half's asserts where it ran,
+    then the reference's checks (those in ``TIMING`` only with
+    ``timing``)."""
     bad = []
     if not rec.get("overhead", {}).get("rows_equal"):
         bad.append("rows_equal: monitoring changed results")
     for mode in ("on", "off"):
         if not rec.get("feedback", {}).get(mode, {}).get("answers_ok"):
             bad.append(f"feedback {mode} answers_ok")
+    sk = rec.get("skew", {})
+    if sk and not sk.get("skipped"):
+        bad += [b for b in skew_failures(sk)
+                if not b.startswith("skew_visible")]
     for name, ok in rec.get("checks", {}).items():
         if not ok and (timing or name not in TIMING):
             bad.append(name)

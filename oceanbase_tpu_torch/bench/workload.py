@@ -16,13 +16,18 @@ record fields and gates, each cited by line), over any package's
             ``workload.load`` after a reopen and delta-reportable
             against a fresh one (``workload_bench.py:170-203``).
 
-The reference's fourth lane (a 3-node merged report against
-gv$px_exchange) waits for ROADMAP Queue 1 item 3.
+  cluster   over any package's node processes (``bench/cluster.py``):
+            three pushed-down q6 runs on node 1, then ``analyze workload
+            report`` there, whose snapshot merges every node (``nodes=``
+            three) and whose ``rpc.bytes{verb=dtl.execute}`` row lies
+            within 1% of node 1's gv$px_exchange pushdown bytes; ``show
+            workload report`` renders it (``workload_bench.py:206-278``).
 """
 
 from __future__ import annotations
 
 from oceanbase_tpu_torch.bench import planes
+from oceanbase_tpu_torch.bench.cluster import lead_from, rows as rows_of
 
 ROWS = 100_000          # ``workload_bench.py:282`` (BENCH_ROWS)
 REPEATS = 40            # ``workload_bench.py:283`` (BENCH_REPEATS)
@@ -36,6 +41,11 @@ PHASES = ("queue_s", "bind_s", "sidecar_build_s", "lower_s", "compile_s",
           "dispatch_s", "merge_s", "device_s")
 BAND_PCT = (90.0, 110.0)    # ``workload_bench.py:164``
 KNOBS = ("enable_workload_repo", "workload_snapshot_interval_s")
+CLUSTER_RUNS = 3        # ``workload_bench.py:243``: pushdown traffic
+CLUSTER_NODES = 3       # ``workload_bench.py:271``
+DRIFT_PCT = 1.0         # ``workload_bench.py:272``
+DTL_SERIES = "rpc.bytes{verb=dtl.execute}"
+QUERY_S = 60.0
 
 
 def overhead_and_phases(db, repeats: int = REPEATS) -> dict:
@@ -113,30 +123,65 @@ def restart(open_db, path: str, rows: int = RESTART_ROWS) -> dict:
                 and rep["to_id"] > pre_id and len(rep["rows"]) > 0)}
 
 
+def cluster(c, rows: int, node: int = 1) -> dict:
+    """The cluster lane on ``c`` (a ``ClusterClient`` whose ``lineitem``
+    holds ``rows`` rows of the slice, ``dtl_min_rows = 1``), every
+    statement on ``node`` -> the reference's record."""
+    lead_from(c, node)
+
+    def sql(text):
+        return c.execute(node, text, deadline_s=QUERY_S)
+
+    for _ in range(CLUSTER_RUNS):
+        sql(planes.QUERIES["q6"])
+    rep = rows_of(sql("analyze workload report"))
+    by_item = {(r[0], r[1]): r[2] for r in rep}
+    detail = next((r[3] for r in rep if r[0] == "report"), "")
+    nodes = detail.split("nodes=")[-1].split(",") \
+        if "nodes=" in detail else []
+    rpc_dtl = float(by_item.get(("sysstat", DTL_SERIES), 0.0))
+    dtl_bytes = c.pushdown_bytes()
+    drift_pct = abs(rpc_dtl - dtl_bytes) / max(dtl_bytes, 1) * 100.0
+    tree = rows_of(sql("show workload report"))
+    return {"rows": rows, "nodes_merged": len(nodes),
+            "report_rows": len(rep), "tree_lines": len(tree),
+            "rpc_dtl_bytes": int(rpc_dtl),
+            "px_exchange_bytes": int(dtl_bytes),
+            "drift_pct": round(drift_pct, 4),
+            "reconciled": bool(len(nodes) == CLUSTER_NODES
+                               and dtl_bytes > 0
+                               and drift_pct <= DRIFT_PCT)}
+
+
 def run(db, open_db, restart_path: str, rows: int = ROWS,
-        repeats: int = REPEATS) -> dict:
-    """The reference's line with its cluster lane skipped: the slice
-    INSERTed into ``db`` (a fresh Database of either package) for the
-    overhead and phase lanes, then the restart lane at ``restart_path``
-    on ``min(rows, 20,000)`` rows."""
+        repeats: int = REPEATS, cluster_half=None) -> dict:
+    """The reference's line: the slice INSERTed into ``db`` (a fresh
+    Database of either package) for the overhead and phase lanes, the
+    restart lane at ``restart_path`` on ``min(rows, 20,000)`` rows, then
+    ``cluster_half()`` (``cluster`` on a cluster of its own) unless it
+    is None, as ``WORKLOAD_BENCH_SKIP_CLUSTER`` skips it."""
     s = db.session()
     planes.load_inserts(s, rows)
     s.close()
     out = {"metric": "workload_bench",
            "overhead": {"rows": rows, **overhead_and_phases(db, repeats)},
            "restart": restart(open_db, restart_path,
-                              min(rows, RESTART_ROWS)),
-           "cluster": planes.CLUSTER_SKIPPED}
-    out["ok"] = bool(out["overhead"]["overhead_pct"] <= planes.BOUND_PCT
-                     and out["overhead"]["phases_reconcile"]
-                     and out["restart"]["delta_reportable"])
+                              min(rows, RESTART_ROWS))}
+    ok = (out["overhead"]["overhead_pct"] <= planes.BOUND_PCT
+          and out["overhead"]["phases_reconcile"]
+          and out["restart"]["delta_reportable"])
+    if cluster_half is not None:
+        out["cluster"] = cluster_half()
+        ok = ok and out["cluster"]["reconciled"]
+    out["ok"] = bool(ok)
     return out
 
 
 def failures(rec: dict, timing: bool = True) -> list[str]:
-    """Each gate the line ``rec`` breaks, by name; with ``timing`` False
-    the 2% bound and the phase band are left to the caller to report."""
-    bad = []
+    """Each gate the line ``rec`` breaks, by name (its cluster lane's
+    where it ran); with ``timing`` False the 2% bound and the phase band
+    are left to the caller to report."""
+    bad = cluster_failures(rec["cluster"]) if "cluster" in rec else []
     o, r = rec.get("overhead", {}), rec.get("restart", {})
     if not o.get("rows_equal"):
         bad.append("rows_equal: the snapshot thread changed results")
@@ -153,3 +198,15 @@ def failures(rec: dict, timing: bool = True) -> list[str]:
                        f"{o.get('phase_coverage_pct')} outside "
                        f"{BAND_PCT}")
     return bad
+
+
+def cluster_failures(rec: dict, timing: bool = True) -> list[str]:
+    """Each gate the cluster record ``rec`` breaks, by name (it reads no
+    time: ``timing`` changes nothing)."""
+    if rec.get("reconciled"):
+        return []
+    return [f"reconciled: {rec.get('nodes_merged')} nodes merged, "
+            f"rpc.bytes {rec.get('rpc_dtl_bytes')} against gv$px_exchange "
+            f"{rec.get('px_exchange_bytes')} (drift "
+            f"{rec.get('drift_pct')}%)"]
+

@@ -16,7 +16,8 @@ append), each record held to the reference's invariants.  With
 ``--want PATH`` (a pickle of ``chip_smoke.oracle_results``, the SQLite
 answers) it is the whole run's side process: phase db (a ``Database`` of
 its own at TPC-H scale, checked against those answers) runs while the
-loader loads the nodes, and phase planes after phase chaos.  Prints the
+loader loads the nodes, phase planes after phase chaos while three fresh
+nodes boot, and phase planes-cluster on those nodes last.  Prints the
 phases' lines, each step's seconds, each phase's seconds and the
 kernels' launch counts in this process (set to 0 just before each phase
 and read just after; the nodes run the SQL path, which reaches no
@@ -98,11 +99,16 @@ def main() -> int:
         phase("chaos", chip_smoke.phase_chaos, torch, cluster, workload,
               card)
         if args.want:
+            planes_cluster = chip_smoke.start_planes_cluster()
             phase("planes", chip_smoke.phase_planes, torch, dev, card)
+            phase("planes-cluster", chip_smoke.phase_planes_cluster, torch,
+                  planes_cluster, card)
     finally:
         cluster.close()
         for i in (1, 2, 3):  # each boot's split, one line per start
             print(f"[chaos] node {i} log:\n{cluster.log_tail(i, 4000)}")
+    print(f"[time] the side process's phases: "
+          f"{time.perf_counter() - t0:.3f} s")
     print(card, flush=True)
     return 1 if any(any(c.values()) for c in launched.values()) else 0
 

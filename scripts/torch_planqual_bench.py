@@ -4,20 +4,24 @@
     python3 scripts/torch_planqual_bench.py                 # on the card
     python3 scripts/torch_planqual_bench.py --device cpu
     PLANQUAL_SF=0.01 PLANQUAL_REPEATS=16 python3 scripts/torch_planqual_bench.py --device cpu
+    PLANQUAL_SKIP_CLUSTER=1 python3 scripts/torch_planqual_bench.py
 
-The port's twin of ``scripts/planqual_bench.py`` with its cluster half
-skipped, as ``PLANQUAL_SKIP_CLUSTER=1`` skips it (that half waits for
-ROADMAP Queue 1 item 3; ``oceanbase_tpu_torch/bench/planqual.py``):
-TPC-H at ``PLANQUAL_SF`` (default 0.1) direct-loaded into one in-process
-``Database``, ANALYZEd and given the ``*key`` indexes, each of the 22
-queries' operators held to an estimate, and gv$plan_choice's counts and
-ranking; the plan monitor and feedback off and on over 20,000 rows of
-the slice in interleaved samples (``PLANQUAL_REPEATS``, default 96); the
-seeded 100 x 100 duplicate-key join with feedback on and off.  Prints
-the reference's one JSON line and exits 1 where it would (any of its
-checks false) or where an answer differs.  ``--out PATH`` also writes
-the line there; nothing else is written outside a temporary directory.
-Runs on the card unless ``--device cpu``; imports nothing of JAX.
+The port's twin of ``scripts/planqual_bench.py``
+(``oceanbase_tpu_torch/bench/planqual.py``): TPC-H at ``PLANQUAL_SF``
+(default 0.1) direct-loaded into one in-process ``Database``, ANALYZEd
+and given the ``*key`` indexes, each of the 22 queries' operators held
+to an estimate, and gv$plan_choice's counts and ranking; the plan
+monitor and feedback off and on over 20,000 rows of the slice in
+interleaved samples (``PLANQUAL_REPEATS``, default 96); the seeded 100 x
+100 duplicate-key join with feedback on and off; then, unless
+``PLANQUAL_SKIP_CLUSTER`` is set, DTL slice skew on three
+``oceanbase_tpu_torch.net.node`` processes on the same device (3,000
+rows per table: a skewed ``slice_skew`` >= 3.0, a uniform one < 1.5).
+Prints the reference's one JSON line and exits 1 where it would (any of
+its checks false) or where an answer differs.  ``--out PATH`` also
+writes the line there; nothing else is written outside a temporary
+directory.  Runs on the card unless ``--device cpu``; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the JSON line to this file")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
-    from oceanbase_tpu_torch.bench import planes, planqual
+    from oceanbase_tpu_torch.bench import cluster, planes, planqual
     from oceanbase_tpu_torch.bench.tpch import TPCH_PRIMARY_KEYS, gen_tpch
     from oceanbase_tpu_torch.server.database import Database
 
@@ -46,6 +50,10 @@ def main() -> int:
     repeats = int(os.environ.get("PLANQUAL_REPEATS", str(planqual.REPEATS)))
     tables, types = gen_tpch(sf=sf)
     root = tempfile.mkdtemp(prefix="torch_planqual_bench_")
+
+    def half():
+        return cluster.run_half(lambda c, _load: planqual.skew(c),
+                                os.path.join(root, "cluster"), args.device)
 
     def open_db(path):
         return Database(path, device=args.device)
@@ -61,7 +69,9 @@ def main() -> int:
             s.close()
             rec = planqual.run(tpch, slice_db, open_db,
                                os.path.join(root, "feedback"), sf,
-                               repeats=repeats)
+                               repeats=repeats, cluster_half=None if
+                               os.environ.get("PLANQUAL_SKIP_CLUSTER")
+                               else half)
         finally:
             slice_db.close()
             tpch.close()

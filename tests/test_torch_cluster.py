@@ -462,6 +462,23 @@ def test_an_unshippable_follower_leaves_the_leader_in_place(tmp_path):
     assert out["port"] == out["ref"]
 
 
+#: the harness's deadlines for one election (``disk.takeover``) and one
+#: state read (``recovery.state``) in the demoted-preparer scenario
+TAKEOVER_DEADLINE_S = 60.0
+STATE_DEADLINE_S = 30.0
+#: its detectors declare no peer down: under a loaded test run a
+#: reference node's missed pings made a peer "down" and its campaign
+#: (``palf/netcluster.py::on_peer_down``) took the lead back to node 1
+#: before the commit, which the scenario sends to node 2 as its leader
+STEADY_DETECTOR = {"health_down_threshold": 1000,
+                   "health_suspect_threshold": 999}
+#: and its leases are long: under a loaded test run the port's commit
+#: once ran on node 3, whose one way to the lead here is the campaign of
+#: a follower that hears no leader for 3-6 leases
+#: (``palf/netcluster.py::campaign_if_leaderless``; 1.5 s by default)
+STEADY_LEASE_MS = 6000
+
+
 def _scn_demoted_preparer(c):
     c.execute(1, "create table t (k int primary key, v int)")
     c.execute(1, "insert into t values (1, 10)")
@@ -470,20 +487,25 @@ def _scn_demoted_preparer(c):
         c.execute(1, sql, session_id=7)
     c.wait_caught_up(deadline_s=60)
     # node 2 campaigns and wins while node 1, the branch's preparer,
-    # stays up as a follower
-    assert c.clients[2].call("disk.takeover", from_node=1) is True
+    # stays up as a follower; the verb's own 10 s deadline is the
+    # election's budget on an idle host, and a reference node under a
+    # loaded test run overran it once, so the harness waits longer
+    assert c.clients[2].call("disk.takeover", from_node=1,
+                             _deadline_s=TAKEOVER_DEADLINE_S) is True
     c.leader(30, exclude=(1,))
     # node 1 has seen the new term (a forwarded statement then cannot
     # run on it as a stale leader)
     wait_for(lambda: c.clients[1].call("node.state")["role"] == "follower",
              30, "node 1 to step down")
-    recovered = "dx1" in c.clients[2].call("recovery.state")[
-        "prepared_xids"]
+    recovered = "dx1" in c.clients[2].call(
+        "recovery.state", _deadline_s=STATE_DEADLINE_S)["prepared_xids"]
     committed_on = c.execute(2, "xa commit 'dx1'", session_id=7)["node"]
     # every node has applied the commit record: then read each replica
     c.wait_caught_up(nodes=(1, 3), deadline_s=60)
     return [recovered, committed_on, [c.count(i, "t") for i in (1, 2, 3)],
-            "dx1" in c.clients[1].call("recovery.state")["prepared_xids"]]
+            "dx1" in c.clients[1].call(
+                "recovery.state", _deadline_s=STATE_DEADLINE_S)[
+                    "prepared_xids"]]
 
 
 def test_a_branch_committed_after_its_preparer_lost_the_lead(tmp_path):
@@ -498,7 +520,8 @@ def test_a_branch_committed_after_its_preparer_lost_the_lead(tmp_path):
     for tag, module in (("ref", "oceanbase_tpu.net.node"),
                         ("port", "oceanbase_tpu_torch.net.node")):
         c = NodeCluster(str(tmp_path / tag), n=3, device="cpu",
-                        module=module)
+                        module=module, lease_ms=STEADY_LEASE_MS,
+                        config=STEADY_DETECTOR)
         try:
             out[tag] = _scn_demoted_preparer(c)
         finally:

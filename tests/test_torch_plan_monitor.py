@@ -13,9 +13,12 @@ ledger against the JAX package's, on the CPU.
   as often as with all of them off, and at most once (counting
   ``Tensor.item``/``__int__``/``__bool__``/``tolist``/``cpu``/``numpy``);
 - the single-node cases of the reference's ``tests/test_planqual.py``
-  and ``tests/test_explain_infoschema.py``.  Their DTL and MCV cases are
-  left out: DTL waits for ROADMAP Queue 1 item 3, and MCV selectivity
-  belongs to the optimizer, held by ``test_torch_sql_frontend.py``."""
+  and ``tests/test_explain_infoschema.py``; its MCV case is left out
+  (MCV selectivity belongs to the optimizer, held by
+  ``test_torch_sql_frontend.py``);
+- its DTL case (slow, as the reference marks it) on a 3-node cluster of
+  each package's node processes: the ``DtlPartial:<op>`` monitor rows
+  of a pushed-down aggregate and gv$px_exchange's per-slice rows."""
 
 import itertools
 import json
@@ -490,3 +493,56 @@ def test_information_schema_and_row_counts(tmp_path):
                      " where table_name = 't'").rows()
     assert cols == [("k", 1, "PRI"), ("v", 2, "")]
     db.close()
+
+
+def _scn_dtl_monitor(c):
+    """``tests/test_planqual.py::test_dtl_qerror_and_slice_attribution``
+    (:342-389) on a running cluster -> its record."""
+    from oceanbase_tpu_torch.bench.cluster import rows
+
+    c.execute(1, "create table q (k int primary key, v int)")
+    v = np.random.default_rng(7).integers(0, 100, 3000)
+    for s0 in range(0, 3000, 750):
+        c.execute(1, "insert into q values " + ", ".join(
+            f"({i}, {v[i]})" for i in range(s0, s0 + 750)))
+    c.wait_count("q", 3000, nodes=(2,), deadline_s=60)
+    c.execute(1, "alter system set dtl_min_rows = 1")
+    got = rows(c.execute(1, "select sum(v), count(*) from q where v < 50"))
+    sel = v < 50
+    ledger = rows(c.execute(
+        1, "select operator, est_rows, output_rows, q_error from"
+           " gv$sql_plan_monitor where path = 'dtl'"
+           " and operator like 'DtlPartial:%'"))
+    scan = [x for x in ledger if x[0] == "DtlPartial:TableScan"]
+    (parts, mx, mean, skew), = rows(c.execute(
+        1, "select parts, max_slice_rows, mean_slice_rows, slice_skew"
+           " from gv$px_exchange where mode = 'pushdown'"
+           " order by ts desc limit 1"))
+    return {"answer": got == [(int(v[sel].sum()), int(sel.sum()))],
+            "operators": sorted({x[0] for x in ledger}),
+            "scan": scan[-1][1:3] if scan else None,
+            "q_error_ge_1": all(x[3] >= 1.0 for x in ledger if x[1] != -1),
+            "parts": parts, "slices": mx >= 1 and mean > 0,
+            "balanced": 0.0 < skew < 1.5}
+
+
+@pytest.mark.slow
+def test_dtl_qerror_and_slice_attribution(tmp_path):
+    from oceanbase_tpu_torch.bench.cluster import NodeCluster
+    from torch_pair import NODE_PACKAGES
+
+    out = {}
+    for tag, module in NODE_PACKAGES:
+        c = NodeCluster(str(tmp_path / tag), n=3, device="cpu",
+                        module=module)
+        try:
+            out[tag] = _scn_dtl_monitor(c)
+        finally:
+            c.close()
+    assert out["ref"]["operators"], "remote per-op ledger rows missing"
+    assert out["ref"]["scan"] == (3000, 3000)
+    assert out["ref"]["answer"] and out["ref"]["q_error_ge_1"]
+    assert out["ref"]["parts"] == 3 and out["ref"]["slices"]
+    assert out["ref"]["balanced"]
+    assert out["port"] == out["ref"]
+

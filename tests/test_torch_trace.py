@@ -6,9 +6,11 @@ trace trees with equal span names and parentage (the reference's
 ``xla.compile`` span has no counterpart: eager torch compiles nothing),
 and equal retention under the sample rate, the slow threshold and a
 failing statement.  The single-node cases of the reference's
-``tests/test_trace.py`` follow; its 3-node DTL case waits for ROADMAP
-Queue 1 item 3 and its poisoned-lane case runs in
-``test_torch_plan_monitor.py`` with the whole plane on."""
+``tests/test_trace.py`` follow; its 3-node DTL case runs in
+``test_torch_cluster.py::test_remote_trace_spans_under_the_statement``
+and ``test_torch_plane_cluster.py`` (attribution), and its
+poisoned-lane case in ``test_torch_plan_monitor.py`` with the whole
+plane on."""
 
 import json
 

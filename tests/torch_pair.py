@@ -73,6 +73,10 @@ class Pkg:
 
 J = Pkg("oceanbase_tpu")
 T = Pkg("oceanbase_tpu_torch")
+#: each package's node module, for the tests that boot a ``NodeCluster``
+#: of each (``oceanbase_tpu_torch/bench/cluster.py``) and hold the two
+NODE_PACKAGES = (("ref", "oceanbase_tpu.net.node"),
+                 ("port", "oceanbase_tpu_torch.net.node"))
 
 
 def outcome(fn, *args, **kw):
